@@ -1,0 +1,42 @@
+"""mpit_tpu_torch — the PyTorch/CUDA port of ``mpit_tpu`` for one NVIDIA H100.
+
+The JAX package ``mpit_tpu`` is the reference; this package imports only
+``torch`` and numpy, never JAX and nothing of ``mpit_tpu``. It keeps the
+reference's module names, so each module's counterpart is found by name:
+
+- ``comm``      — topology (W workers stacked on one device) and the sums
+  over the worker dim.
+- ``goptim``    — EASGD / EAMSGD / Downpour math.
+- ``optim``     — SGD with momentum as ``optax.sgd`` computes it.
+- ``ops``       — hand-written CUDA kernels (the fused elastic update),
+  each beside its plain PyTorch version.
+- ``models``    — LeNet and the MLP, with flax-keyed parameter trees;
+  ``convert`` carries weights between the two packages.
+- ``parallel``  — the EASGD trainer.
+- ``data``      — MNIST or its synthetic stand-in, batches, prefetch.
+- ``utils``     — parameter trees, config, metrics, completion barrier.
+- ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"
+
+from mpit_tpu_torch.comm import (  # noqa: F401
+    AVG,
+    SUM,
+    Topology,
+    allreduce,
+    finalize,
+    init,
+    is_initialized,
+    pmean,
+    psum,
+    size,
+    topology,
+)
+from mpit_tpu_torch.utils.params import (  # noqa: F401
+    FlatParamSpec,
+    flatten_params,
+    unflatten_params,
+)

@@ -1,0 +1,118 @@
+"""EASGD / EAMSGD trainer on one device; counterpart of
+``mpit_tpu/parallel/easgd.py``.
+
+Every worker keeps its own params and optimizer state, stacked on dim 0
+(the reference's own stacked layout, there sharded over the mesh); the
+center is one unstacked tree. A round is τ local steps, each computing all
+W workers' gradients at once (``torch.func.vmap`` over
+``torch.func.grad_and_value``, the counterpart of the reference's
+``shard_map``), then one ``goptim.easgd_round``: a sum of the client diffs
+and the fused elastic kernel, one launch per parameter leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from mpit_tpu_torch import goptim
+from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.comm.topology import topology as _current_topology
+from mpit_tpu_torch.parallel import common
+from mpit_tpu_torch.utils.params import tree_map
+
+
+@dataclasses.dataclass
+class EASGDState:
+    """worker_params/worker_opt have a leading worker dim W; center has
+    none. ``round`` counts completed exchange rounds."""
+
+    worker_params: Any
+    worker_opt: Any
+    center: Any
+    round: int = 0
+
+
+def _stack(tree: Any, w: int) -> Any:
+    return tree_map(lambda a: a.unsqueeze(0).repeat(w, *([1] * a.dim())), tree)
+
+
+class EASGDTrainer(common.RoundTrainer):
+    """Elastic-averaging SGD over W stacked workers.
+
+    Args:
+      model: a port model (``init``/``apply``), or None when a custom
+        ``loss_fn`` over raw params is given with ``init_state(params=...)``.
+      optimizer: the *local* optimizer (EAMSGD = momentum here), e.g.
+        ``optim.SGD(lr, momentum)``.
+      topo: the topology (default: the current one).
+      alpha: elastic coupling; default 0.9/W, the paper's β/W rule.
+      tau: communication period (local steps per exchange round).
+      use_kernel: the elastic update's kernel switch (``ops.elastic``):
+        None = the CUDA kernel for CUDA tensors, plain PyTorch on the CPU.
+      exchange_dtype: sum the client diffs in this dtype (e.g.
+        ``torch.bfloat16``); None = exact float32.
+    """
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        topo: Optional[Topology] = None,
+        loss_fn: Optional[Callable] = None,
+        alpha: Optional[float] = None,
+        tau: int = 4,
+        use_kernel: Optional[bool] = None,
+        exchange_dtype: Optional[torch.dtype] = None,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.use_kernel = use_kernel
+        self.exchange_dtype = exchange_dtype
+        self.topo = topo if topo is not None else _current_topology()
+        self.tau = int(tau)
+        w = self.topo.num_workers
+        self.alpha = float(alpha) if alpha is not None else 0.9 / w
+        self.loss_fn = (
+            loss_fn if loss_fn is not None else common.default_loss_fn(model.apply)
+        )
+        # all W workers' (grads, loss) in one batched call
+        self._grad = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))
+        self._log_tag = "easgd"
+
+    def init_state(
+        self, generator: Optional[torch.Generator] = None, params: Any = None
+    ) -> EASGDState:
+        """All workers and the center start from identical params: the
+        given tree, or ``model.init(generator)``."""
+        if params is None:
+            params = self.model.init(generator)
+        params = tree_map(lambda a: a.detach().to(self.topo.device), params)
+        w = self.topo.num_workers
+        return EASGDState(
+            worker_params=_stack(params, w),
+            worker_opt=_stack(self.optimizer.init(params), w),
+            center=tree_map(torch.clone, params),
+        )
+
+    def _round(self, state: EASGDState, x: torch.Tensor, y: torch.Tensor):
+        """τ local steps on x, y of shape (W, τ, B, ...), then the exchange.
+        Returns the new state and ``{"loss": mean over workers and steps}``
+        as a device scalar (no host sync)."""
+        params, opt = state.worker_params, state.worker_opt
+        losses = []
+        for t in range(self.tau):
+            grads, loss = self._grad(params, x[:, t], y[:, t])
+            params, opt = self.optimizer.update(params, grads, opt)
+            losses.append(loss)
+        params, center = goptim.easgd_round(
+            params, state.center, self.alpha,
+            use_kernel=self.use_kernel, compress_dtype=self.exchange_dtype,
+        )
+        new = EASGDState(params, opt, center, state.round + 1)
+        return new, {"loss": torch.stack(losses).mean()}
+
+    def center_params(self, state: EASGDState):
+        return state.center
