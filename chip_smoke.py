@@ -13,17 +13,33 @@ non-zero before the result lines:
              the reference's test shapes and at the shapes the main path gives
              it, with TF32 off; timed with CUDA events beside its bound, the
              plain version and one PyTorch library call of the same function.
-4. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
+4. flash   — the three flash-attention kernels (forward, dQ, dK/dV) against
+             their plain versions at the reference's test cases and at the
+             transformer path's shape, the autograd path against dense
+             attention's gradients, and T = 100 going to dense with no launch;
+             timed as in 3, with ``scaled_dot_product_attention`` (forward,
+             and its autograd backward) as the library yardstick.
+5. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
              against the same round on the CPU (plain version).
-5. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
-             workers stacked on the card, bf16 LeNet; the kernels' launch
-             counts are set to 0 just before and read just after.
-6. profile — ``torch.profiler`` over a few of the same rounds: the card's
+6. step    — one sync-DP step of an f32 2-layer flash transformer on the card
+             (kernels) against the same step on the CPU (plain versions).
+7. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
+             workers stacked on the card, bf16 LeNet; the elastic kernel's
+             launch count is set to 0 just before and read just after.
+8. profile — ``torch.profiler`` over a few of the same rounds: the card's
              busy share and the kernels that take the most time.
+9. lm      — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
+             flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
+             global batch 8), one epoch over a cut training set; the flash
+             kernels' launch counts are set to 0 just before and read after.
+10. lm-profile — ``torch.profiler`` over a few of the same steps.
 
 Then a JSON line ``{"kernels": [...]}`` and, last, the device line
-``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
-result. It needs the repository beside it: alone it fails at the import.
+``{"ok": true, "device": {...}}``. The script uses one card: it hides the
+others (``CUDA_VISIBLE_DEVICES``) before CUDA starts, so the device line's
+count is the number of cards the run used. Without CUDA it exits 2 and
+prints no result. It needs the repository beside it: alone it fails at the
+import.
 """
 
 from __future__ import annotations
@@ -31,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -40,17 +57,34 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 dense tensor cores
 TOL = 1e-6                 # FMA contraction moves the last bit
 WORKERS = 8
+# the reference's flash tolerances (tests/test_flash_attention.py)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+LM_SHAPE = (8, 512, 12, 64)  # (B, T, H, D) of ptb-transformer-large's attention
+LM_LAYERS = 6
+LM_TRAIN_WINDOWS = 512       # 64 steps of global batch 8
 
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
+def one_card(environ) -> str:
+    """The card the run uses: the first one CUDA would show."""
+    return environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip() or "0"
+
+
+def device_line(kind: str, count: int) -> dict:
+    return {"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}
+
+
 def card() -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", one_card(os.environ),
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     phase("card", out)
@@ -63,9 +97,16 @@ def build() -> None:
     t0 = time.perf_counter()
     outputs = _build.build_all()
     for name, out in outputs.items():
+        kernel = name
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                phase("build", f"{name}: {line.strip()}")
+            entry = "Compiling entry function" in line and re.search(
+                r"([a-z]+_[a-z_]*?_kernel)(?:I(f|13__nv_bfloat16)Li(\d+)E)?", line)
+            if entry:
+                kname, dtype, width = entry.groups()
+                kernel = kname + (f"<{'bf16' if dtype != 'f' else 'f32'}, D<={width}>"
+                                  if width else "")
+            elif "registers" in line or "spill" in line:
+                phase("build", f"{kernel}: {line.strip()}")
     phase("build", f"{len(outputs)} source(s) compiled in "
           f"{time.perf_counter() - t0:.2f} s (set-up)")
 
@@ -195,6 +236,142 @@ def kernels_vs_plain() -> dict:
     )
 
 
+def flash_bytes_flops(kernel: str, bh: int, t: int, d: int, elt: int,
+                      causal: bool) -> tuple[int, float]:
+    """Least bytes moved (each input read once, each output written once)
+    and the FLOPs of the products this causal/full attention needs."""
+    tensors = {"flash_forward": 4, "flash_dq": 5, "flash_dkv": 6}[kernel]
+    rows = {"flash_forward": 1, "flash_dq": 2, "flash_dkv": 2}[kernel]
+    products = {"flash_forward": 2, "flash_dq": 3, "flash_dkv": 4}[kernel]
+    pairs = bh * (t * (t + 1) // 2 if causal else t * t)
+    return tensors * bh * t * d * elt + rows * bh * t * 4, 2.0 * products * pairs * d
+
+
+def flash_bound_ms(kernel, bh, t, d, elt, causal) -> tuple[float, str]:
+    nbytes, flops = flash_bytes_flops(kernel, bh, t, d, elt, causal)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def flash_vs_plain() -> dict:
+    """The three flash kernels against their plain versions, then timed at
+    the transformer path's shape. Returns a row per kernel."""
+    from mpit_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    err = {k: 0.0 for k in fa.launches}
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(3)]
+
+    def close(name, got, want, tol):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        err[name] = max(err[name], (got.float() - want.float()).abs().max().item())
+
+    def against_plain(shape, dtype, causal):
+        q, k, v = (fa._to2d(x) for x in qkv(shape, dtype))
+        do = fa._to2d(qkv(shape, dtype)[0])
+        o, lse = fa.flash_forward_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        po, plse = fa.flash_forward_plain(q, k, v, causal)
+        close("flash_forward", o, po, FLASH_TOL[dtype])
+        close("flash_forward", lse, plse, FLASH_TOL[dtype])
+        dd = (do.float() * po.float()).sum(-1)
+        dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, causal)
+        dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, causal)
+        torch.cuda.synchronize()
+        pdq = fa.flash_dq_plain(q, k, v, do, plse, dd, causal)
+        pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, causal)
+        close("flash_dq", dq, pdq, FLASH_GRAD_TOL[dtype])
+        close("flash_dkv", dk, pdk, FLASH_GRAD_TOL[dtype])
+        close("flash_dkv", dv, pdv, FLASH_GRAD_TOL[dtype])
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((2, 256, 2, 16), f32, True), ((2, 256, 2, 16), f32, False),
+             ((2, 256, 2, 16), bf16, True), ((2, 128, 2, 16), f32, True),
+             ((2, 128, 2, 16), f32, False), ((1, 64, 3, 8), f32, True),
+             ((1, 128, 2, 128), bf16, True), ((1, 96, 2, 40), f32, False),
+             (LM_SHAPE, bf16, True)]
+    for shape, dtype, causal in cases:
+        against_plain(shape, dtype, causal)
+    phase("flash", f"{len(cases)} cases, each kernel against its plain version "
+          f"(f32 {FLASH_TOL[f32]}, bf16 forward {FLASH_TOL[bf16]}, bf16 "
+          f"gradients {FLASH_GRAD_TOL[bf16]}): max |err| " + json.dumps(err))
+
+    # training through the autograd.Function against dense attention's
+    # gradients: the reference's gradient cases (t, blocks, causal, dtype).
+    # The loss is O against a fixed N(0, 1) cotangent, so the gradients are
+    # O(1) and most of their elements lie beyond the tolerance.
+    grad_cases = [(128, 128, True, f32), (256, 128, True, f32),
+                  (256, 128, False, f32), (128, 32, True, f32),
+                  (256, 128, True, bf16)]
+    for t, blocks, causal, dtype in grad_cases:
+        xs = [x.requires_grad_() for x in qkv((2, t, 2, 16), dtype)]
+        r = torch.randn((2, t, 2, 16), generator=gen, device="cuda")
+        out = fa.flash_attention(*xs, causal=causal, block_q=blocks,
+                                 block_k=blocks, use_kernel=True)
+        g = torch.autograd.grad((out.float() * r).sum(), xs)
+        want = torch.autograd.grad(
+            (fa.dense_attention(*xs, causal=causal).float() * r).sum(), xs)
+        tol = FLASH_GRAD_TOL[dtype]
+        for a, b in zip(g, want):
+            if (b.float().abs() > tol).float().mean().item() <= 0.5:
+                raise AssertionError("gradients too small for the tolerance to hold them")
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    before = dict(fa.launches)
+    q, k, v = qkv((2, 100, 2, 16), f32)
+    torch.testing.assert_close(fa.flash_attention(q, k, v, causal=True, use_kernel=True),
+                               fa.dense_attention(q, k, v, causal=True), rtol=0, atol=0)
+    if fa.launches != before:
+        raise AssertionError(f"T = 100 launched a kernel: {before} -> {fa.launches}")
+    phase("flash", f"autograd through the kernels matches dense attention's "
+          f"gradients in {len(grad_cases)} cases; T = 100 goes to dense with no launch")
+
+    # times at the path's shape: (B*H, T, D) = (96, 512, 64) bf16 causal
+    b, t, h, d = LM_SHAPE
+    q4, k4, v4 = qkv(LM_SHAPE, bf16)
+    q, k, v = (fa._to2d(x) for x in (q4, k4, v4))
+    do = fa._to2d(qkv(LM_SHAPE, bf16)[0])
+    o, lse = fa.flash_forward_plain(q, k, v, True)
+    dd = (do.float() * o.float()).sum(-1)
+    # library yardstick: SDPA on (B, H, T, D), forward, and its backward
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q4, k4, v4))
+    dos = do.reshape(b, h, t, d)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, is_causal=True)
+    sdpa_out = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qs, ks, vs), dos, retain_graph=True)
+    fns = {
+        "flash_forward": (lambda: fa.flash_forward_cuda(q, k, v, True),
+                          lambda: fa.flash_forward_plain(q, k, v, True), sdpa),
+        "flash_dq": (lambda: fa.flash_dq_cuda(q, k, v, do, lse, dd, True),
+                     lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, True), sdpa_bwd),
+        "flash_dkv": (lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, True),
+                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, True), sdpa_bwd),
+    }
+    rows = {}
+    replaces = {"flash_forward": "mpit_tpu/ops/flash_attention.py:358",
+                "flash_dq": "mpit_tpu/ops/flash_attention.py:272",
+                "flash_dkv": "mpit_tpu/ops/flash_attention.py:288"}
+    for name, (kern, plain, lib) in fns.items():
+        bound, by = flash_bound_ms(name, b * h, t, d, 2, True)
+        row = dict(name=name, route="cuda",
+                   source="mpit_tpu_torch/ops/csrc/flash_attention.cu",
+                   replaces=replaces[name], max_abs_err=err[name],
+                   ms=time_ms(kern, reps=10, trials=5),
+                   plain_ms=time_ms(plain, reps=5, trials=3),
+                   bound_ms=bound, bound_by=by,
+                   library_ms=time_ms(lib, reps=10, trials=5),
+                   device_ms=device_ms(kern), device_library_ms=device_ms(lib))
+        rows[name] = row
+        phase("flash", json.dumps(row))
+    return rows
+
+
 def round_vs_cpu() -> None:
     """One EASGD round of an f32 LeNet on the card (through the kernel)
     against the same round on the CPU (plain version)."""
@@ -316,7 +493,159 @@ def profile_rounds(rounds: int = 4) -> None:
               f"{e.count // rounds:4d} calls/round  {e.key[:90]}")
 
 
+def step_vs_cpu() -> None:
+    """One sync-DP step of an f32 2-layer flash transformer on the card
+    (through the kernels) against the same step on the CPU (plain
+    versions), from the same params and batch."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models import TransformerLM
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import DataParallelTrainer
+    from mpit_tpu_torch.utils.params import tree_leaves, tree_map
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 97, (WORKERS, 128)).astype(np.int32)
+    y = rng.integers(0, 97, (WORKERS, 128)).astype(np.int32)
+    make = lambda dev: TransformerLM(  # noqa: E731
+        97, num_layers=2, d_model=64, num_heads=4, max_len=128,
+        compute_dtype=torch.float32, attn_impl="flash", device=dev)
+    params = make("cpu").init(torch.Generator().manual_seed(0))
+    out, losses = {}, {}
+    before = dict(fa.launches)
+    for dev in ("cuda", "cpu"):
+        trainer = DataParallelTrainer(make(dev), SGD(0.1),
+                                      Topology(WORKERS, torch.device(dev)))
+        state = trainer.init_state(params=tree_map(torch.clone, params))
+        state, m = trainer.step(state, x, y)
+        out[dev] = [t.cpu() for t in tree_leaves(state.params)]
+        losses[dev] = float(m["loss"])
+    got = {k: fa.launches[k] - before[k] for k in fa.launches}
+    if got != {"flash_forward": 2, "flash_dq": 2, "flash_dkv": 2}:
+        raise AssertionError(f"card step launched {got}, not 2 of each kernel")
+    err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+    if not err <= 1e-4 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
+        raise AssertionError(f"card step differs from CPU step: params {err}, "
+                             f"losses {losses}")
+    phase("step", f"f32 2-layer flash transformer, one sync step, card vs CPU: "
+          f"max |param err| {err:.3g}, loss {losses['cuda']:.6f} vs "
+          f"{losses['cpu']:.6f} (tolerance 1e-4)")
+
+
+def lm_config():
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    return dataclasses.replace(
+        TrainConfig().apply_preset("ptb-transformer-large"),
+        algo="sync", attn_impl="flash", epochs=1, train_size=LM_TRAIN_WINDOWS,
+    )
+
+
+def lm_path(flash: dict) -> dict:
+    """The transformer main path through ``run()``; returns the launches
+    per flash kernel."""
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import _ptb_windows, run
+
+    cfg = lm_config()
+    phase("lm", f"preset ptb-transformer-large, algo sync, attn flash: layers "
+          f"{cfg.layers}, d_model {cfg.d_model}, heads {cfg.heads}, T {cfg.seq_len}, "
+          f"global batch {cfg.global_batch}, {cfg.optimizer} lr {cfg.lr} "
+          f"{cfg.lr_schedule}, train_size {cfg.train_size} windows")
+    warm = run(dataclasses.replace(cfg, train_size=16 * cfg.global_batch))
+    phase("lm", f"warm-up run: {warm['samples_per_sec']:.2f} samples/s")
+
+    for k in fa.launches:
+        fa.launches[k] = 0
+    res = run(cfg)
+    launches = dict(fa.launches)
+
+    steps = res["trained_units"]
+    losses = res["round_losses"]
+    # the eval forwards: the reference's eval batches, 64 windows at a time
+    x_va = _ptb_windows(cfg)[2]
+    batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
+    n_batches = len(x_va) // batch
+    eval_chunks = n_batches * -(-batch // 64)
+    want = {"flash_forward": LM_LAYERS * (steps + eval_chunks),
+            "flash_dq": LM_LAYERS * steps, "flash_dkv": LM_LAYERS * steps}
+    if launches != want:
+        raise AssertionError(f"flash launches {launches} != {want} "
+                             f"({steps} steps, {eval_chunks} eval forwards)")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 8 steps {first}, last 8 {last}")
+    step_ms = 1e3 * res["wall_s"] / steps
+    attn_ms = LM_LAYERS * sum(flash[k]["ms"] for k in flash)
+    phase("lm", json.dumps({k: res[k] for k in (
+        "accuracy", "eval_loss", "final_loss", "trained_units", "samples",
+        "wall_s", "samples_per_sec")}))
+    phase("lm", f"losses: first 8 steps {first:.4f}, last 8 {last:.4f}; "
+          f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s")
+    phase("lm", f"flash launches {json.dumps(launches)} = {steps} steps x "
+          f"{LM_LAYERS} layers (+ {LM_LAYERS} x {eval_chunks} eval forwards); "
+          f"step {step_ms:.3f} ms, of which the flash kernels (CUDA-event "
+          f"times x {LM_LAYERS}) {attn_ms:.3f} ms ({100 * attn_ms / step_ms:.1f}%)")
+    return launches
+
+
+def profile_lm(steps: int = 3) -> None:
+    """Where a transformer step's time goes: ``torch.profiler`` over a few
+    sync steps built as ``run()`` builds them, after two warm-up steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.run import _ptb_windows, build_model, build_optimizer, build_trainer
+
+    cfg = lm_config()
+    topo = topology()
+    x_tr, y_tr, _, _, meta = _ptb_windows(dataclasses.replace(cfg, train_size=8))
+    trainer = build_trainer(cfg, build_model(cfg, topo.device, meta),
+                            build_optimizer(cfg, 64), topo)
+    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    x = torch.as_tensor(x_tr[: cfg.global_batch]).to(topo.device)
+    y = torch.as_tensor(y_tr[: cfg.global_batch]).to(topo.device)
+    for _ in range(2):
+        state, _ = trainer._step(state, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = trainer._step(state, x, y)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        phase("lm-profile", "device busy time: not measured (no device events)")
+        return
+    phase("lm-profile", f"{steps} steps under the profiler: wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    flash_ms = sum(e.self_device_time_total for e in ranked if "flash_" in e.key) / 1e3
+    phase("lm-profile", f"flash kernels: {flash_ms / steps:.4f} ms/step of device time, "
+          f"{100 * flash_ms / busy_ms:.1f}% of the busy time")
+    for e in ranked[:12]:
+        phase("lm-profile", f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count // steps:4d} calls/step  {e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
+    phase("lm-profile", f"host: {host_ms / steps:.3f} ms/step of operator time "
+          f"(self CPU, under the profiler); the largest:")
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        phase("lm-profile", f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
+              f"{e.count // steps:5d} calls/step  {e.key[:80]}")
+
+
 def main() -> int:
+    # one card: hide the others before CUDA starts
+    os.environ["CUDA_VISIBLE_DEVICES"] = one_card(os.environ)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -327,17 +656,20 @@ def main() -> int:
     card()
     build()
     kernel = kernels_vs_plain()
+    flash = flash_vs_plain()
     round_vs_cpu()
+    step_vs_cpu()
     kernel.update(main_path(kernel["ms"]))
     profile_rounds()
+    for name, n in lm_path(flash).items():
+        flash[name]["launches"] = n
+    profile_lm()
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: kernel[k] for k in order}]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    rows = [kernel, *flash.values()]
+    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in rows]}))
+    print(json.dumps(device_line(torch.cuda.get_device_name(0),
+                                 torch.cuda.device_count())))
     return 0
 
 

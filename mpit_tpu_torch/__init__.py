@@ -7,15 +7,18 @@ reference's module names, so each module's counterpart is found by name:
 - ``comm``      — topology (W workers stacked on one device) and the sums
   over the worker dim.
 - ``goptim``    — EASGD / EAMSGD / Downpour math.
-- ``optim``     — SGD with momentum as ``optax.sgd`` computes it.
-- ``ops``       — hand-written CUDA kernels (the fused elastic update),
-  each beside its plain PyTorch version.
-- ``models``    — LeNet and the MLP, with flax-keyed parameter trees;
-  ``convert`` carries weights between the two packages.
-- ``parallel``  — the EASGD trainer.
-- ``data``      — MNIST or its synthetic stand-in, batches, prefetch.
+- ``optim``     — SGD, Adam and AdamW and their learning-rate schedules as
+  ``optax`` computes them.
+- ``ops``       — hand-written CUDA kernels (the fused elastic update; flash
+  attention forward, dQ and dK/dV), each beside its plain PyTorch version.
+- ``models``    — LeNet, the MLP and the transformer LM, with flax-keyed
+  parameter trees; ``convert`` carries weights between the two packages.
+- ``parallel``  — the EASGD trainer and the sync data-parallel trainer.
+- ``data``      — MNIST and PTB or their synthetic stand-ins, batches,
+  prefetch.
 - ``utils``     — parameter trees, config, metrics, completion barrier.
-- ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``.
+- ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``, or
+  ``--preset ptb-transformer-large --algo sync --attn-impl flash``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -4,7 +4,9 @@ The trees have the same keys. Leaves differ in one layout only:
 
 - a conv ``kernel`` (4-D) is HWIO in flax and OIHW in the port;
 - a Dense ``kernel`` is ``(in, out)`` in both (the port computes
-  ``x @ kernel``), and biases are the same arrays.
+  ``x @ kernel``), and biases, LayerNorm scales, embeddings and the
+  transformer's ``pos_embedding`` are the same arrays. The transformer's
+  tree has no 4-D leaf, so every leaf carries across unchanged.
 
 Both directions go through numpy, so a test hands the JAX package's
 arrays to the port and back without either package importing the other.

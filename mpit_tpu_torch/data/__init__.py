@@ -1,10 +1,15 @@
-"""Data: MNIST (or its synthetic stand-in), batches, device prefetch."""
+"""Data: MNIST and PTB (or their synthetic stand-ins), batches, device
+prefetch."""
 
 from mpit_tpu_torch.data.datasets import (  # noqa: F401
     Batches,
     cast_input_dtype,
     load_mnist,
+    load_ptb,
     shard_for_worker,
 )
 from mpit_tpu_torch.data.prefetch import prefetch_to_device  # noqa: F401
-from mpit_tpu_torch.data.synthetic import synthetic_image_classification  # noqa: F401
+from mpit_tpu_torch.data.synthetic import (  # noqa: F401
+    synthetic_image_classification,
+    synthetic_lm_corpus,
+)

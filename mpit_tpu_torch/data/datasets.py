@@ -1,10 +1,10 @@
-"""MNIST loader with an on-disk fast path and a synthetic fallback, the
-per-worker shard, and the global-batch iterator.
+"""MNIST and PTB loaders with an on-disk fast path and a synthetic
+fallback, the per-worker shard, and the global-batch iterator.
 
-Counterpart of the MNIST part of ``mpit_tpu/data/datasets.py``, copied so
-the port imports nothing of the JAX package; ``tests/test_torch_data.py``
-holds the outputs byte-equal. The CIFAR-10, ImageNet and PTB loaders are
-not ported yet.
+Counterpart of the MNIST and PTB parts of ``mpit_tpu/data/datasets.py``,
+copied so the port imports nothing of the JAX package;
+``tests/test_torch_data.py`` holds the outputs byte-equal. The CIFAR-10 and
+ImageNet loaders are not ported yet.
 
 Everything returns host arrays; moving them to the card is the trainer's
 job (``data/prefetch.py``).
@@ -21,7 +21,10 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from mpit_tpu_torch.data.synthetic import synthetic_image_classification
+from mpit_tpu_torch.data.synthetic import (
+    synthetic_image_classification,
+    synthetic_lm_corpus,
+)
 
 
 def _data_dir() -> Optional[str]:
@@ -68,6 +71,33 @@ def load_mnist(synthetic_train: int = 8192, synthetic_test: int = 2048):
     return synthetic_image_classification(
         synthetic_train, synthetic_test, (28, 28, 1), 10, seed=0
     )
+
+
+def load_ptb(
+    synthetic_tokens: int = 200_000, vocab_size: int = 10_000
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """PTB-shaped token streams (train, valid, vocab_size). Real PTB
+    (``ptb.train.txt``/``ptb.valid.txt`` under $MPIT_DATA_DIR) when present;
+    synthetic Markov corpus otherwise."""
+    d = _data_dir()
+    if d:
+        tr = os.path.join(d, "ptb.train.txt")
+        va = os.path.join(d, "ptb.valid.txt")
+        if os.path.exists(tr) and os.path.exists(va):
+            with open(tr) as f:
+                train_words = f.read().replace("\n", " <eos> ").split()
+            with open(va) as f:
+                valid_words = f.read().replace("\n", " <eos> ").split()
+            vocab = {w: i for i, w in enumerate(sorted(set(train_words)))}
+            unk = vocab.get("<unk>", 0)
+            t = np.array([vocab[w] for w in train_words], dtype=np.int32)
+            v = np.array(
+                [vocab.get(w, unk) for w in valid_words], dtype=np.int32
+            )
+            return t, v, len(vocab)
+    toks = synthetic_lm_corpus(synthetic_tokens, vocab_size, seed=3)
+    split = int(len(toks) * 0.9)
+    return toks[:split], toks[split:], vocab_size
 
 
 def shard_for_worker(x, worker: int, num_workers: int):

@@ -1,8 +1,9 @@
 """Deterministic, learnable synthetic datasets.
 
-A verbatim copy of ``synthetic_image_classification`` from
-``mpit_tpu/data/synthetic.py`` (the port imports nothing of the JAX
-package); ``tests/test_torch_data.py`` holds the two byte-equal.
+Verbatim copies of ``synthetic_image_classification`` and
+``synthetic_lm_corpus`` from ``mpit_tpu/data/synthetic.py`` (the port
+imports nothing of the JAX package); ``tests/test_torch_data.py`` holds
+them byte-equal to the originals.
 
 Design: each class c gets a fixed random template T_c (seeded PRNG); a sample
 is ``clip(intensity * T_c + noise)``. Linearly separable enough that LeNet
@@ -42,3 +43,31 @@ def synthetic_image_classification(
     x_tr, y_tr = make(num_train, 1)
     x_te, y_te = make(num_test, 2)
     return x_tr, y_tr, x_te, y_te
+
+
+def synthetic_lm_corpus(
+    num_tokens: int, vocab_size: int, seed: int = 0, order: int = 2
+) -> np.ndarray:
+    """A synthetic token stream with learnable Markov structure.
+
+    Tokens follow a sparse ``order``-gram chain (each context maps to a small
+    set of likely successors), so an LSTM achieves materially lower perplexity
+    than the uniform baseline — enough signal for PTB-config tests
+    (BASELINE.json:11) without shipping the corpus.
+    """
+    rng = np.random.default_rng(seed)
+    branch = 4
+    successors = rng.integers(
+        0, vocab_size, size=(vocab_size, branch)
+    )  # per-context candidate sets (order-1 chain is plenty)
+    tokens = np.empty(num_tokens, dtype=np.int32)
+    tokens[0] = rng.integers(0, vocab_size)
+    picks = rng.integers(0, branch, size=num_tokens)
+    mistakes = rng.random(num_tokens) < 0.1  # 10% uniform noise
+    randoms = rng.integers(0, vocab_size, size=num_tokens)
+    for i in range(1, num_tokens):
+        if mistakes[i]:
+            tokens[i] = randoms[i]
+        else:
+            tokens[i] = successors[tokens[i - 1], picks[i]]
+    return tokens

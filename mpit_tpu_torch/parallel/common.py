@@ -1,14 +1,18 @@
-"""Shared trainer plumbing: the loss, the batch checks, the τ-round loop.
+"""Shared trainer plumbing: the loss, the train state, gradient
+accumulation, the batch checks, the per-step and τ-round loops, and the
+evaluations.
 
-Counterpart of the parts of ``mpit_tpu/parallel/common.py`` that the
-EASGD trainer uses. The reference runs a round as one jitted ``shard_map``
-over the worker mesh; here a round runs eagerly on one device, with the
-W workers stacked on dim 0 of every per-worker tensor. Gradient clipping,
-accumulation and the synchronous trainers' fit loop are not ported yet.
+Counterpart of the parts of ``mpit_tpu/parallel/common.py`` that the EASGD
+and sync-DP trainers use. The reference runs a step or a round as one
+jitted ``shard_map`` over the worker mesh; here it runs eagerly on one
+device, with the W workers stacked on dim 0 of every per-worker tensor (or,
+for the sync trainer, as one pass over the global batch). Gradient clipping
+is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -16,12 +20,39 @@ import torch
 import torch.nn.functional as F
 
 from mpit_tpu_torch.data.prefetch import prefetch_to_device
+from mpit_tpu_torch.utils.params import tree_map
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Replicated training state: params, optimizer state, and the number of
+    steps taken (a host int)."""
+
+    params: Any
+    opt_state: Any
+    step: int = 0
+
+    @classmethod
+    def create(cls, params, optimizer) -> "TrainState":
+        return cls(params=params, opt_state=optimizer.init(params), step=0)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy over integer labels
-    (``optax.softmax_cross_entropy_with_integer_labels(...).mean()``)."""
-    return F.cross_entropy(logits.float(), labels.long())
+    """Mean softmax cross-entropy over integer labels, the classes on the
+    last dim, for logits of any rank (``optax.softmax_cross_entropy_with_
+    integer_labels(...).mean()``): (B, C) for a classifier, (B, T, V) for
+    an LM."""
+    return F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]), labels.long().reshape(-1)
+    )
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The summed counterpart of :func:`cross_entropy_loss`."""
+    return F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]), labels.long().reshape(-1),
+        reduction="sum",
+    )
 
 
 def default_loss_fn(apply_fn: Callable) -> Callable:
@@ -31,6 +62,47 @@ def default_loss_fn(apply_fn: Callable) -> Callable:
         return cross_entropy_loss(apply_fn(params, x), y)
 
     return loss_fn
+
+
+def check_accum_steps(accum) -> int:
+    if int(accum) != accum or accum < 1:
+        raise ValueError(f"accum_steps={accum} must be an integer >= 1")
+    return int(accum)
+
+
+def accumulated_value_and_grad(loss_fn: Callable, accum: int) -> Callable:
+    """(params, x, y) -> (grads, loss), processing the batch as ``accum``
+    sequential equal slices whose losses and gradients average: the
+    full-batch mean for equal slices (no model here carries batch
+    statistics), at 1/accum of the peak activation memory. The slices cut
+    the batch as given; for the global batch of W equal worker shards the
+    mean is the same as the reference's per-worker slicing. ``accum=1`` is
+    one ``grad_and_value``."""
+    accum = check_accum_steps(accum)
+    vg = torch.func.grad_and_value(loss_fn)
+    if accum == 1:
+        return vg
+
+    def value_and_grad(params, x, y):
+        grads, loss = None, 0.0
+        for xs, ys in zip(x.chunk(accum), y.chunk(accum)):
+            g, l = vg(params, xs, ys)
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            loss = loss + l
+        return tree_map(lambda g: g / accum, grads), loss / accum
+
+    return value_and_grad
+
+
+def check_accum_batch(global_batch: int, num_workers: int, accum: int) -> None:
+    """Sync-trainer batch check: divisible by W, per-worker shard
+    divisible by the accumulation factor."""
+    check_global_batch(global_batch, num_workers)
+    if (global_batch // num_workers) % accum:
+        raise ValueError(
+            f"per-worker batch {global_batch // num_workers} not divisible "
+            f"by accum_steps={accum}"
+        )
 
 
 def check_global_batch(global_batch: int, num_workers: int) -> int:
@@ -182,3 +254,68 @@ class RoundTrainer:
             logits = self.model.apply(center, xb)
             correct += (logits.argmax(-1) == yb).sum()
         return int(correct) / n
+
+
+def synced_fit_loop(step_fn, batches, state, *, device, check, epochs: int = 1,
+                    on_step=None, prefetch: int = 2):
+    """The per-step fit loop of the synchronous trainers:
+    ``on_step(steps, state, metrics)`` after every step; batches checked by
+    ``check`` and staged ``prefetch`` ahead on ``device``. Returns (state,
+    last_metrics)."""
+    metrics = None
+    steps = 0
+
+    def step_batches(e):
+        for x, y in batches.epoch(e):
+            check(x)
+            yield x, y
+
+    for e in range(epochs):
+        for x, y in prefetch_to_device(step_batches(e), device, depth=prefetch):
+            state, metrics = step_fn(state, x, y)
+            steps += 1
+            if on_step is not None:
+                on_step(steps, state, metrics)
+    return state, metrics
+
+
+def batched_count_eval(eval_fn, params, x, y, batch: int, group: int):
+    """Run a (params, x, y) -> (correct_sum, loss_sum) eval over the set in
+    ``group``-divisible batches (truncating the remainder). Returns
+    (correct, loss_sum, n_examples_used)."""
+    batch = (min(batch, len(x)) // group) * group or group
+    n = (len(x) // batch) * batch
+    if n == 0:
+        raise ValueError("eval set smaller than one global batch")
+    correct = 0
+    loss_sum = 0.0
+    for i in range(0, n, batch):
+        c, l = eval_fn(params, x[i : i + batch], y[i : i + batch])
+        correct += int(c)
+        loss_sum += float(l)
+    return correct, loss_sum, n
+
+
+# Examples per forward pass of the count-and-loss eval: an LM's (64, T, V)
+# f32 logits stay small (1.3 GB at T = 512, V = 10^4); the sums are the same.
+EVAL_ROWS = 64
+
+
+def build_count_loss_eval(model, device) -> Callable:
+    """(params, x, y) -> (correct-count sum, loss sum) over a batch, as the
+    reference's sharded eval sums them over the workers: correct argmax
+    predictions and summed cross-entropy over every label (every token for
+    an LM). The batch runs :data:`EVAL_ROWS` examples at a time."""
+
+    @torch.no_grad()
+    def eval_fn(params, x, y):
+        x, y = torch.as_tensor(x).to(device), torch.as_tensor(y).to(device)
+        correct = torch.zeros((), dtype=torch.int64, device=device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        for xs, ys in zip(x.split(EVAL_ROWS), y.split(EVAL_ROWS)):
+            logits = model.apply(params, xs)
+            correct += (logits.argmax(-1) == ys).sum()
+            loss_sum += cross_entropy_sum(logits, ys)
+        return correct, loss_sum
+
+    return eval_fn

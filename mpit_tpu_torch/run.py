@@ -1,14 +1,23 @@
 """Training entry point: one function from :class:`TrainConfig` to results.
 
 Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
-``easgd``/``eamsgd`` with ``lenet``/``mlp`` on MNIST (or its synthetic
-stand-in), SGD with momentum at a constant learning rate. Everything else
-raises ``NotImplementedError`` naming the ROADMAP item that will bring it.
+
+- ``easgd``/``eamsgd`` with ``lenet``/``mlp`` on MNIST (or its synthetic
+  stand-in), SGD with momentum at a constant learning rate;
+- ``sync`` (data-parallel) with ``lenet``/``mlp`` on MNIST or the
+  ``transformer`` LM on PTB (or its synthetic stand-in), with SGD, Adam or
+  AdamW and a constant, cosine or warmup-cosine schedule (SGD constant
+  only).
+
+Everything else raises ``NotImplementedError`` naming the ROADMAP item that
+will bring it.
 
     python -m mpit_tpu_torch.run --preset mnist-easgd
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash
 
-runs on the card, with W = 8 workers stacked on it unless the topology was
-initialized otherwise, and prints the results dict as one JSON line.
+run on the card, with W = 8 workers stacked on it (easgd) or sharing its
+global batch (sync) unless the topology was initialized otherwise, and
+print the results dict as one JSON line.
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ import torch
 
 from mpit_tpu_torch.utils.config import TrainConfig
 
-_MODELS = ("lenet", "mlp")
+_MODELS = {"mnist": ("lenet", "mlp"), "ptb": ("transformer",)}
+_ALGOS = ("easgd", "sync")
 
 
 def _not_ported(what: str, item: str):
@@ -30,16 +40,26 @@ def _not_ported(what: str, item: str):
 
 def _check_supported(cfg: TrainConfig) -> None:
     algo = cfg.resolved_algo()
-    if algo != "easgd":
+    if algo not in _ALGOS:
         raise _not_ported(f"algo={cfg.algo!r}", "items A6-A11")
-    if cfg.model.lower() not in _MODELS:
-        raise _not_ported(f"model={cfg.model!r}", "items A8-A9")
-    if cfg.dataset != "mnist":
+    if cfg.dataset not in _MODELS:
         raise _not_ported(f"dataset={cfg.dataset!r}", "item A5b")
-    if cfg.optimizer != "sgd" or cfg.lr_schedule != "constant":
+    if cfg.model.lower() not in _MODELS[cfg.dataset]:
+        raise _not_ported(
+            f"model={cfg.model!r} on dataset={cfg.dataset!r}", "items A8-A9"
+        )
+    if algo == "easgd" and cfg.dataset != "mnist":
+        raise _not_ported(f"easgd on dataset={cfg.dataset!r}", "item A8")
+    if (algo == "easgd" or cfg.optimizer == "sgd") and (
+        cfg.optimizer != "sgd" or cfg.lr_schedule != "constant"
+    ):
         raise _not_ported(
             f"optimizer={cfg.optimizer!r} with lr_schedule="
-            f"{cfg.lr_schedule!r}", "item A5b",
+            f"{cfg.lr_schedule!r} under algo={cfg.algo!r}", "item A5b",
+        )
+    if cfg.optimizer not in ("sgd", "adam", "adamw"):
+        raise ValueError(
+            f"unknown optimizer {cfg.optimizer!r}; have: sgd, adam, adamw"
         )
     if cfg.clip_norm is not None:
         raise _not_ported("clip_norm", "item A5b")
@@ -47,33 +67,106 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise _not_ported("checkpointing (ckpt_dir, resume)", "item A5b")
     if cfg.profile_dir:
         raise _not_ported("profile_dir", "item A5b")
+    if cfg.remat:
+        raise _not_ported("remat", "item A9")
     if cfg.exchange_dtype not in ("none", "bf16"):
         raise ValueError(
             f"unknown exchange_dtype {cfg.exchange_dtype!r}; have: none, bf16"
         )
 
 
-def build_model(cfg: TrainConfig, device):
-    from mpit_tpu_torch.models import MLP, LeNet
+def _ptb_windows(cfg: TrainConfig):
+    """Token stream → (N, T) next-token windows: x=tokens[i:i+T],
+    y=tokens[i+1:i+T+1] (the LM objective over fixed-length unrolls).
+    Returns (x_train, y_train, x_valid, y_valid, {"vocab_size": V})."""
+    import numpy as np
+
+    from mpit_tpu_torch.data import load_ptb
+
+    t_len = cfg.seq_len
+    need = (cfg.train_size + 1) * t_len + 1
+    train_toks, valid_toks, vocab = load_ptb(
+        synthetic_tokens=max(need + need // 8, 20_000)
+    )
+
+    def windows(toks: np.ndarray):
+        n = (len(toks) - 1) // t_len
+        x = toks[: n * t_len].reshape(n, t_len)
+        y = toks[1 : n * t_len + 1].reshape(n, t_len)
+        return x.astype(np.int32), y.astype(np.int32)
+
+    x_tr, y_tr = windows(train_toks)
+    x_va, y_va = windows(valid_toks)
+    return (
+        x_tr[: cfg.train_size],
+        y_tr[: cfg.train_size],
+        x_va,
+        y_va,
+        {"vocab_size": vocab},
+    )
+
+
+def _load_dataset(cfg: TrainConfig):
+    from mpit_tpu_torch.data import load_mnist
+
+    if cfg.dataset == "ptb":
+        return _ptb_windows(cfg)
+    return (*load_mnist(synthetic_train=cfg.train_size), {})
+
+
+def build_model(cfg: TrainConfig, device, meta: dict | None = None):
+    from mpit_tpu_torch.models import MLP, LeNet, TransformerLM
 
     name = cfg.model.lower()
+    if name == "transformer":
+        return TransformerLM(
+            vocab_size=(meta or {}).get("vocab_size", 10_000),
+            num_layers=cfg.layers,
+            d_model=cfg.d_model,
+            num_heads=cfg.heads,
+            d_ff=cfg.d_ff,
+            max_len=max(cfg.seq_len, 32),
+            attn_impl=cfg.attn_impl,
+            device=device,
+        )
     return (LeNet if name == "lenet" else MLP)(device=device)
 
 
-def build_optimizer(cfg: TrainConfig):
-    """The config's local optimizer: ``optax.sgd(lr, momentum)``'s math."""
-    from mpit_tpu_torch.optim import SGD
+def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
+    """The config's optimizer and schedule, as ``optax`` computes them
+    (``mpit_tpu/run.py:164-213``); the cosine decays over
+    ``total_updates``."""
+    from mpit_tpu_torch import optim
 
     _check_supported(cfg)
-    return SGD(cfg.lr, cfg.momentum)
+    if cfg.optimizer == "sgd":
+        return optim.SGD(cfg.lr, cfg.momentum)
+    total = max(int(total_updates), 2)  # optax needs decay_steps > 0
+    if cfg.lr_schedule == "constant":
+        lr = cfg.lr
+    elif cfg.lr_schedule == "cosine":
+        lr = optim.cosine_decay_schedule(cfg.lr, total)
+    elif cfg.lr_schedule == "warmup-cosine":
+        warm = min(cfg.warmup_steps, total - 1)  # strictly < total
+        lr = optim.warmup_cosine_decay_schedule(0.0, cfg.lr, warm, total)
+    else:
+        raise ValueError(
+            f"unknown lr_schedule {cfg.lr_schedule!r}; have: constant, "
+            "cosine, warmup-cosine"
+        )
+    if cfg.optimizer == "adam":
+        return optim.Adam(lr)
+    return optim.AdamW(lr, weight_decay=cfg.weight_decay)
 
 
 def build_trainer(cfg: TrainConfig, model, opt, topo):
-    """The EASGD trainer for ``cfg`` (the elastic kernel on by default for
-    CUDA tensors)."""
-    from mpit_tpu_torch.parallel import EASGDTrainer
+    """The trainer for ``cfg.algo`` (the kernels on by default for CUDA
+    tensors)."""
+    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
 
     _check_supported(cfg)
+    if cfg.resolved_algo() == "sync":
+        return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
     xdtype = torch.bfloat16 if cfg.exchange_dtype == "bf16" else None
     return EASGDTrainer(
         model, opt, topo, alpha=cfg.alpha, tau=cfg.tau, exchange_dtype=xdtype
@@ -89,7 +182,7 @@ def run(cfg: TrainConfig, device=None) -> dict:
     from mpit_tpu_torch.comm.topology import (
         DEFAULT_WORKERS, Topology, is_initialized, resolve_device, size, topology,
     )
-    from mpit_tpu_torch.data import Batches, cast_input_dtype, load_mnist
+    from mpit_tpu_torch.data import Batches, cast_input_dtype
     from mpit_tpu_torch.utils.metrics import MetricsLogger
     from mpit_tpu_torch.utils.profiling import force_completion
 
@@ -99,11 +192,14 @@ def run(cfg: TrainConfig, device=None) -> dict:
     else:
         w = size() if is_initialized() else DEFAULT_WORKERS
         topo = Topology(num_workers=w, device=resolve_device(device))
-    x_tr, y_tr, x_te, y_te = load_mnist(synthetic_train=cfg.train_size)
+    x_tr, y_tr, x_te, y_te, meta = _load_dataset(cfg)
     x_tr = cast_input_dtype(x_tr, cfg.input_dtype)
+    is_sync = cfg.resolved_algo() == "sync"
+    tau = 1 if is_sync else cfg.tau
 
-    model = build_model(cfg, topo.device)
-    opt = build_optimizer(cfg)
+    model = build_model(cfg, topo.device, meta)
+    steps_per_epoch = max(len(x_tr) // max(cfg.global_batch, 1), 1)
+    opt = build_optimizer(cfg, cfg.epochs * steps_per_epoch)
     log = MetricsLogger(path=cfg.metrics_path, tag=cfg.algo, echo=False)
     results: dict = {"config": cfg.to_json(), "workers": topo.num_workers,
                      "platform": topo.platform}
@@ -114,43 +210,52 @@ def run(cfg: TrainConfig, device=None) -> dict:
     state = trainer.init_state(gen)
 
     batches = Batches(x_tr, y_tr, global_batch=gb, seed=cfg.seed)
-    if batches.steps_per_epoch() // cfg.tau == 0:
+    if batches.steps_per_epoch() // tau == 0:
         raise ValueError(
             f"epoch of {batches.steps_per_epoch()} step(s) cannot fill one "
-            f"round of tau={cfg.tau}"
+            f"{'step' if is_sync else f'round of tau={tau}'}"
         )
-    rounds = 0
+    units = 0
     losses = []
 
-    def on_round(done, st, m):
-        nonlocal rounds
-        rounds = done
+    def on_unit(done, st, m):
+        nonlocal units
+        units = done
         losses.append(m["loss"])
         if cfg.log_every and done % cfg.log_every == 0:
             log.log(done, loss=m["loss"])
 
     t_start = time.perf_counter()
-    state, metrics = trainer.fit(
-        batches, state, epochs=cfg.epochs, on_round=on_round,
-        prefetch=cfg.prefetch,
-    )
+    if is_sync:
+        state, metrics = trainer.fit(batches, state, epochs=cfg.epochs,
+                                     on_step=on_unit, prefetch=cfg.prefetch)
+    else:
+        state, metrics = trainer.fit(batches, state, epochs=cfg.epochs,
+                                     on_round=on_unit, prefetch=cfg.prefetch)
     if metrics is not None:
-        force_completion(state.center, metrics)
+        force_completion(trainer.center_params(state) if not is_sync
+                         else state.params, metrics)
     wall = time.perf_counter() - t_start
-    samples = rounds * cfg.tau * gb
+    samples = units * tau * gb
 
-    acc = trainer.evaluate(state, x_te, y_te)
+    if is_sync:
+        acc, eval_loss = trainer.evaluate(state, x_te, y_te)
+        results["eval_loss"] = eval_loss
+    else:
+        acc = trainer.evaluate(state, x_te, y_te)
+    if cfg.dataset == "ptb":
+        acc = acc / cfg.seq_len  # eval counts correct *tokens* per window
     results.update(
         accuracy=acc,
         final_loss=float(metrics["loss"]) if metrics is not None else None,
         round_losses=[float(v) for v in losses],
-        trained_units=rounds,
+        trained_units=units,
         samples=samples,
         wall_s=wall,
         samples_per_sec=samples / wall,
         samples_per_sec_per_chip=samples / wall,  # one device
-        step_time={"steps": rounds,
-                   "mean_s": wall / rounds if rounds else None},
+        step_time={"steps": units,
+                   "mean_s": wall / units if units else None},
     )
     log.close()
     return results
@@ -161,8 +266,9 @@ def main(argv=None) -> None:
     JSON line."""
     cfg = TrainConfig.from_args(
         argv,
-        description="mpit_tpu_torch training on one CUDA card "
-        "(e.g. --preset mnist-easgd --epochs 1)",
+        description="mpit_tpu_torch training on one CUDA card (e.g. "
+        "--preset mnist-easgd --epochs 1, or --preset ptb-transformer-large "
+        "--algo sync --attn-impl flash)",
     )
     print(json.dumps(run(cfg), default=repr))
 

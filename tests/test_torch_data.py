@@ -42,6 +42,43 @@ def test_synthetic_images_byte_equal(args):
         _same(a, b)
 
 
+@pytest.mark.parametrize("args", [(5000, 50, 0), (3000, 10_000, 3)])
+def test_synthetic_lm_corpus_byte_equal(args):
+    _same(jax_synthetic.synthetic_lm_corpus(*args),
+          synthetic.synthetic_lm_corpus(*args))
+
+
+@pytest.mark.parametrize("on_disk", [False, True], ids=["synthetic", "text-files"])
+def test_load_ptb_byte_equal(tmp_path, monkeypatch, on_disk):
+    if on_disk:
+        (tmp_path / "ptb.train.txt").write_text(
+            "the cat sat on the mat\n a dog <unk> ran\n")
+        (tmp_path / "ptb.valid.txt").write_text("the bird sat\n on a cat\n")
+        monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("MPIT_DATA_DIR", raising=False)
+    ref = jax_datasets.load_ptb(synthetic_tokens=4000, vocab_size=97)
+    got = datasets.load_ptb(synthetic_tokens=4000, vocab_size=97)
+    _same(ref[0], got[0])
+    _same(ref[1], got[1])
+    assert ref[2] == got[2] == (10 if on_disk else 97)
+
+
+def test_ptb_windows_byte_equal_and_untouched_by_input_cast():
+    from mpit_tpu.run import _ptb_windows as jax_windows
+    from mpit_tpu_torch.run import _ptb_windows
+
+    cfg = dataclasses.replace(config.TrainConfig().apply_preset("ptb-transformer-large"),
+                              seq_len=32, train_size=40)
+    jcfg = jax_config.TrainConfig.from_json(cfg.to_json())
+    ref, got = jax_windows(jcfg), _ptb_windows(cfg)
+    for a, b in zip(ref[:4], got[:4]):
+        _same(a, b)
+    assert ref[4] == got[4] == {"vocab_size": 10_000}
+    assert got[0].shape == (40, 32)
+    assert datasets.cast_input_dtype(got[0], "bf16") is got[0]
+
+
 def _write_idx(path, arr):
     with open(path, "wb") as f:
         f.write(struct.pack(">I", 0x0800 | arr.ndim))

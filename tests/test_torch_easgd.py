@@ -124,7 +124,7 @@ def test_run_trains_preset_on_cpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(algo="sync"), dict(model="vgg"), dict(optimizer="adam"),
+    dict(algo="downpour"), dict(model="vgg"), dict(optimizer="adam"),
     dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(dataset="cifar10"),
 ])
 def test_run_refuses_what_is_not_ported(change):

@@ -2,6 +2,7 @@
 collectives against the JAX package's."""
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -69,9 +70,9 @@ def _no_cuda():
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     _no_cuda()
     from mpit_tpu_torch.convert import from_flax
-    from mpit_tpu_torch.models import MLP, LeNet
+    from mpit_tpu_torch.models import MLP, LeNet, TransformerLM
     from mpit_tpu_torch.optim import SGD
-    from mpit_tpu_torch.parallel import EASGDTrainer
+    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
@@ -83,8 +84,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
             LeNet,
             MLP,
             lambda: from_flax({"a": np.zeros(2)}),
+            lambda: TransformerLM(31),
             lambda: EASGDTrainer(None, SGD(0.1), loss_fn=lambda p, x, y: 0),
+            lambda: DataParallelTrainer(TransformerLM(31, device="cpu"), SGD(0.1)),
             lambda: run(TrainConfig().apply_preset("mnist-easgd")),
+            lambda: run(dataclasses.replace(
+                TrainConfig().apply_preset("ptb-transformer-large"), algo="sync")),
         ):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 call()
@@ -141,6 +146,29 @@ def test_allreduce_matches_jax(topo8, op):
         np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
         mpit_tpu_torch.allreduce(got, op="max")
+
+
+def test_flash_source_builds_under_its_own_name():
+    src = _build.CSRC / "flash_attention.cu"
+    text = src.read_text()
+    for entry in ("mpit_flash_forward", "mpit_flash_dq", "mpit_flash_dkv"):
+        assert f'extern "C" int {entry}(' in text
+    assert _build._target("flash_attention").name.startswith("flash_attention-")
+
+
+@pytest.mark.parametrize("env,card", [({}, "0"), ({"CUDA_VISIBLE_DEVICES": "2,3"}, "2"),
+                                      ({"CUDA_VISIBLE_DEVICES": "1"}, "1")])
+def test_chip_smoke_uses_one_card_and_reports_it(env, card):
+    """chip_smoke.py hides every card but one before CUDA starts, so the
+    device line's count is the number of cards the run used: 1."""
+    import chip_smoke
+
+    assert chip_smoke.one_card(env) == card
+    line = chip_smoke.device_line("NVIDIA H100 80GB HBM3", 1)
+    assert line == {"ok": True, "device": {"platform": "gpu",
+                                           "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+    assert 'os.environ["CUDA_VISIBLE_DEVICES"] = one_card(os.environ)' in (
+        ROOT / "chip_smoke.py").read_text()
 
 
 def test_force_completion_fetches_one_scalar_per_argument():
