@@ -13,16 +13,24 @@ non-zero before the result lines:
              the reference's test shapes and at the shapes the main path gives
              it, with TF32 off; timed with CUDA events beside its bound, the
              plain version and one PyTorch library call of the same function.
-4. flash   — the three flash-attention kernels (forward, dQ, dK/dV) against
-             their plain versions at the reference's test cases and at the
-             transformer path's shape, the autograd path against dense
-             attention's gradients, and T = 100 going to dense with no launch;
-             timed as in 3, with ``scaled_dot_product_attention`` (forward,
+4. flash   — both flash-attention families against their plain versions:
+             the CUDA-core kernels (forward, dQ, dK/dV) at the reference's
+             test cases and the path's shape, called directly; then, through
+             the dispatch of the ``autograd.Function``, the tensor-core
+             (sm90) forward and dK/dV at bf16 D = 64 and the path's shape,
+             with the counters showing which family each case launched; the
+             autograd path against dense attention's gradients (a bf16
+             D = 64 case among them), and T = 100 going to dense with no
+             launch. All five kernels timed at the path's shape in this one
+             call as in 3, with ``scaled_dot_product_attention`` (forward,
              and its autograd backward) as the library yardstick.
 5. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
              against the same round on the CPU (plain version).
 6. step    — one sync-DP step of an f32 2-layer flash transformer on the card
-             (kernels) against the same step on the CPU (plain versions).
+             (kernels) against the same step on the CPU (plain versions); the
+             flash counts are set to 0 just before and read after. This f32
+             path is where the CUDA-core forward and dK/dV run, so their rows
+             of the kernels line take their launches from here.
 7. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
              workers stacked on the card, bf16 LeNet; the elastic kernel's
              launch count is set to 0 just before and read just after.
@@ -31,8 +39,11 @@ non-zero before the result lines:
 9. lm      — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
-             kernels' launch counts are set to 0 just before and read after.
-10. lm-profile — ``torch.profiler`` over a few of the same steps.
+             kernels' launch counts are set to 0 just before and read after:
+             the sm90 forward and dK/dV and the CUDA-core dQ run, the
+             CUDA-core forward and dK/dV do not.
+10. lm-profile — ``torch.profiler`` over a few of the same steps: the
+             flash family's device time per step, by kernel family.
 
 Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
@@ -139,12 +150,18 @@ def device_ms(fn, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    # a profiler session now and then records no device events (seen once
+    # in a run of many sessions): that is no time, so profile again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    return float("nan")  # not measured
 
 
 def elastic_bytes(w: int, n: int) -> int:
@@ -239,7 +256,9 @@ def kernels_vs_plain() -> dict:
 def flash_bytes_flops(kernel: str, bh: int, t: int, d: int, elt: int,
                       causal: bool) -> tuple[int, float]:
     """Least bytes moved (each input read once, each output written once)
-    and the FLOPs of the products this causal/full attention needs."""
+    and the FLOPs of the products this causal/full attention needs; a
+    kernel of either family does the same work."""
+    kernel = kernel.removesuffix("_sm90")
     tensors = {"flash_forward": 4, "flash_dq": 5, "flash_dkv": 6}[kernel]
     rows = {"flash_forward": 1, "flash_dq": 2, "flash_dkv": 2}[kernel]
     products = {"flash_forward": 2, "flash_dq": 3, "flash_dkv": 4}[kernel]
@@ -254,7 +273,7 @@ def flash_bound_ms(kernel, bh, t, d, elt, causal) -> tuple[float, str]:
 
 
 def flash_vs_plain() -> dict:
-    """The three flash kernels against their plain versions, then timed at
+    """Both flash families against their plain versions, then timed at
     the transformer path's shape. Returns a row per kernel."""
     from mpit_tpu_torch.ops import flash_attention as fa
 
@@ -271,23 +290,45 @@ def flash_vs_plain() -> dict:
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
         err[name] = max(err[name], (got.float() - want.float()).abs().max().item())
 
-    def against_plain(shape, dtype, causal):
+    def family(q, dispatch=True):
+        """The kernels a case should launch: the family the Function's
+        rule picks for q, or the CUDA-core kernels called directly."""
+        sm90 = dispatch and fa._sm90_takes(q)
+        return {"flash_forward_sm90" if sm90 else "flash_forward": 1, "flash_dq": 1,
+                "flash_dkv_sm90" if sm90 else "flash_dkv": 1}
+
+    def against_plain(shape, dtype, causal, dispatch):
+        """Each kernel of one case against its plain version, through the
+        Function's dispatch or the CUDA-core kernels directly; the
+        counters must show the kernels the case should launch."""
         q, k, v = (fa._to2d(x) for x in qkv(shape, dtype))
         do = fa._to2d(qkv(shape, dtype)[0])
-        o, lse = fa.flash_forward_cuda(q, k, v, causal)
+        want = family(q, dispatch)
+        fwd, dkv = (n for n in want if n != "flash_dq")
+        before = dict(fa.launches)
+        if dispatch:
+            o, lse = fa._Flash.forward(q, k, v, causal, True)
+        else:
+            o, lse = fa.flash_forward_cuda(q, k, v, causal)
         torch.cuda.synchronize()
         po, plse = fa.flash_forward_plain(q, k, v, causal)
-        close("flash_forward", o, po, FLASH_TOL[dtype])
-        close("flash_forward", lse, plse, FLASH_TOL[dtype])
+        close(fwd, o, po, FLASH_TOL[dtype])
+        close(fwd, lse, plse, FLASH_TOL[dtype])
         dd = (do.float() * po.float()).sum(-1)
-        dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, causal)
-        dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, causal)
+        if dispatch:
+            dq, dk, dv = fa._FlashBackward.forward(q, k, v, po, plse, do, causal, True)
+        else:
+            dq = fa.flash_dq_cuda(q, k, v, do, plse, dd, causal)
+            dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, causal)
         torch.cuda.synchronize()
-        pdq = fa.flash_dq_plain(q, k, v, do, plse, dd, causal)
         pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, causal)
-        close("flash_dq", dq, pdq, FLASH_GRAD_TOL[dtype])
-        close("flash_dkv", dk, pdk, FLASH_GRAD_TOL[dtype])
-        close("flash_dkv", dv, pdv, FLASH_GRAD_TOL[dtype])
+        close("flash_dq", dq, fa.flash_dq_plain(q, k, v, do, plse, dd, causal),
+              FLASH_GRAD_TOL[dtype])
+        close(dkv, dk, pdk, FLASH_GRAD_TOL[dtype])
+        close(dkv, dv, pdv, FLASH_GRAD_TOL[dtype])
+        got = {n: c - before[n] for n, c in fa.launches.items() if c != before[n]}
+        if got != want:
+            raise AssertionError(f"{shape} {dtype} launched {got}, not {want}")
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((2, 256, 2, 16), f32, True), ((2, 256, 2, 16), f32, False),
@@ -296,24 +337,38 @@ def flash_vs_plain() -> dict:
              ((1, 128, 2, 128), bf16, True), ((1, 96, 2, 40), f32, False),
              (LM_SHAPE, bf16, True)]
     for shape, dtype, causal in cases:
-        against_plain(shape, dtype, causal)
-    phase("flash", f"{len(cases)} cases, each kernel against its plain version "
+        against_plain(shape, dtype, causal, dispatch=False)
+    # bf16 D = 64 with T % 64 == 0 goes to sm90; T = 96 and f32 do not
+    sm90_cases = [((2, 256, 2, 64), bf16, True), ((2, 256, 2, 64), bf16, False),
+                  ((1, 128, 2, 64), bf16, True), (LM_SHAPE, bf16, True),
+                  ((1, 96, 2, 64), bf16, True), ((1, 128, 2, 64), f32, True)]
+    for shape, dtype, causal in sm90_cases:
+        against_plain(shape, dtype, causal, dispatch=True)
+    phase("flash", f"{len(cases)} cases of the CUDA-core kernels, {len(sm90_cases)} "
+          f"through the dispatch ({len(sm90_cases) - 2} of them sm90, each launching "
+          f"the family the rule names), each kernel against its plain version "
           f"(f32 {FLASH_TOL[f32]}, bf16 forward {FLASH_TOL[bf16]}, bf16 "
           f"gradients {FLASH_GRAD_TOL[bf16]}): max |err| " + json.dumps(err))
 
     # training through the autograd.Function against dense attention's
-    # gradients: the reference's gradient cases (t, blocks, causal, dtype).
+    # gradients: the reference's gradient cases (t, blocks, causal, dtype,
+    # head dim) and one that the sm90 kernels take.
     # The loss is O against a fixed N(0, 1) cotangent, so the gradients are
     # O(1) and most of their elements lie beyond the tolerance.
-    grad_cases = [(128, 128, True, f32), (256, 128, True, f32),
-                  (256, 128, False, f32), (128, 32, True, f32),
-                  (256, 128, True, bf16)]
-    for t, blocks, causal, dtype in grad_cases:
-        xs = [x.requires_grad_() for x in qkv((2, t, 2, 16), dtype)]
-        r = torch.randn((2, t, 2, 16), generator=gen, device="cuda")
+    grad_cases = [(128, 128, True, f32, 16), (256, 128, True, f32, 16),
+                  (256, 128, False, f32, 16), (128, 32, True, f32, 16),
+                  (256, 128, True, bf16, 16), (256, 128, True, bf16, 64)]
+    for t, blocks, causal, dtype, d in grad_cases:
+        xs = [x.requires_grad_() for x in qkv((2, t, 2, d), dtype)]
+        r = torch.randn((2, t, 2, d), generator=gen, device="cuda")
+        before = dict(fa.launches)
         out = fa.flash_attention(*xs, causal=causal, block_q=blocks,
                                  block_k=blocks, use_kernel=True)
         g = torch.autograd.grad((out.float() * r).sum(), xs)
+        want = family(fa._to2d(xs[0]))
+        got = {n: c - before[n] for n, c in fa.launches.items() if c != before[n]}
+        if got != want:
+            raise AssertionError(f"autograd case {(t, d, dtype)} launched {got}, not {want}")
         want = torch.autograd.grad(
             (fa.dense_attention(*xs, causal=causal).float() * r).sum(), xs)
         tol = FLASH_GRAD_TOL[dtype]
@@ -328,7 +383,8 @@ def flash_vs_plain() -> dict:
     if fa.launches != before:
         raise AssertionError(f"T = 100 launched a kernel: {before} -> {fa.launches}")
     phase("flash", f"autograd through the kernels matches dense attention's "
-          f"gradients in {len(grad_cases)} cases; T = 100 goes to dense with no launch")
+          f"gradients in {len(grad_cases)} cases (bf16 D = 64 through sm90); "
+          f"T = 100 goes to dense with no launch")
 
     # times at the path's shape: (B*H, T, D) = (96, 512, 64) bf16 causal
     b, t, h, d = LM_SHAPE
@@ -345,13 +401,18 @@ def flash_vs_plain() -> dict:
     sdpa_out = sdpa()
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         sdpa_out, (qs, ks, vs), dos, retain_graph=True)
+    plain_fwd = lambda: fa.flash_forward_plain(q, k, v, True)  # noqa: E731
+    plain_dkv = lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, True)  # noqa: E731
     fns = {
-        "flash_forward": (lambda: fa.flash_forward_cuda(q, k, v, True),
-                          lambda: fa.flash_forward_plain(q, k, v, True), sdpa),
+        "flash_forward": (lambda: fa.flash_forward_cuda(q, k, v, True), plain_fwd, sdpa),
         "flash_dq": (lambda: fa.flash_dq_cuda(q, k, v, do, lse, dd, True),
                      lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, True), sdpa_bwd),
-        "flash_dkv": (lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, True),
-                      lambda: fa.flash_dkv_plain(q, k, v, do, lse, dd, True), sdpa_bwd),
+        "flash_dkv": (lambda: fa.flash_dkv_cuda(q, k, v, do, lse, dd, True), plain_dkv,
+                      sdpa_bwd),
+        "flash_forward_sm90": (lambda: fa.flash_forward_sm90(q, k, v, True), plain_fwd,
+                               sdpa),
+        "flash_dkv_sm90": (lambda: fa.flash_dkv_sm90(q, k, v, do, lse, dd, True),
+                           plain_dkv, sdpa_bwd),
     }
     rows = {}
     replaces = {"flash_forward": "mpit_tpu/ops/flash_attention.py:358",
@@ -359,9 +420,9 @@ def flash_vs_plain() -> dict:
                 "flash_dkv": "mpit_tpu/ops/flash_attention.py:288"}
     for name, (kern, plain, lib) in fns.items():
         bound, by = flash_bound_ms(name, b * h, t, d, 2, True)
-        row = dict(name=name, route="cuda",
-                   source="mpit_tpu_torch/ops/csrc/flash_attention.cu",
-                   replaces=replaces[name], max_abs_err=err[name],
+        source = "flash_attention_sm90.cu" if name.endswith("_sm90") else "flash_attention.cu"
+        row = dict(name=name, route="cuda", source="mpit_tpu_torch/ops/csrc/" + source,
+                   replaces=replaces[name.removesuffix("_sm90")], max_abs_err=err[name],
                    ms=time_ms(kern, reps=10, trials=5),
                    plain_ms=time_ms(plain, reps=5, trials=3),
                    bound_ms=bound, bound_by=by,
@@ -369,6 +430,12 @@ def flash_vs_plain() -> dict:
                    device_ms=device_ms(kern), device_library_ms=device_ms(lib))
         rows[name] = row
         phase("flash", json.dumps(row))
+    for name in ("flash_forward", "flash_dkv"):
+        new = rows[name + "_sm90"]
+        phase("flash", f"{name}: sm90 device {new['device_ms']:.6f} ms against the "
+              f"CUDA-core kernel's {rows[name]['device_ms']:.6f} ms "
+              f"({rows[name]['device_ms'] / new['device_ms']:.2f}x), SDPA "
+              f"{new['device_library_ms']:.6f} ms, bound {new['bound_ms']:.6f} ms")
     return rows
 
 
@@ -493,10 +560,11 @@ def profile_rounds(rounds: int = 4) -> None:
               f"{e.count // rounds:4d} calls/round  {e.key[:90]}")
 
 
-def step_vs_cpu() -> None:
+def step_vs_cpu() -> dict:
     """One sync-DP step of an f32 2-layer flash transformer on the card
     (through the kernels) against the same step on the CPU (plain
-    versions), from the same params and batch."""
+    versions), from the same params and batch. Returns the card step's
+    launches per flash kernel."""
     import numpy as np
 
     from mpit_tpu_torch.comm.topology import Topology
@@ -513,25 +581,31 @@ def step_vs_cpu() -> None:
         97, num_layers=2, d_model=64, num_heads=4, max_len=128,
         compute_dtype=torch.float32, attn_impl="flash", device=dev)
     params = make("cpu").init(torch.Generator().manual_seed(0))
-    out, losses = {}, {}
-    before = dict(fa.launches)
+    out, losses, launches = {}, {}, {}
     for dev in ("cuda", "cpu"):
         trainer = DataParallelTrainer(make(dev), SGD(0.1),
                                       Topology(WORKERS, torch.device(dev)))
         state = trainer.init_state(params=tree_map(torch.clone, params))
+        for k in fa.launches:
+            fa.launches[k] = 0
         state, m = trainer.step(state, x, y)
+        launches[dev] = dict(fa.launches)
         out[dev] = [t.cpu() for t in tree_leaves(state.params)]
         losses[dev] = float(m["loss"])
-    got = {k: fa.launches[k] - before[k] for k in fa.launches}
-    if got != {"flash_forward": 2, "flash_dq": 2, "flash_dkv": 2}:
-        raise AssertionError(f"card step launched {got}, not 2 of each kernel")
+    got = launches["cuda"]
+    want = {"flash_forward": 2, "flash_dq": 2, "flash_dkv": 2,
+            "flash_forward_sm90": 0, "flash_dkv_sm90": 0}
+    if got != want or any(launches["cpu"].values()):
+        raise AssertionError(f"f32 step launched {launches}, not {want} on the card "
+                             "and nothing on the CPU")
     err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
     if not err <= 1e-4 or abs(losses["cuda"] - losses["cpu"]) > 1e-4:
         raise AssertionError(f"card step differs from CPU step: params {err}, "
                              f"losses {losses}")
     phase("step", f"f32 2-layer flash transformer, one sync step, card vs CPU: "
           f"max |param err| {err:.3g}, loss {losses['cuda']:.6f} vs "
-          f"{losses['cpu']:.6f} (tolerance 1e-4)")
+          f"{losses['cpu']:.6f} (tolerance 1e-4); flash launches {json.dumps(got)}")
+    return got
 
 
 def lm_config():
@@ -569,8 +643,9 @@ def lm_path(flash: dict) -> dict:
     batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
     n_batches = len(x_va) // batch
     eval_chunks = n_batches * -(-batch // 64)
-    want = {"flash_forward": LM_LAYERS * (steps + eval_chunks),
-            "flash_dq": LM_LAYERS * steps, "flash_dkv": LM_LAYERS * steps}
+    want = {"flash_forward": 0, "flash_dq": LM_LAYERS * steps, "flash_dkv": 0,
+            "flash_forward_sm90": LM_LAYERS * (steps + eval_chunks),
+            "flash_dkv_sm90": LM_LAYERS * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches} != {want} "
                              f"({steps} steps, {eval_chunks} eval forwards)")
@@ -580,7 +655,7 @@ def lm_path(flash: dict) -> dict:
     if not last < first:
         raise AssertionError(f"loss did not fall: first 8 steps {first}, last 8 {last}")
     step_ms = 1e3 * res["wall_s"] / steps
-    attn_ms = LM_LAYERS * sum(flash[k]["ms"] for k in flash)
+    attn_ms = LM_LAYERS * sum(flash[k]["ms"] for k in flash if launches[k])
     phase("lm", json.dumps({k: res[k] for k in (
         "accuracy", "eval_loss", "final_loss", "trained_units", "samples",
         "wall_s", "samples_per_sec")}))
@@ -629,8 +704,11 @@ def profile_lm(steps: int = 3) -> None:
           f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     flash_ms = sum(e.self_device_time_total for e in ranked if "flash_" in e.key) / 1e3
+    sm90_ms = sum(e.self_device_time_total for e in ranked if "_wgmma_" in e.key) / 1e3
     phase("lm-profile", f"flash kernels: {flash_ms / steps:.4f} ms/step of device time, "
-          f"{100 * flash_ms / busy_ms:.1f}% of the busy time")
+          f"{100 * flash_ms / busy_ms:.1f}% of the busy time; of it the sm90 family "
+          f"(wgmma forward, dK/dV) {sm90_ms / steps:.4f} ms/step, the CUDA-core "
+          f"family {(flash_ms - sm90_ms) / steps:.4f} ms/step")
     for e in ranked[:12]:
         phase("lm-profile", f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
               f"{e.count // steps:4d} calls/step  {e.key[:90]}")
@@ -658,11 +736,15 @@ def main() -> int:
     kernel = kernels_vs_plain()
     flash = flash_vs_plain()
     round_vs_cpu()
-    step_vs_cpu()
+    step_launches = step_vs_cpu()
     kernel.update(main_path(kernel["ms"]))
     profile_rounds()
-    for name, n in lm_path(flash).items():
-        flash[name]["launches"] = n
+    lm_launches = lm_path(flash)
+    for name in flash:
+        # the bf16 LM runs the sm90 forward and dK/dV; the CUDA-core ones
+        # run on the f32 path, whose launches the step phase counted
+        path = step_launches if name in ("flash_forward", "flash_dkv") else lm_launches
+        flash[name]["launches"] = path[name]
     profile_lm()
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]

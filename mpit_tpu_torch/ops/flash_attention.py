@@ -1,13 +1,19 @@
-"""Flash attention: three CUDA kernels, their plain versions, and the
+"""Flash attention: CUDA kernels, their plain versions, and the
 ``torch.autograd.Function`` that trains through them.
 
-Counterpart of ``mpit_tpu/ops/flash_attention.py``. The kernels are in
-``csrc/flash_attention.cu`` (see its header for their bounds and design),
-built on first use by ``ops/_build.py`` and called through ``ctypes``:
+Counterpart of ``mpit_tpu/ops/flash_attention.py``. The kernels are built
+on first use by ``ops/_build.py`` and called through ``ctypes``:
 
 - forward: ``(O, LSE)`` by online softmax, LSE ``+inf`` for a row no key sees;
 - dQ: ``scale · Σ_j P∘(dP − dd) K_j`` with P recomputed from the LSE;
 - dK/dV: ``scale · Σ_i dSᵀ Q_i`` and ``Σ_i Pᵀ dO_i``, fused.
+
+Two families (see each source's header for its bounds and design):
+``csrc/flash_attention_sm90.cu`` runs the forward and dK/dV on the tensor
+cores (``wgmma``, P and dS rounded to bf16) for what :func:`_sm90_takes`
+accepts: bf16, D = 64, T a multiple of 64. ``csrc/flash_attention.cu``
+runs all three with f32 P and f32 FMAs for everything else (f32, other
+head dims, other lengths) and dQ always.
 
 All three work on ``(B·H, T, D)``; :func:`flash_attention` takes the
 reference's ``(B, T, H, D)``. The backward computes ``dd = rowsum(dO∘O)``
@@ -33,7 +39,8 @@ from mpit_tpu_torch.ops.ring_attention import dense_attention
 
 # kernel launches by the wrappers below; a run resets them to 0 and reads
 # them back to show that its main path went through the kernels
-launches = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0}
+launches = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_forward_sm90": 0, "flash_dkv_sm90": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -106,19 +113,32 @@ def _check(name: str, tensors, rows) -> tuple[int, int, int]:
     return bh, t, d
 
 
+# C entry -> (its source in csrc/, its pointer arguments); every entry then
+# takes (bh, t, d, causal, bf16) as ints and the stream
 _ARGTYPES = {
-    "mpit_flash_forward": 5,
-    "mpit_flash_dq": 7,
-    "mpit_flash_dkv": 8,
+    "mpit_flash_forward": ("flash_attention", 5),
+    "mpit_flash_dq": ("flash_attention", 7),
+    "mpit_flash_dkv": ("flash_attention", 8),
+    "mpit_flash_forward_sm90": ("flash_attention_sm90", 5),
+    "mpit_flash_dkv_sm90": ("flash_attention_sm90", 8),
 }
+
+
+def _sm90_takes(q) -> bool:
+    """Whether the tensor-core kernels take ``q`` of shape (B·H, T, D):
+    bf16, D = 64 and T a multiple of 64. The rule is explicit: anything
+    else goes to the CUDA-core kernels, never by a caught failure."""
+    return (q.dtype == torch.bfloat16 and q.dim() == 3 and q.shape[-1] == 64
+            and q.shape[1] % 64 == 0)
 
 
 def _fn(symbol: str):
     from mpit_tpu_torch.ops import _build
 
-    fn = getattr(_build.load("flash_attention"), symbol)
+    source, pointers = _ARGTYPES[symbol]
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:  # declare once; ctypes would pass ints as 32 bits
-        fn.argtypes = [ctypes.c_void_p] * _ARGTYPES[symbol] + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -144,6 +164,24 @@ def flash_forward_cuda(q, k, v, causal: bool):
     return o, lse
 
 
+def _check_sm90(name: str, tensors, rows) -> tuple[int, int, int]:
+    bh, t, d = _check(name, tensors, rows)
+    if not _sm90_takes(tensors[0]):
+        raise ValueError(f"{name} kernel: takes bf16 with D = 64 and T a multiple "
+                         f"of 64, not {tensors[0].dtype} with D = {d}, T = {t}")
+    return bh, t, d
+
+
+def flash_forward_sm90(q, k, v, causal: bool):
+    """The tensor-core forward; returns ``(O, LSE)`` without synchronising."""
+    bh, t, d = _check_sm90("flash forward sm90", (q, k, v), ())
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
+    _launch("flash_forward_sm90", "mpit_flash_forward_sm90",
+            [x.data_ptr() for x in (q, k, v, o, lse)], bh, t, d, causal, q.dtype, q.device)
+    return o, lse
+
+
 def flash_dq_cuda(q, k, v, do, lse, dd, causal: bool):
     bh, t, d = _check("flash dQ", (q, k, v, do), (lse, dd))
     dq = torch.empty_like(q)
@@ -162,15 +200,27 @@ def flash_dkv_cuda(q, k, v, do, lse, dd, causal: bool):
     return dk, dv
 
 
+def flash_dkv_sm90(q, k, v, do, lse, dd, causal: bool):
+    bh, t, d = _check_sm90("flash dK/dV sm90", (q, k, v, do), (lse, dd))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_dkv_sm90", "mpit_flash_dkv_sm90",
+            [x.data_ptr() for x in (q, k, v, do, lse, dd, dk, dv)], bh, t, d, causal,
+            q.dtype, q.device)
+    return dk, dv
+
+
 # -- the autograd.Function (the reference's custom_vjp) -----------------------
 
 class _Flash(torch.autograd.Function):
     """``(q, k, v)`` of shape ``(B·H, T, D)`` → ``(O, LSE)``; ``kernel``
-    picks the CUDA kernels or the plain versions in both directions."""
+    picks the CUDA kernels (the family by :func:`_sm90_takes`) or the
+    plain versions in both directions."""
 
     @staticmethod
     def forward(q, k, v, causal, kernel):
-        fwd = flash_forward_cuda if kernel else flash_forward_plain
+        if not kernel:
+            return flash_forward_plain(q, k, v, causal)
+        fwd = flash_forward_sm90 if _sm90_takes(q) else flash_forward_cuda
         return fwd(q, k, v, causal)
 
     @staticmethod
@@ -208,7 +258,8 @@ class _FlashBackward(torch.autograd.Function):
         dd = (do.float() * o.float()).sum(-1)  # D_i = Σ_d dO_id O_id, f32
         if kernel:
             dq = flash_dq_cuda(q, k, v, do, lse, dd, causal)
-            dk, dv = flash_dkv_cuda(q, k, v, do, lse, dd, causal)
+            dkv = flash_dkv_sm90 if _sm90_takes(q) else flash_dkv_cuda
+            dk, dv = dkv(q, k, v, do, lse, dd, causal)
         else:
             dq = flash_dq_plain(q, k, v, do, lse, dd, causal)
             dk, dv = flash_dkv_plain(q, k, v, do, lse, dd, causal)

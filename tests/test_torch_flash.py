@@ -11,6 +11,7 @@ another order), 2e-2 for the bf16 forward and 3e-2 for bf16 gradients
 """
 
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from mpit_tpu.ops.ring_attention import dense_attention as jax_dense
+from mpit_tpu_torch.ops import _build
 from mpit_tpu_torch.ops import flash_attention as port_fa
 from mpit_tpu_torch.ops.ring_attention import dense_attention
 
@@ -180,3 +182,97 @@ def test_gradient_of_the_gradient_is_refused():
     (g,) = torch.autograd.grad(out.sum(), q, create_graph=True)
     with pytest.raises(NotImplementedError, match="differentiable once"):
         g.sum().backward()
+
+
+# -- the tensor-core kernels (csrc/flash_attention_sm90.cu) -------------------
+
+def _forward_bf16_p(q, k, v, causal, block=64):
+    """The sm90 forward's arithmetic in torch: f32 scores of the bf16
+    inputs, online softmax over tiles of 64 keys with f32 statistics, P
+    rounded to bf16 before ``P V``, f32 accumulation."""
+    s_all = port_fa._scores(q, k, causal)
+    bh, t, d = q.shape
+    m = torch.full((bh, t), float("-inf"))
+    l, acc = torch.zeros(bh, t), torch.zeros(bh, t, d)
+    for k0 in range(0, t, block):
+        s = s_all[:, :, k0:k0 + block]
+        m_new = torch.maximum(m, s.amax(-1))
+        m_ref = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_ref))
+        p = torch.exp(s - m_ref[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(
+            p.bfloat16().float(), v[:, k0:k0 + block].float())
+        m = m_new
+    o = torch.where(l[..., None] > 0, acc / l[..., None], 0.0)
+    lse = torch.where(l > 0, m + torch.log(l), float("inf"))
+    return o.to(q.dtype), lse
+
+
+def _dkv_bf16_p_ds(q, k, v, do, lse, dd, causal):
+    """The sm90 dK/dV's arithmetic in torch: P and dS in f32, rounded to
+    bf16 before ``Pᵀ dO`` and ``dSᵀ Q``, f32 accumulation."""
+    p, ds = port_fa._probs_and_ds(q, k, v, do, lse, dd, causal)
+    dv = torch.matmul(p.bfloat16().float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.bfloat16().float().transpose(-1, -2), q.float())
+    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_p_and_ds_hold_the_reference_tolerances(causal):
+    """Rounding P and dS to bf16 for their products, as the tensor-core
+    kernels do, stays inside the reference's bf16 tolerances against its
+    Pallas kernels (f32 P), at the kernels' head dim D = 64."""
+    (jq, jk, jv), (q, k, v) = _qkv(256, "bf16", 10, b=1, h=2, d=64)
+    (jdo, _, _), (do, _, _) = _qkv(256, "bf16", 11, b=1, h=2, d=64)
+    ref_o, ref_lse = jax_fa._flash_pallas(jq, jk, jv, causal, 128, 128, True)
+    _, ref_dk, ref_dv = jax_fa._flash_pallas_bwd(jq, jk, jv, ref_o, ref_lse, jdo, causal,
+                                                 128, 128, True)
+    q2, k2, v2, do2 = (port_fa._to2d(x) for x in (q, k, v, do))
+    o, lse = _forward_bf16_p(q2, k2, v2, causal)
+    _close(o, jax_fa._to2d(ref_o).astype(jnp.float32), FWD_TOL["bf16"])
+    _close(lse, ref_lse, FWD_TOL["bf16"])
+    o2 = torch.from_numpy(np.array(jax_fa._to2d(ref_o).astype(jnp.float32))).bfloat16()
+    dd = (do2.float() * o2.float()).sum(-1)
+    dk, dv = _dkv_bf16_p_ds(q2, k2, v2, do2, torch.from_numpy(np.array(ref_lse)), dd, causal)
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        want = np.asarray(jax_fa._to2d(want).astype(jnp.float32))
+        assert (np.abs(want) > GRAD_TOL["bf16"]).mean() > 0.5
+        _close(got, want, GRAD_TOL["bf16"])
+
+
+@pytest.mark.parametrize("dtype,t,d,takes", [
+    (torch.bfloat16, 128, 64, True),   # the path's shape class
+    (torch.float32, 128, 64, False),   # f32 keeps the reference's 2e-5
+    (torch.bfloat16, 128, 16, False),  # other head dims
+    (torch.bfloat16, 96, 64, False),   # T not a multiple of 64
+], ids=["bf16-d64", "f32", "bf16-d16", "t96"])
+def test_sm90_dispatch_rule(monkeypatch, dtype, t, d, takes):
+    """The rule picks the family, and both directions of the Function call
+    the launcher it names: on CPU tensors the launcher refuses with its
+    own name before any launch."""
+    q = torch.zeros(2, t, d, dtype=dtype)
+    assert port_fa._sm90_takes(q) is takes
+    before = dict(port_fa.launches)
+    family = "sm90 " if takes else ""
+    with pytest.raises(ValueError, match=f"flash forward {family}kernel: .* not CUDA"):
+        port_fa._Flash.forward(q, q, q, True, True)
+    monkeypatch.setattr(port_fa, "flash_dq_cuda", lambda *args: None)
+    lse = torch.zeros(2, t)
+    with pytest.raises(ValueError, match=f"flash dK/dV {family}kernel: .* not CUDA"):
+        port_fa._FlashBackward.forward(q, q, q, q, lse, q, True, True)
+    assert port_fa.launches == before
+
+
+def test_every_ctypes_entry_matches_a_c_entry_of_its_source():
+    """Each ``_ARGTYPES`` entry names an ``extern "C"`` function of the
+    source it loads, with its pointers plus 5 ints and the stream; every
+    flash entry of ``csrc/`` is declared. Reads the sources only: no nvcc."""
+    entries = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            entries[name] = (src.stem, len(params.split(",")))
+    for symbol, (source, pointers) in port_fa._ARGTYPES.items():
+        assert entries[symbol] == (source, pointers + 6), symbol
+        assert _build._target(source).name.startswith(f"{source}-")
+    assert {n for n in entries if n.startswith("mpit_flash")} == set(port_fa._ARGTYPES)
