@@ -9,39 +9,44 @@ non-zero before the result lines:
 1. card    — name and power limit from ``nvidia-smi``.
 2. build   — compile every CUDA kernel of the port from ``mpit_tpu_torch/ops/csrc``
              (one ``nvcc`` per source, all started together).
-3. kernels — each kernel against its plain PyTorch version on the card, at
-             the reference's test shapes and at the shapes the main path gives
-             it, with TF32 off; timed with CUDA events beside its bound, the
-             plain version and one PyTorch library call of the same function.
+3. kernels — the elastic update against its plain PyTorch version on the
+             card, with TF32 off: one leaf at the reference's test shapes,
+             then whole lists of leaves in one call (LeNet's 8, a ragged list
+             whose leaves start off 16-byte boundaries, a list longer than
+             one launch takes); a round of LeNet's leaves timed as one
+             launch and as one launch per leaf, with CUDA events and device
+             time, beside its bound, the plain version and ``lerp`` + ``add``.
 4. flash   — both flash-attention families against their plain versions:
              the CUDA-core kernels (forward, dQ, dK/dV) at the reference's
              test cases and the path's shape, called directly; then, through
              the dispatch of the ``autograd.Function``, the tensor-core
-             (sm90) forward and dK/dV at bf16 D = 64 and the path's shape,
-             with the counters showing which family each case launched; the
-             autograd path against dense attention's gradients (a bf16
-             D = 64 case among them), and T = 100 going to dense with no
-             launch. All five kernels timed at the path's shape in this one
-             call as in 3, with ``scaled_dot_product_attention`` (forward,
-             and its autograd backward) as the library yardstick.
+             (sm90) forward, dQ and dK/dV at bf16 D = 64 and the path's
+             shape, with the counters showing which family each case
+             launched; rows no key sees giving dQ = 0; the autograd path
+             against dense attention's gradients (a bf16 D = 64 case among
+             them), and T = 100 going to dense with no launch. All six
+             kernels timed at the path's shape in this one call, by CUDA
+             events and device time, beside the bound, the plain version and
+             ``scaled_dot_product_attention`` (forward, and its autograd
+             backward) as the library yardstick.
 5. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
              against the same round on the CPU (plain version).
 6. step    — one sync-DP step of an f32 2-layer flash transformer on the card
              (kernels) against the same step on the CPU (plain versions); the
              flash counts are set to 0 just before and read after. This f32
-             path is where the CUDA-core forward and dK/dV run, so their rows
-             of the kernels line take their launches from here.
+             path is where the CUDA-core kernels run, so their rows of the
+             kernels line take their launches from here.
 7. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
              workers stacked on the card, bf16 LeNet; the elastic kernel's
-             launch count is set to 0 just before and read just after.
+             launch count is set to 0 just before and read just after: one
+             launch per round.
 8. profile — ``torch.profiler`` over a few of the same rounds: the card's
              busy share and the kernels that take the most time.
 9. lm      — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
              kernels' launch counts are set to 0 just before and read after:
-             the sm90 forward and dK/dV and the CUDA-core dQ run, the
-             CUDA-core forward and dK/dV do not.
+             the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
 10. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
 
@@ -174,14 +179,14 @@ def elastic_bound_ms(w: int, n: int) -> float:
     return 1e3 * max(by_bytes, by_ops)
 
 
-def lenet_leaf_shapes() -> list[tuple[str, tuple]]:
-    """(name, shape) of each LeNet parameter leaf, in leaf order: the
-    shapes of the main path's elastic launches, one per leaf."""
+def lenet_leaf_shapes() -> list[tuple]:
+    """The shape of each LeNet parameter leaf, in leaf order: the leaves
+    of the main path's elastic round."""
     from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.utils.params import tree_leaves
 
     params = LeNet(device="cuda").init(torch.Generator().manual_seed(0))
-    return [(f"{layer}.{k}", tuple(params[layer][k].shape))
-            for layer in sorted(params) for k in sorted(params[layer])]
+    return [tuple(t.shape) for t in tree_leaves(params)]
 
 
 def kernels_vs_plain() -> dict:
@@ -193,18 +198,24 @@ def kernels_vs_plain() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     alpha = 0.9 / WORKERS
 
-    def inputs(w, shape):
-        xs = (w, *shape) if w > 1 else shape
-        return (torch.randn(xs, generator=gen, device="cuda"),
-                torch.randn(shape, generator=gen, device="cuda"),
-                torch.randn(shape, generator=gen, device="cuda"))
+    def leaf_list(w, shapes, offset=0):
+        """(xs, cs, ds), each leaf a view ``offset`` floats into a buffer of
+        its own: an offset that is not a multiple of 4 starts it off a
+        16-byte boundary."""
+        out = []
+        for shape in shapes:
+            xs = (w, *shape) if w > 1 else shape
+            out.append([torch.randn(offset + torch.Size(s).numel(), generator=gen,
+                                    device="cuda")[offset:].view(s)
+                        for s in (xs, shape, shape)])
+        return [list(t) for t in zip(*out)]
 
     max_err = 0.0
+    lenet = lenet_leaf_shapes()
     cases = [(s, w) for s in [(7,), (65536,), (65549,), (3, 50, 11)] for w in (1, 8)]
-    leaves = lenet_leaf_shapes()
-    cases += [(s, WORKERS) for _, s in leaves]
+    cases += [(s, WORKERS) for s in lenet]
     for shape, w in cases:
-        x, c, d = inputs(w, shape)
+        (x,), (c,), (d,) = leaf_list(w, [shape])
         kx, kc = elastic.elastic_update(x, c, d, alpha, use_kernel=True)
         torch.cuda.synchronize()
         px, pc = elastic.elastic_update_plain(x, c, d, alpha)
@@ -215,41 +226,51 @@ def kernels_vs_plain() -> dict:
     phase("kernels", f"elastic_update: {len(cases)} cases match the plain "
           f"version (rtol=atol={TOL}), max |err| {max_err:.3g}")
 
-    # times at the main path's shapes: one launch per LeNet leaf, W = 8
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    dev = {}  # the same sums of device time alone (profiler)
-    per_round = []
-    for name, shape in leaves:
-        x, c, d = inputs(WORKERS, shape)
-        n = c.numel()
-        fns = dict(
-            ms=lambda: elastic.elastic_update(x, c, d, alpha, use_kernel=True),
-            plain_ms=lambda: elastic.elastic_update_plain(x, c, d, alpha),
-            library_ms=lambda: (torch.lerp(x, c, alpha),
-                                torch.add(c, d, alpha=alpha)),
-        )
-        row = dict(leaf=name, n=n, bound_ms=elastic_bound_ms(WORKERS, n))
-        for k, fn in fns.items():
-            row[k] = time_ms(fn)
-            row["device_" + k] = device_ms(fn)
-        for k in tot:
-            tot[k] += row[k]
-            dev[k] = dev.get(k, 0.0) + row.get("device_" + k, 0.0)
-        phase("kernels", "elastic_update " + json.dumps(row))
-        per_round.append((x, c, d))
-    round_ms = time_ms(lambda: [elastic.elastic_update(x, c, d, alpha, use_kernel=True)
-                                for x, c, d in per_round])
-    phase("kernels", f"elastic_update per round (8 launches back to back): "
-          f"{round_ms:.6f} ms; sums over the leaves: " + json.dumps(
-              {"events_ms": tot, "device_ms": {k: v for k, v in dev.items()
-                                               if k != "bound_ms"}}))
+    ragged = [(7,), (13,), (3, 50, 11), (65549,), (1,), (1021,)]
+    many = [(1 + 97 * i % 2999,) for i in range(elastic.MAX_LEAVES + 9)]
+    lists = [("LeNet", WORKERS, lenet, 0), ("ragged", 1, ragged, 1),
+             ("ragged", WORKERS, ragged, 3), ("longer than the cap", WORKERS, many, 0)]
+    leaves_err = 0.0
+    for name, w, shapes, offset in lists:
+        xs, cs, ds = leaf_list(w, shapes, offset)
+        before = elastic.launches
+        kxs, kcs = elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True)
+        torch.cuda.synchronize()
+        launched = elastic.launches - before
+        if launched != -(-len(shapes) // elastic.MAX_LEAVES):
+            raise AssertionError(f"{name} list of {len(shapes)} leaves: {launched} launches")
+        pxs, pcs = elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False)
+        for got, want in zip(kxs + kcs, pxs + pcs):
+            torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+            leaves_err = max(leaves_err, (got - want).abs().max().item())
+        phase("kernels", f"elastic_update_leaves: {name} list, {len(shapes)} leaves, "
+              f"W = {w}, offset {offset}: {launched} launch(es), matches the plain "
+              f"version (rtol=atol={TOL})")
+    max_err = max(max_err, leaves_err)
+
+    # a round at the main path's shapes: LeNet's 8 leaves, W = 8, as one
+    # launch and, for comparison in this call, as one launch per leaf
+    xs, cs, ds = leaf_list(WORKERS, lenet)
+    fns = dict(
+        ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True),
+        per_leaf_ms=lambda: [elastic.elastic_update(x, c, d, alpha, use_kernel=True)
+                             for x, c, d in zip(xs, cs, ds)],
+        plain_ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False),
+        library_ms=lambda: [(torch.lerp(x, c, alpha), torch.add(c, d, alpha=alpha))
+                            for x, c, d in zip(xs, cs, ds)],
+    )
+    row = dict(bound_ms=sum(elastic_bound_ms(WORKERS, c.numel()) for c in cs))
+    for k, fn in fns.items():
+        row[k] = time_ms(fn)
+        row["device_" + k] = device_ms(fn)
+    phase("kernels", "elastic_update_leaves per round (LeNet, W = 8; ms by CUDA "
+          "events, device_ms by the profiler): " + json.dumps(row))
     return dict(
         name="elastic_update", route="cuda",
         source="mpit_tpu_torch/ops/csrc/elastic.cu",
         replaces="mpit_tpu/ops/elastic.py:70",
-        max_abs_err=max_err, ms=round_ms, plain_ms=tot["plain_ms"],
-        bound_ms=tot["bound_ms"], bound_by="bytes",
-        library_ms=tot["library_ms"],
+        max_abs_err=max_err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=row["library_ms"],
     )
 
 
@@ -293,9 +314,8 @@ def flash_vs_plain() -> dict:
     def family(q, dispatch=True):
         """The kernels a case should launch: the family the Function's
         rule picks for q, or the CUDA-core kernels called directly."""
-        sm90 = dispatch and fa._sm90_takes(q)
-        return {"flash_forward_sm90" if sm90 else "flash_forward": 1, "flash_dq": 1,
-                "flash_dkv_sm90" if sm90 else "flash_dkv": 1}
+        tag = "_sm90" if dispatch and fa._sm90_takes(q) else ""
+        return {"flash_forward" + tag: 1, "flash_dq" + tag: 1, "flash_dkv" + tag: 1}
 
     def against_plain(shape, dtype, causal, dispatch):
         """Each kernel of one case against its plain version, through the
@@ -304,7 +324,7 @@ def flash_vs_plain() -> dict:
         q, k, v = (fa._to2d(x) for x in qkv(shape, dtype))
         do = fa._to2d(qkv(shape, dtype)[0])
         want = family(q, dispatch)
-        fwd, dkv = (n for n in want if n != "flash_dq")
+        fwd, dqn, dkv = want
         before = dict(fa.launches)
         if dispatch:
             o, lse = fa._Flash.forward(q, k, v, causal, True)
@@ -322,7 +342,7 @@ def flash_vs_plain() -> dict:
             dk, dv = fa.flash_dkv_cuda(q, k, v, do, plse, dd, causal)
         torch.cuda.synchronize()
         pdk, pdv = fa.flash_dkv_plain(q, k, v, do, plse, dd, causal)
-        close("flash_dq", dq, fa.flash_dq_plain(q, k, v, do, plse, dd, causal),
+        close(dqn, dq, fa.flash_dq_plain(q, k, v, do, plse, dd, causal),
               FLASH_GRAD_TOL[dtype])
         close(dkv, dk, pdk, FLASH_GRAD_TOL[dtype])
         close(dkv, dv, pdv, FLASH_GRAD_TOL[dtype])
@@ -393,6 +413,16 @@ def flash_vs_plain() -> dict:
     do = fa._to2d(qkv(LM_SHAPE, bf16)[0])
     o, lse = fa.flash_forward_plain(q, k, v, True)
     dd = (do.float() * o.float()).sum(-1)
+    # rows no key sees (LSE +inf) get dQ = 0, not NaN
+    lse_inf = lse.clone()
+    lse_inf[:, 5:9] = float("inf")
+    dq = fa.flash_dq_sm90(q, k, v, do, lse_inf, dd, True)
+    torch.cuda.synchronize()
+    close("flash_dq_sm90", dq, fa.flash_dq_plain(q, k, v, do, lse_inf, dd, True),
+          FLASH_GRAD_TOL[bf16])
+    if not (torch.isfinite(dq.float()).all() and not dq[:, 5:9].float().any()):
+        raise AssertionError("rows with LSE +inf did not give dQ = 0")
+    phase("flash", "flash_dq_sm90: rows with LSE +inf give dQ = 0")
     # library yardstick: SDPA on (B, H, T, D), forward, and its backward
     qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q4, k4, v4))
     dos = do.reshape(b, h, t, d)
@@ -411,6 +441,8 @@ def flash_vs_plain() -> dict:
                       sdpa_bwd),
         "flash_forward_sm90": (lambda: fa.flash_forward_sm90(q, k, v, True), plain_fwd,
                                sdpa),
+        "flash_dq_sm90": (lambda: fa.flash_dq_sm90(q, k, v, do, lse, dd, True),
+                          lambda: fa.flash_dq_plain(q, k, v, do, lse, dd, True), sdpa_bwd),
         "flash_dkv_sm90": (lambda: fa.flash_dkv_sm90(q, k, v, do, lse, dd, True),
                            plain_dkv, sdpa_bwd),
     }
@@ -430,7 +462,7 @@ def flash_vs_plain() -> dict:
                    device_ms=device_ms(kern), device_library_ms=device_ms(lib))
         rows[name] = row
         phase("flash", json.dumps(row))
-    for name in ("flash_forward", "flash_dkv"):
+    for name in ("flash_forward", "flash_dq", "flash_dkv"):
         new = rows[name + "_sm90"]
         phase("flash", f"{name}: sm90 device {new['device_ms']:.6f} ms against the "
               f"CUDA-core kernel's {rows[name]['device_ms']:.6f} ms "
@@ -494,8 +526,8 @@ def main_path(kernel_ms_per_round: float) -> dict:
 
     rounds = res["trained_units"]
     losses = res["round_losses"]
-    if launches != rounds * 8:
-        raise AssertionError(f"elastic launches {launches} != rounds {rounds} x 8")
+    if launches != rounds:
+        raise AssertionError(f"elastic launches {launches} != rounds {rounds}")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -508,7 +540,7 @@ def main_path(kernel_ms_per_round: float) -> dict:
     phase("main", json.dumps({k: res[k] for k in (
         "accuracy", "final_loss", "round_losses", "trained_units", "samples",
         "wall_s", "samples_per_sec")}))
-    phase("main", f"elastic launches {launches} = {rounds} rounds x 8 leaves; "
+    phase("main", f"elastic launches {launches} = {rounds} rounds, one each; "
           f"round {round_ms:.3f} ms, of which the elastic kernel "
           f"{kernel_ms_per_round:.4f} ms ({100 * kernel_ms_per_round / round_ms:.3f}%)")
     return dict(launches=launches)
@@ -594,7 +626,7 @@ def step_vs_cpu() -> dict:
         losses[dev] = float(m["loss"])
     got = launches["cuda"]
     want = {"flash_forward": 2, "flash_dq": 2, "flash_dkv": 2,
-            "flash_forward_sm90": 0, "flash_dkv_sm90": 0}
+            "flash_forward_sm90": 0, "flash_dq_sm90": 0, "flash_dkv_sm90": 0}
     if got != want or any(launches["cpu"].values()):
         raise AssertionError(f"f32 step launched {launches}, not {want} on the card "
                              "and nothing on the CPU")
@@ -643,9 +675,9 @@ def lm_path(flash: dict) -> dict:
     batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
     n_batches = len(x_va) // batch
     eval_chunks = n_batches * -(-batch // 64)
-    want = {"flash_forward": 0, "flash_dq": LM_LAYERS * steps, "flash_dkv": 0,
+    want = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_forward_sm90": LM_LAYERS * (steps + eval_chunks),
-            "flash_dkv_sm90": LM_LAYERS * steps}
+            "flash_dq_sm90": LM_LAYERS * steps, "flash_dkv_sm90": LM_LAYERS * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches} != {want} "
                              f"({steps} steps, {eval_chunks} eval forwards)")
@@ -707,7 +739,7 @@ def profile_lm(steps: int = 3) -> None:
     sm90_ms = sum(e.self_device_time_total for e in ranked if "_wgmma_" in e.key) / 1e3
     phase("lm-profile", f"flash kernels: {flash_ms / steps:.4f} ms/step of device time, "
           f"{100 * flash_ms / busy_ms:.1f}% of the busy time; of it the sm90 family "
-          f"(wgmma forward, dK/dV) {sm90_ms / steps:.4f} ms/step, the CUDA-core "
+          f"(wgmma forward, dQ, dK/dV) {sm90_ms / steps:.4f} ms/step, the CUDA-core "
           f"family {(flash_ms - sm90_ms) / steps:.4f} ms/step")
     for e in ranked[:12]:
         phase("lm-profile", f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
@@ -741,9 +773,9 @@ def main() -> int:
     profile_rounds()
     lm_launches = lm_path(flash)
     for name in flash:
-        # the bf16 LM runs the sm90 forward and dK/dV; the CUDA-core ones
-        # run on the f32 path, whose launches the step phase counted
-        path = step_launches if name in ("flash_forward", "flash_dkv") else lm_launches
+        # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the
+        # f32 path, whose launches the step phase counted
+        path = lm_launches if name.endswith("_sm90") else step_launches
         flash[name]["launches"] = path[name]
     profile_lm()
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",

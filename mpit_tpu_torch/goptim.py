@@ -67,31 +67,26 @@ def easgd_round(
     ``(params, center)``.
 
     ``use_kernel`` routes the elementwise moves through the fused CUDA
-    kernel (``ops.elastic_update``), one launch per leaf: True requires it,
-    False takes the plain tree moves, None takes the kernel for CUDA
-    tensors. The diff sum stays plain PyTorch either way, as the
-    reference's psum stays outside its kernel."""
+    kernel (``ops.elastic_update_leaves``), one launch for all the leaves:
+    True requires it, False takes the plain tree moves, None takes the
+    kernel for CUDA tensors. The diff sum stays plain PyTorch either way,
+    as the reference's psum stays outside its kernel."""
     if use_kernel is False:
         return (
             elastic_client_move(params, center, alpha),
             elastic_center_move(center, params, alpha, compress_dtype),
         )
 
-    from mpit_tpu_torch.ops import elastic_update
+    from mpit_tpu_torch.ops import elastic_update_leaves
 
     total_diff = summed_client_diffs(params, center, compress_dtype)
     # flatten/unflatten by the params' structure, so trees whose containers
     # are tuples come back intact
-    pairs = [
-        elastic_update(p, c, d, alpha, use_kernel=use_kernel)
-        for p, c, d in zip(
-            tree_leaves(params), tree_leaves(center), tree_leaves(total_diff)
-        )
-    ]
-    return (
-        tree_unflatten(params, [x for x, _ in pairs]),
-        tree_unflatten(center, [c for _, c in pairs]),
+    new_x, new_c = elastic_update_leaves(
+        tree_leaves(params), tree_leaves(center), tree_leaves(total_diff), alpha,
+        use_kernel=use_kernel,
     )
+    return tree_unflatten(params, new_x), tree_unflatten(center, new_c)
 
 
 def downpour_push(

@@ -1,55 +1,62 @@
-// Flash attention on Hopper's tensor cores (sm_90a): forward and fused dK/dV
-// with wgmma, P and dS rounded to bf16 for their products.
+// Flash attention on Hopper's tensor cores (sm_90a): forward, dQ and fused
+// dK/dV with wgmma, P and dS rounded to bf16 for their products.
 //
-// Replaces two Pallas TPU kernels of mpit_tpu/ops/flash_attention.py:
+// Replaces the three Pallas TPU kernels of mpit_tpu/ops/flash_attention.py:
 //   mpit_flash_forward_sm90 <- `_kernel`     (pl.pallas_call at flash_attention.py:358,
 //                                              launched by `_flash_pallas`)
+//   mpit_flash_dq_sm90      <- `_dq_kernel`  (pl.pallas_call at flash_attention.py:272,
+//                                              launched by `_flash_pallas_bwd`)
 //   mpit_flash_dkv_sm90     <- `_dkv_kernel` (pl.pallas_call at flash_attention.py:288,
 //                                              launched by `_flash_pallas_bwd`)
-// and, on the inputs they take, the CUDA-core kernels mpit_flash_forward and
-// mpit_flash_dkv of flash_attention.cu. Same functions on (B*H, T, D) tensors,
-// scale = 1/sqrt(D):
+// and, on the inputs they take, the CUDA-core kernels of flash_attention.cu.
+// Same functions on (B*H, T, D) tensors, scale = 1/sqrt(D):
 //   forward: S = scale * Q K^T (causal: key > query masked), online softmax,
 //            O = softmax(S) V in bf16 and per row an f32 LSE = m + log(l),
 //            +inf for a row no key sees (its O row is 0).
-//   dK/dV:   P^T = exp(S^T - LSE), dP^T = V dO^T, dS^T = P^T * (dP^T - dd),
-//            dV = P^T dO, dK = scale dS^T Q, with dd = rowsum(dO * O) from
-//            the caller; both in bf16.
-// They take bf16, D = 64 and T % 64 == 0 only; the wrapper sends anything else
-// to flash_attention.cu.
+//   dQ:      P = exp(S - LSE), dP = dO V^T, dS = P * (dP - dd),
+//            dQ = scale dS K, with dd = rowsum(dO * O) from the caller.
+//   dK/dV:   the same P and dS transposed, dV = P^T dO, dK = scale dS^T Q.
+// Gradients are written in bf16. dQ and dK/dV stay two kernels, as the
+// reference keeps two pallas_calls: each output tile has one owner block, so
+// no atomics and no f32 scratch. They take bf16, D = 64 and T % 64 == 0 only;
+// the wrapper sends anything else to flash_attention.cu.
 //
 // Precision: every product runs on the tensor cores as bf16 x bf16 with f32
-// accumulation. Q K^T, V dO^T take the bf16 inputs as they are, as the
-// reference's MXU products do. P (forward and dK/dV) and dS are computed in
-// f32 and rounded to bf16 before P V, P^T dO and dS^T Q, where the reference
-// keeps them in f32: FlashAttention 2 and 3 round the same way. Softmax
-// statistics, the LSE and every sum stay f32.
+// accumulation. Q K^T, dO V^T, V dO^T take the bf16 inputs as they are, as
+// the reference's MXU products do. P (forward and dK/dV) and dS (dQ and
+// dK/dV) are computed in f32 and rounded to bf16 before P V, P^T dO, dS K and
+// dS^T Q, where the reference keeps them in f32: FlashAttention 2 and 3
+// round the same way. Softmax statistics, the LSE and every sum stay f32.
 //
 // Bound at the training path's shape (B*H = 96, T = 512, D = 64, bf16,
 // causal), H100 SXM at 3.35 TB/s and 989 TFLOP/s bf16 dense:
 //   forward  25.4 MB / 3.22 GFLOP -> 7.6 us, bytes (3.3 us of FLOPs)
+//   dQ       31.9 MB / 4.83 GFLOP -> 9.5 us, bytes (4.9 us of FLOPs)
 //   dK/dV    38.1 MB / 6.44 GFLOP -> 11.4 us, bytes (6.5 us of FLOPs)
 //
 // Design. A block is one warpgroup (128 threads) that owns 64 rows: query
-// rows for the forward, key rows for dK/dV. The operand it streams (K and V,
-// or Q, dO, LSE and dd) comes in tiles of 64 rows through shared memory,
-// double-buffered with cp.async, so the next tile's copy runs under this
-// tile's products. Every tile is stored as it lies in device memory, a
+// rows for the forward and dQ, key rows for dK/dV. The operand it streams (K
+// and V, or Q, dO, LSE and dd) comes in tiles of 64 rows through shared
+// memory, double-buffered with cp.async, so the next tile's copy runs under
+// this tile's products. Every tile is stored as it lies in device memory, a
 // (64, 64) bf16 row-major block whose 128-byte rows are swizzled (16-byte
 // chunk c of row r at chunk c ^ (r % 8)), 1024-byte aligned. That one layout
 // serves both operand forms of wgmma:
-//   K-major (D is the reduction: Q and K in Q K^T, K and Q in K Q^T, V and dO
-//   in V dO^T): the k-th 16-wide slice starts 32 bytes further.
-//   MN-major (the tile's rows are the reduction: V in P V, dO in P^T dO, Q in
-//   dS^T Q), with wgmma's transpose bit: the k-th slice of 16 rows starts
-//   2048 bytes further.
+//   K-major (D is the reduction: Q and K in Q K^T, dO and V in dO V^T, K and
+//   Q in K Q^T, V and dO in V dO^T): the k-th 16-wide slice starts 32 bytes
+//   further.
+//   MN-major (the tile's rows are the reduction: V in P V, K in dS K, dO in
+//   P^T dO, Q in dS^T Q), with wgmma's transpose bit: the k-th slice of 16
+//   rows starts 2048 bytes further.
 // The scores come out of wgmma in its accumulator layout; P (or dS) is
 // rounded to bf16 and repacked in registers straight into the A-operand
 // layout of the next wgmma (the accumulator's 16-column slice k is exactly
 // the A fragment of reduction slice k), so P never touches shared memory.
-// Row max and row sum reduce over the 4 lanes that share a row. Causal: tiles
-// entirely above the diagonal are skipped; only the diagonal tile is masked,
-// by each accumulator element's (row, col). The forward grid starts with the
+// dQ and dK/dV issue their two score products (S and dP) as two commit
+// groups and compute P while the second runs. Row max and row sum reduce
+// over the 4 lanes that share a row. Causal: tiles entirely above the
+// diagonal are skipped; only the diagonal tile is masked, by each
+// accumulator element's (row, col). The forward and dQ grids start with the
 // query tiles that have the most keys; a dK/dV block starts its loop at its
 // own first key. Blocks run independently: the TPU's sequential innermost
 // grid axis is the loop over tiles inside a block.
@@ -472,6 +479,102 @@ flash_dkv_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_acc(dv + at, dv_acc, 1.f, 1.f);
 }
 
+constexpr int kDqSmem = 6 * kTileBytes + 1024;  // Q, dO, K x2, V x2, alignment
+
+__global__ void __launch_bounds__(kThreads)
+flash_dq_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ dd,
+                      bf16* __restrict__ dq, int t, bool causal, float scale,
+                      float scale_log2) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t sQ = base, sO = base + kTileBytes;  // sO holds dO
+  const auto sK = [&](int s) { return base + (2 + s) * kTileBytes; };
+  const auto sV = [&](int s) { return base + (4 + s) * kTileBytes; };
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // most keys first under causal
+  const long long off = static_cast<long long>(blockIdx.y) * t * kD;
+  const long long row0 = static_cast<long long>(qt) * kTile;
+  const bf16* kb = k + off;
+  const bf16* vb = v + off;
+  const int n_tiles = causal ? qt + 1 : t / kTile;
+
+  load_tile(sQ, q + off + row0 * kD);
+  load_tile(sO, dout + off + row0 * kD);
+  load_tile(sK(0), kb);
+  load_tile(sV(0), vb);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);  // query rows r0, r0 + 8
+  const int c0 = 2 * (lane & 3);                          // key column of element 4i
+  // this thread's two rows: LSE in the log2 domain (+inf stays +inf), dd
+  const long long at_row = static_cast<long long>(blockIdx.y) * t + row0 + r0;
+  const float lse2[2] = {lse[at_row] * kLog2e, lse[at_row + 8] * kLog2e};
+  const float ddr[2] = {dd[at_row], dd[at_row + 8]};
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j & 1;
+    if (j + 1 < n_tiles) {
+      const long long next = static_cast<long long>(j + 1) * kTile * kD;
+      load_tile(sK(s ^ 1), kb + next);
+      load_tile(sV(s ^ 1), vb + next);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, 64 queries x 64 keys each
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, desc_k(sQ, kk), desc_k(sK(s), kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, desc_k(sO, kk), desc_k(sV(s), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S is ready; dP may still run
+    fence_regs(sc);
+
+    const bool diag = causal && j == qt;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(sc[4 * i + e] * scale_log2 - lse2[e >> 1]);  // LSE +inf -> 0
+        if (diag && 8 * i + c0 + (e & 1) > r0 + 8 * (e >> 1)) p = 0.f;  // key > query
+        sc[4 * i + e] = p;
+      }
+    }
+
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - ddr[(i >> 1) & 1]);
+    uint32_t da[4][4];
+    to_a_fragments(dp, da);
+
+    // dQ += dS K, K as the MN-major operand
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, da[kk], desc_mn(sK(s), kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every lane is done with stage s before it is refilled
+  }
+
+  store_acc(dq + off + row0 * kD, acc, scale, scale);
+}
+
 int run_checks(int bh, int t, int d, int bf16_in) {
   if (bh <= 0 || t <= 0) return -1;  // nothing to do
   if (!bf16_in || d != kD || t % kTile != 0 || bh > 65535) {
@@ -515,5 +618,25 @@ extern "C" int mpit_flash_dkv_sm90(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(dd), static_cast<bf16*>(dko), static_cast<bf16*>(dvo), t,
       causal != 0, scale, scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mpit_flash_dq_sm90(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse, const void* dd,
+                                  void* dqo, int bh, int t, int d, int causal, int bf16_in,
+                                  void* stream) {
+  const int c = run_checks(bh, t, d, bf16_in);
+  if (c != 0) return c < 0 ? 0 : c;
+  // above the 48 KB a block gets without asking; set once per process
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const float scale = 1.f / sqrtf(static_cast<float>(d));
+  const dim3 grid(t / kTile, bh);
+  flash_dq_wgmma_kernel<<<grid, kThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(dd), static_cast<bf16*>(dqo), t, causal != 0, scale,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

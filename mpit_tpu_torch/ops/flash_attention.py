@@ -8,12 +8,12 @@ on first use by ``ops/_build.py`` and called through ``ctypes``:
 - dQ: ``scale · Σ_j P∘(dP − dd) K_j`` with P recomputed from the LSE;
 - dK/dV: ``scale · Σ_i dSᵀ Q_i`` and ``Σ_i Pᵀ dO_i``, fused.
 
-Two families (see each source's header for its bounds and design):
-``csrc/flash_attention_sm90.cu`` runs the forward and dK/dV on the tensor
-cores (``wgmma``, P and dS rounded to bf16) for what :func:`_sm90_takes`
-accepts: bf16, D = 64, T a multiple of 64. ``csrc/flash_attention.cu``
-runs all three with f32 P and f32 FMAs for everything else (f32, other
-head dims, other lengths) and dQ always.
+Two families of the same three kernels (see each source's header for
+its bounds and design): ``csrc/flash_attention_sm90.cu`` runs them on the
+tensor cores (``wgmma``, P and dS rounded to bf16) for what
+:func:`_sm90_takes` accepts: bf16, D = 64, T a multiple of 64.
+``csrc/flash_attention.cu`` runs them with f32 P and f32 FMAs for
+everything else (f32, other head dims, other lengths).
 
 All three work on ``(B·H, T, D)``; :func:`flash_attention` takes the
 reference's ``(B, T, H, D)``. The backward computes ``dd = rowsum(dO∘O)``
@@ -40,7 +40,7 @@ from mpit_tpu_torch.ops.ring_attention import dense_attention
 # kernel launches by the wrappers below; a run resets them to 0 and reads
 # them back to show that its main path went through the kernels
 launches = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
-            "flash_forward_sm90": 0, "flash_dkv_sm90": 0}
+            "flash_forward_sm90": 0, "flash_dq_sm90": 0, "flash_dkv_sm90": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -120,6 +120,7 @@ _ARGTYPES = {
     "mpit_flash_dq": ("flash_attention", 7),
     "mpit_flash_dkv": ("flash_attention", 8),
     "mpit_flash_forward_sm90": ("flash_attention_sm90", 5),
+    "mpit_flash_dq_sm90": ("flash_attention_sm90", 7),
     "mpit_flash_dkv_sm90": ("flash_attention_sm90", 8),
 }
 
@@ -200,6 +201,15 @@ def flash_dkv_cuda(q, k, v, do, lse, dd, causal: bool):
     return dk, dv
 
 
+def flash_dq_sm90(q, k, v, do, lse, dd, causal: bool):
+    bh, t, d = _check_sm90("flash dQ sm90", (q, k, v, do), (lse, dd))
+    dq = torch.empty_like(q)
+    _launch("flash_dq_sm90", "mpit_flash_dq_sm90",
+            [x.data_ptr() for x in (q, k, v, do, lse, dd, dq)], bh, t, d, causal,
+            q.dtype, q.device)
+    return dq
+
+
 def flash_dkv_sm90(q, k, v, do, lse, dd, causal: bool):
     bh, t, d = _check_sm90("flash dK/dV sm90", (q, k, v, do), (lse, dd))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -257,8 +267,9 @@ class _FlashBackward(torch.autograd.Function):
         do = do.contiguous()
         dd = (do.float() * o.float()).sum(-1)  # D_i = Σ_d dO_id O_id, f32
         if kernel:
-            dq = flash_dq_cuda(q, k, v, do, lse, dd, causal)
-            dkv = flash_dkv_sm90 if _sm90_takes(q) else flash_dkv_cuda
+            sm90 = _sm90_takes(q)
+            dq = (flash_dq_sm90 if sm90 else flash_dq_cuda)(q, k, v, do, lse, dd, causal)
+            dkv = flash_dkv_sm90 if sm90 else flash_dkv_cuda
             dk, dv = dkv(q, k, v, do, lse, dd, causal)
         else:
             dq = flash_dq_plain(q, k, v, do, lse, dd, causal)

@@ -7,7 +7,7 @@ center is one unstacked tree. A round is τ local steps, each computing all
 W workers' gradients at once (``torch.func.vmap`` over
 ``torch.func.grad_and_value``, the counterpart of the reference's
 ``shard_map``), then one ``goptim.easgd_round``: a sum of the client diffs
-and the fused elastic kernel, one launch per parameter leaf.
+and the fused elastic kernel, one launch for all the parameter leaves.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ may contract ``x - α(x - c)`` into a fused multiply-add and move the last
 bit.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,10 @@ from mpit_tpu import goptim as jax_goptim
 from mpit_tpu.ops import elastic_update as jax_elastic_update
 from mpit_tpu.ops.elastic import BLOCK_ROWS, LANE
 from mpit_tpu_torch import goptim
+from mpit_tpu_torch.models import LeNet
+from mpit_tpu_torch.ops import _build
 from mpit_tpu_torch.ops import elastic as port_elastic
+from mpit_tpu_torch.utils.params import tree_leaves
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 SHAPES = [
@@ -75,6 +80,84 @@ def test_elastic_cpu_path_counts_no_launch():
     port_elastic.elastic_update(x, c, d, 0.1)
     port_elastic.elastic_update(x, c, d, 0.1, use_kernel=False)
     assert port_elastic.launches == before
+
+
+# the leaves of one round: LeNet's, and ragged ones (n % 4 != 0)
+LEAF_SHAPES = {
+    "lenet": [tuple(t.shape) for t in tree_leaves(
+        LeNet(device="cpu").init(torch.Generator().manual_seed(0)))],
+    "ragged": [(7,), (13,), (3, 50, 11), (BLOCK_ROWS * LANE + 13,), (1,)],
+}
+
+
+def _leaves(kind, w, seed):
+    """numpy (x, c, d) per leaf, and the same as torch lists."""
+    arrs = [_inputs(s, seed + i, w=None if w == 1 else w)
+            for i, s in enumerate(LEAF_SHAPES[kind])]
+    return arrs, [[torch.from_numpy(a[j]) for a in arrs] for j in range(3)]
+
+
+@pytest.mark.parametrize("w", [1, 2])
+@pytest.mark.parametrize("kind", ["lenet", "ragged"])
+def test_elastic_leaves_match_jax_pallas_interpret(kind, w):
+    """The whole-tree update against the reference's kernel, leaf by leaf
+    and worker by worker; on CPU tensors it counts no launch."""
+    alpha = 0.9 / 8
+    arrs, (xs, cs, ds) = _leaves(kind, w, 20)
+    before = port_elastic.launches
+    new_xs, new_cs = port_elastic.elastic_update_leaves(xs, cs, ds, alpha)
+    assert port_elastic.launches == before
+    assert len(new_xs) == len(new_cs) == len(arrs)
+    for (x, c, d), nx, nc in zip(arrs, new_xs, new_cs):
+        assert nx.shape == x.shape and nc.shape == c.shape
+        for row, got in ([(x, nx)] if w == 1 else zip(x, nx)):
+            ref_x, ref_c = jax_elastic_update(row, c, d, alpha, use_pallas=True)
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref_x), **TOL)
+            np.testing.assert_allclose(nc.numpy(), np.asarray(ref_c), **TOL)
+
+
+def test_elastic_leaves_plain_is_the_per_leaf_update():
+    _, (xs, cs, ds) = _leaves("ragged", 8, 30)
+    before = port_elastic.launches
+    for use_kernel in (None, False):
+        new_xs, new_cs = port_elastic.elastic_update_leaves(xs, cs, ds, 0.1, use_kernel)
+        for x, c, d, nx, nc in zip(xs, cs, ds, new_xs, new_cs):
+            want_x, want_c = port_elastic.elastic_update(x, c, d, 0.1)
+            assert torch.equal(nx, want_x) and torch.equal(nc, want_c)
+    assert port_elastic.launches == before
+    assert port_elastic.elastic_update_leaves([], [], [], 0.1) == ([], [])
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("cpu-tensor", "not CUDA"),
+    ("mixed-w", "not one W"),
+    ("lists", "leaves"),
+])
+def test_elastic_leaves_kernel_refuses_before_any_launch(bad, match):
+    """use_kernel=True refuses a CPU tensor, leaves that stack different
+    W, and lists of different lengths, all before a launch."""
+    _, (xs, cs, ds) = _leaves("ragged", 8, 40)
+    if bad == "mixed-w":
+        xs[1] = xs[1][:3].contiguous()
+    elif bad == "lists":
+        ds = ds[:-1]
+    before = port_elastic.launches
+    with pytest.raises(ValueError, match=f"elastic kernel: .*{match}"):
+        port_elastic.elastic_update_leaves(xs, cs, ds, 0.1, use_kernel=True)
+    assert port_elastic.launches == before
+
+
+def test_every_elastic_ctypes_entry_matches_a_c_entry():
+    """Each ``_ARGTYPES`` entry is an ``extern "C"`` function of
+    ``elastic.cu`` with as many parameters as its ctypes declaration, and
+    the wrapper's cap on leaves per launch is the kernel's table size.
+    Reads the source only: no nvcc."""
+    src = (_build.CSRC / "elastic.cu").read_text()
+    entries = {name: len(params.split(","))
+               for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    assert entries == {k: len(v) for k, v in port_elastic._ARGTYPES.items()}
+    cap = re.search(r"constexpr int kMaxLeaves = (\d+);", src)
+    assert cap and int(cap.group(1)) == port_elastic.MAX_LEAVES
 
 
 def _jax_round(topo, params, center, use_pallas, compress_dtype=None):

@@ -209,6 +209,14 @@ def _forward_bf16_p(q, k, v, causal, block=64):
     return o.to(q.dtype), lse
 
 
+def _dq_bf16_ds(q, k, v, do, lse, dd, causal):
+    """The sm90 dQ's arithmetic in torch: P and dS in f32, dS rounded to
+    bf16 before ``dS K``, f32 accumulation."""
+    _, ds = port_fa._probs_and_ds(q, k, v, do, lse, dd, causal)
+    dq = torch.matmul(ds.bfloat16().float(), k.float())
+    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+
+
 def _dkv_bf16_p_ds(q, k, v, do, lse, dd, causal):
     """The sm90 dK/dV's arithmetic in torch: P and dS in f32, rounded to
     bf16 before ``Pᵀ dO`` and ``dSᵀ Q``, f32 accumulation."""
@@ -241,6 +249,30 @@ def test_bf16_p_and_ds_hold_the_reference_tolerances(causal):
         _close(got, want, GRAD_TOL["bf16"])
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_ds_dq_holds_the_reference_tolerance(causal):
+    """Rounding dS to bf16 before ``dS K``, as the tensor-core dQ does,
+    stays inside the reference's bf16 gradient tolerance against its Pallas
+    dQ kernel (f32 dS), at D = 64. Rows no key sees (LSE +inf) give 0."""
+    (jq, jk, jv), (q, k, v) = _qkv(256, "bf16", 12, b=1, h=2, d=64)
+    (jdo, _, _), (do, _, _) = _qkv(256, "bf16", 13, b=1, h=2, d=64)
+    ref_o, ref_lse = jax_fa._flash_pallas(jq, jk, jv, causal, 128, 128, True)
+    ref_dq = jax_fa._flash_pallas_bwd(jq, jk, jv, ref_o, ref_lse, jdo, causal,
+                                      128, 128, True)[0]
+    q2, k2, v2, do2 = (port_fa._to2d(x) for x in (q, k, v, do))
+    o2 = torch.from_numpy(np.array(jax_fa._to2d(ref_o).astype(jnp.float32))).bfloat16()
+    dd = (do2.float() * o2.float()).sum(-1)
+    lse = torch.from_numpy(np.array(ref_lse))
+    dq = _dq_bf16_ds(q2, k2, v2, do2, lse, dd, causal)
+    want = np.asarray(jax_fa._to2d(ref_dq).astype(jnp.float32))
+    assert dq.dtype == torch.bfloat16
+    assert (np.abs(want) > GRAD_TOL["bf16"]).mean() > 0.5
+    _close(dq, want, GRAD_TOL["bf16"])
+    lse[:, :3] = float("inf")
+    dq = _dq_bf16_ds(q2, k2, v2, do2, lse, dd, causal)
+    assert torch.isfinite(dq.float()).all() and not dq[:, :3].float().any()
+
+
 @pytest.mark.parametrize("dtype,t,d,takes", [
     (torch.bfloat16, 128, 64, True),   # the path's shape class
     (torch.float32, 128, 64, False),   # f32 keeps the reference's 2e-5
@@ -248,17 +280,20 @@ def test_bf16_p_and_ds_hold_the_reference_tolerances(causal):
     (torch.bfloat16, 96, 64, False),   # T not a multiple of 64
 ], ids=["bf16-d64", "f32", "bf16-d16", "t96"])
 def test_sm90_dispatch_rule(monkeypatch, dtype, t, d, takes):
-    """The rule picks the family, and both directions of the Function call
-    the launcher it names: on CPU tensors the launcher refuses with its
-    own name before any launch."""
+    """The rule picks the family, and the forward, dQ and dK/dV of the
+    Function call the launchers it names: on CPU tensors each launcher
+    refuses with its own name before any launch."""
     q = torch.zeros(2, t, d, dtype=dtype)
     assert port_fa._sm90_takes(q) is takes
     before = dict(port_fa.launches)
     family = "sm90 " if takes else ""
     with pytest.raises(ValueError, match=f"flash forward {family}kernel: .* not CUDA"):
         port_fa._Flash.forward(q, q, q, True, True)
-    monkeypatch.setattr(port_fa, "flash_dq_cuda", lambda *args: None)
     lse = torch.zeros(2, t)
+    with pytest.raises(ValueError, match=f"flash dQ {family}kernel: .* not CUDA"):
+        port_fa._FlashBackward.forward(q, q, q, q, lse, q, True, True)
+    monkeypatch.setattr(port_fa, "flash_dq_sm90" if takes else "flash_dq_cuda",
+                        lambda *args: None)
     with pytest.raises(ValueError, match=f"flash dK/dV {family}kernel: .* not CUDA"):
         port_fa._FlashBackward.forward(q, q, q, q, lse, q, True, True)
     assert port_fa.launches == before
