@@ -42,12 +42,25 @@ non-zero before the result lines:
              launch per round.
 8. profile — ``torch.profiler`` over a few of the same rounds: the card's
              busy share and the kernels that take the most time.
-9. lm      — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
+9. ps-parity — a 1-client, 1-server ``AsyncPSTrainer`` run of an f32 LeNet
+             on the card (EASGD, α = 0.5, τ = 4, 24 steps of batch 32)
+             against the collective ``EASGDTrainer`` at W = 1 on the card,
+             from the same init and batches: the centers agree within the
+             reference's limits, and the collective side launches the
+             elastic kernel once per round.
+10. ps     — ``run()`` with the ``mnist-ps`` preset at full width (2 client
+             threads, 1 server thread, 200 local steps each, τ = 4, bf16
+             LeNet), once to warm up, once timed and once under the
+             profiler, each held to the server's counts, finite and falling
+             losses and accuracy: samples/s, each client's exchange time per
+             round and the card's busy share. The path launches no kernel
+             of the port (asserted).
+11. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
              kernels' launch counts are set to 0 just before and read after:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
-10. lm-profile — ``torch.profiler`` over a few of the same steps: the
+12. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
 
 Then a JSON line ``{"kernels": [...]}`` and, last, the device line
@@ -74,7 +87,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, bf16 dense tensor cores
-TOL = 1e-6                 # FMA contraction moves the last bit
+TOL = 1e-6                 # the reference's limit for the elastic math (tests/test_ops.py:32)
 WORKERS = 8
 # the reference's flash tolerances (tests/test_flash_attention.py)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -82,6 +95,15 @@ FLASH_GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 LM_SHAPE = (8, 512, 12, 64)  # (B, T, H, D) of ptb-transformer-large's attention
 LM_LAYERS = 6
 LM_TRAIN_WINDOWS = 512       # 64 steps of global batch 8
+# the reference's limits for a 1-client PS run against the collective
+# trajectory (tests/test_async_ps.py:157)
+PS_TOL = dict(rtol=2e-4, atol=2e-5)
+# LeNet's early trajectory at lr 0.05 and momentum 0.9 amplifies a change in
+# the last bit to 1e-3 and more at some init seeds, where a max-pool picks
+# another element; this seed kept eight draws of such a change at the init
+# within 1.2e-7 on the CPU (tests/test_torch_ps.py, which also holds this
+# phase's comparison there)
+PS_PARITY_SEED = 9
 
 
 def phase(name: str, msg: str) -> None:
@@ -592,6 +614,160 @@ def profile_rounds(rounds: int = 4) -> None:
               f"{e.count // rounds:4d} calls/round  {e.key[:90]}")
 
 
+def ps_parity() -> None:
+    """The two EASGD runtimes on the card: a 1-client, 1-server PS run of
+    an f32 LeNet against the collective trainer at W = 1, from the same
+    init and with the PS client's batch schedule (``default_rng(seed +
+    1000)`` over its whole shard). TF32 off and cuDNN's deterministic
+    algorithms, so both sides' convolutions round alike."""
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    tau, alpha, steps, bs, seed = 4, 0.5, 24, 32, 0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        center, state, stats, launched = _ps_vs_collective(tau, alpha, steps, bs, seed)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    err = 0.0
+    for got, want in zip(tree_leaves(center), tree_leaves(state.center)):
+        torch.testing.assert_close(got, want, **PS_TOL)
+        err = max(err, (got - want).abs().max().item())
+    counts = stats["server_counts"][0]
+    phase("ps-parity", f"f32 LeNet (init seed {PS_PARITY_SEED}), 1 client + 1 server vs "
+          f"the collective trainer at W = 1, both on the card ({steps} steps, tau {tau}, "
+          f"batch {bs}, alpha {alpha}): centers agree (rtol {PS_TOL['rtol']}, atol "
+          f"{PS_TOL['atol']}), max |err| {err:.3g}; collective side {launched} elastic "
+          f"launches in {steps // tau} rounds; server push_easgd {counts['push_easgd']}, "
+          f"fetch {counts['fetch']}")
+
+
+def _ps_vs_collective(tau, alpha, steps, bs, seed):
+    """Both runs of ``ps_parity``; checks the elastic launches of each."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.data import load_mnist
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import AsyncPSTrainer, EASGDTrainer
+
+    x, y, _, _ = load_mnist(synthetic_train=2048, synthetic_test=512)
+    model = LeNet(compute_dtype=torch.float32, device="cuda")
+    params = model.init(torch.Generator().manual_seed(PS_PARITY_SEED))
+    before = elastic.launches
+    center, stats = AsyncPSTrainer(
+        model, SGD(0.05, 0.9), num_clients=1, algo="easgd", alpha=alpha, tau=tau,
+    ).train(x, y, steps=steps, batch_size=bs, seed=seed, init_params=params)
+    if elastic.launches != before:
+        raise AssertionError("the PS run launched the elastic kernel")
+    col = EASGDTrainer(model, SGD(0.05, 0.9), Topology(1, torch.device("cuda")),
+                       tau=tau, alpha=alpha)
+    state = col.init_state(params=params)
+    rng = np.random.default_rng(seed + 1000)
+    for _ in range(steps // tau):
+        idx = [rng.integers(0, len(x), bs) for _ in range(tau)]
+        state, _ = col.step(state, np.stack([x[i] for i in idx]),
+                            np.stack([y[i] for i in idx]))
+    torch.cuda.synchronize()
+    launched = elastic.launches - before
+    if launched != steps // tau:
+        raise AssertionError(f"collective side: {launched} elastic launches in "
+                             f"{steps // tau} rounds")
+    return center, state, stats, launched
+
+
+def busy_union_ms(prof) -> tuple[float, float]:
+    """(union, sum) in ms of the device events a profile recorded: the
+    union counts a moment the card runs work on two streams at once once,
+    the sum counts it twice."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e3, sum(b - a for a, b in spans) / 1e3
+
+
+def ps_path(card_line: str) -> None:
+    """The host-async PS path through ``run()`` at the preset's full width:
+    a warm-up run, a timed run, and a run under ``torch.profiler`` for the
+    card's busy share; each is held to the server's counts, finite and
+    falling losses and the accuracy floor."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig().apply_preset("mnist-ps")
+    rounds = cfg.steps // cfg.tau
+    want = {"push_easgd": cfg.clients * rounds, "fetch": cfg.clients * (rounds + 1)}
+    phase("ps", f"preset mnist-ps: {cfg.model}, {cfg.algo}, {cfg.clients} clients, "
+          f"{cfg.servers} server, {cfg.steps} local steps each, tau {cfg.tau}, lr "
+          f"{cfg.lr}, momentum {cfg.momentum}, global batch {cfg.global_batch}, alpha "
+          f"0.9/clients = {0.9 / cfg.clients}, transport {cfg.transport} (the "
+          f"in-process broker), train_size {cfg.train_size}")
+
+    def checked_run(what: str) -> dict:
+        before = (elastic.launches, dict(fa.launches))
+        res = run(cfg)
+        torch.cuda.synchronize()
+        if (elastic.launches, fa.launches) != before:
+            raise AssertionError(f"{what}: the PS path launched a kernel of the port")
+        got = {k: res["server_counts"][0][k] for k in want}
+        if got != want or res["dead_clients"]:
+            raise AssertionError(f"{what}: server counts {got} != {want}, dead "
+                                 f"clients {res['dead_clients']}")
+        for c, losses in enumerate(res["client_losses"]):
+            if len(losses) != cfg.steps or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"{what}: client {c}: {len(losses)} losses, "
+                                     f"finite {all(map(math.isfinite, losses))}")
+            first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
+            if not last < first:
+                raise AssertionError(f"{what}: client {c}: loss did not fall: first "
+                                     f"8 steps {first}, last 8 {last}")
+        if not res["accuracy"] > 0.3:
+            raise AssertionError(f"{what}: center accuracy {res['accuracy']} is near "
+                                 "chance")
+        return res
+
+    warm = checked_run("warm-up run")  # first-call set-up: cuDNN, streams, allocator
+    phase("ps", f"warm-up run: {warm['samples_per_sec']:.1f} samples/s")
+    res = checked_run("timed run")
+    for c, losses in enumerate(res["client_losses"]):
+        phase("ps", f"client {c}: loss first 8 steps {statistics.mean(losses[:8]):.4f}, "
+              f"last 8 {statistics.mean(losses[-8:]):.4f}")
+    phase("ps", json.dumps({k: res[k] for k in (
+        "accuracy", "final_loss", "server_counts", "dead_clients", "samples",
+        "wall_s", "samples_per_sec", "exchange_ms_per_round")}))
+    phase("ps", f"timed run: server push_easgd {want['push_easgd']}, fetch "
+          f"{want['fetch']} (= {cfg.clients} x {rounds} rounds, + 1 initial fetch "
+          f"each); no kernel of the port launched; {res['samples_per_sec']:.1f} "
+          f"samples/s, wall {res['wall_s']:.3f} s, exchange ms per round by client "
+          f"{[round(v, 3) for v in res['exchange_ms_per_round']]}; {card_line}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_res = checked_run("profiled run")
+        window_ms = 1e3 * (time.perf_counter() - t0)
+    union_ms, sum_ms = busy_union_ms(prof)
+    busy = ("not measured (no device events)" if union_ms == 0 else
+            f"{100 * union_ms / window_ms:.2f}% ({union_ms:.3f} ms of device events, "
+            f"overlaps counted once; {sum_ms:.3f} ms summed, of {window_ms:.3f} ms)")
+    phase("ps", f"device busy share of a run under torch.profiler: {busy}; that run "
+          f"{prof_res['samples_per_sec']:.1f} samples/s; {card_line}")
+
+
 def step_vs_cpu() -> dict:
     """One sync-DP step of an f32 2-layer flash transformer on the card
     (through the kernels) against the same step on the CPU (plain
@@ -763,7 +939,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import mpit_tpu_torch  # noqa: F401  (fails alone, without the repository)
 
-    card()
+    card_line = card()
     build()
     kernel = kernels_vs_plain()
     flash = flash_vs_plain()
@@ -771,6 +947,8 @@ def main() -> int:
     step_launches = step_vs_cpu()
     kernel.update(main_path(kernel["ms"]))
     profile_rounds()
+    ps_parity()
+    ps_path(card_line)
     lm_launches = lm_path(flash)
     for name in flash:
         # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the

@@ -1,7 +1,7 @@
 """LeNet-5-style MNIST model; counterpart of ``mpit_tpu/models/lenet.py``.
 
 The public input is NHWC ``(N, 28, 28, 1)`` as in the reference. Inside,
-the convs run NCHW (``F.conv2d``), and the activations are permuted back to
+the convs run NCHW (``F.conv2d``) in NCHW memory, with or without vmap, and the activations are permuted back to
 NHWC before the flatten, so ``Dense_0``'s 3136 input rows are in flax's
 order. Activations compute in ``compute_dtype`` (bf16 by default); the
 parameters stay float32 and the logits come out float32.
@@ -32,7 +32,13 @@ class LeNet(Model):
         self.Dense_1 = Dense(256, num_classes, compute_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.compute_dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        # NHWC -> NCHW, copied into NCHW strides: with one channel the
+        # permuted view is also channels-last, and the conv would pick its
+        # channels-last algorithm here but the NCHW one under vmap (the
+        # collective trainers), which rounds differently
+        x = x.to(self.compute_dtype).permute(0, 3, 1, 2).clone(
+            memory_format=torch.contiguous_format
+        )
         x = F.max_pool2d(F.relu(self.Conv_0(x)), 2, 2)
         x = F.max_pool2d(F.relu(self.Conv_1(x)), 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten as NHWC

@@ -32,6 +32,14 @@
 // - neighbouring threads touch neighbouring 16-byte words, so every warp
 //   access is coalesced.
 //
+// Rounding: every difference, product and sum is rounded on its own
+// (__fsub_rn, __fmul_rn, __fadd_rn, which the compiler never contracts into a
+// fused multiply-add), so each move is bit for bit what PyTorch's separate
+// ops compute (the plain version, ops/elastic.py) and what numpy computes in
+// the host-async parameter server and its clients (parallel/pserver.py,
+// parallel/ps_roles.py). The two EASGD runtimes then agree to the bit at the
+// exchange.
+//
 // alpha is a kernel argument (the TPU version folded it in as a static).
 // Launches go on the caller's stream and do not synchronise; each entry
 // returns cudaGetLastError() so a refused launch is reported.
@@ -60,6 +68,14 @@ struct Leaves {
   int workers;
   float alpha;
 };
+
+__device__ __forceinline__ float center_move(float c, float d, float alpha) {
+  return __fadd_rn(c, __fmul_rn(alpha, d));
+}
+
+__device__ __forceinline__ float client_move(float x, float c, float alpha) {
+  return __fsub_rn(x, __fmul_rn(alpha, __fsub_rn(x, c)));
+}
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
@@ -90,17 +106,17 @@ elastic_update_kernel(const __grid_constant__ Leaves table) {
     const float4 d4 = *reinterpret_cast<const float4*>(d + i);
     cv[0] = c4.x; cv[1] = c4.y; cv[2] = c4.z; cv[3] = c4.w;
     float4 o;
-    o.x = c4.x + alpha * d4.x;
-    o.y = c4.y + alpha * d4.y;
-    o.z = c4.z + alpha * d4.z;
-    o.w = c4.w + alpha * d4.w;
+    o.x = center_move(c4.x, d4.x, alpha);
+    o.y = center_move(c4.y, d4.y, alpha);
+    o.z = center_move(c4.z, d4.z, alpha);
+    o.w = center_move(c4.w, d4.w, alpha);
     *reinterpret_cast<float4*>(new_c + i) = o;
   } else {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (i + k < n) {
         cv[k] = c[i + k];
-        new_c[i + k] = cv[k] + alpha * d[i + k];
+        new_c[i + k] = center_move(cv[k], d[i + k], alpha);
       }
     }
   }
@@ -111,15 +127,15 @@ elastic_update_kernel(const __grid_constant__ Leaves table) {
     if (full && aligned16(xr) && aligned16(yr)) {
       const float4 x4 = *reinterpret_cast<const float4*>(xr);
       float4 o;
-      o.x = x4.x - alpha * (x4.x - cv[0]);
-      o.y = x4.y - alpha * (x4.y - cv[1]);
-      o.z = x4.z - alpha * (x4.z - cv[2]);
-      o.w = x4.w - alpha * (x4.w - cv[3]);
+      o.x = client_move(x4.x, cv[0], alpha);
+      o.y = client_move(x4.y, cv[1], alpha);
+      o.z = client_move(x4.z, cv[2], alpha);
+      o.w = client_move(x4.w, cv[3], alpha);
       *reinterpret_cast<float4*>(yr) = o;
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        if (i + k < n) yr[k] = xr[k] - alpha * (xr[k] - cv[k]);
+        if (i + k < n) yr[k] = client_move(xr[k], cv[k], alpha);
       }
     }
   }

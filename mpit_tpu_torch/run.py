@@ -7,16 +7,22 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
 - ``sync`` (data-parallel) with ``lenet``/``mlp`` on MNIST or the
   ``transformer`` LM on PTB (or its synthetic stand-in), with SGD, Adam or
   AdamW and a constant, cosine or warmup-cosine schedule (SGD constant
-  only).
+  only);
+- ``ps-easgd``/``ps-eamsgd``/``ps-downpour`` with ``lenet``/``mlp`` on
+  MNIST: the host-async parameter server, servers and clients as threads
+  over the in-process broker, each client's local steps on the card.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it.
+will bring it. Flags that do not apply to the chosen algo warn, with the
+reference's wording, as the reference does.
 
     python -m mpit_tpu_torch.run --preset mnist-easgd
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash
+    python -m mpit_tpu_torch.run --preset mnist-ps
 
 run on the card, with W = 8 workers stacked on it (easgd) or sharing its
-global batch (sync) unless the topology was initialized otherwise, and
+global batch (sync) unless the topology was initialized otherwise, or with
+``clients`` client threads and ``servers`` server threads (ps-*), and
 print the results dict as one JSON line.
 """
 
@@ -24,12 +30,15 @@ from __future__ import annotations
 
 import json
 import time
+import warnings
+
+import numpy as np
 import torch
 
 from mpit_tpu_torch.utils.config import TrainConfig
 
 _MODELS = {"mnist": ("lenet", "mlp"), "ptb": ("transformer",)}
-_ALGOS = ("easgd", "sync")
+_ALGOS = ("easgd", "sync", "ps-easgd", "ps-downpour")
 
 
 def _not_ported(what: str, item: str):
@@ -48,8 +57,8 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise _not_ported(
             f"model={cfg.model!r} on dataset={cfg.dataset!r}", "items A8-A9"
         )
-    if algo == "easgd" and cfg.dataset != "mnist":
-        raise _not_ported(f"easgd on dataset={cfg.dataset!r}", "item A8")
+    if algo in ("easgd", "ps-easgd", "ps-downpour") and cfg.dataset != "mnist":
+        raise _not_ported(f"{algo} on dataset={cfg.dataset!r}", "item A8")
     if (algo == "easgd" or cfg.optimizer == "sgd") and (
         cfg.optimizer != "sgd" or cfg.lr_schedule != "constant"
     ):
@@ -79,8 +88,6 @@ def _ptb_windows(cfg: TrainConfig):
     """Token stream → (N, T) next-token windows: x=tokens[i:i+T],
     y=tokens[i+1:i+T+1] (the LM objective over fixed-length unrolls).
     Returns (x_train, y_train, x_valid, y_valid, {"vocab_size": V})."""
-    import numpy as np
-
     from mpit_tpu_torch.data import load_ptb
 
     t_len = cfg.seq_len
@@ -118,6 +125,21 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
     from mpit_tpu_torch.models import MLP, LeNet, TransformerLM
 
     name = cfg.model.lower()
+    algo = cfg.resolved_algo()
+    if cfg.moe_experts and not (name == "transformer" and algo == "moe-sync"):
+        warnings.warn(
+            f"moe_experts={cfg.moe_experts} only applies with "
+            f"model='transformer' and algo='moe-sync'; model={cfg.model!r} "
+            f"algo={cfg.algo!r} runs without experts",
+            stacklevel=2,
+        )
+    if cfg.seq_impl != "ring" and algo != "seq-sync":
+        warnings.warn(
+            f"seq_impl={cfg.seq_impl!r} only applies with algo='seq-sync' "
+            f"(no sequence axis exists under algo={cfg.algo!r}); running "
+            "plain dense attention",
+            stacklevel=2,
+        )
     if name == "transformer":
         return TransformerLM(
             vocab_size=(meta or {}).get("vocab_size", 10_000),
@@ -165,7 +187,22 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
 
     _check_supported(cfg)
-    if cfg.resolved_algo() == "sync":
+    algo = cfg.resolved_algo()
+    if cfg.grad_accum > 1 and algo not in ("sync", "zero-sync"):
+        warnings.warn(
+            f"grad_accum={cfg.grad_accum} applies to algo='sync' and "
+            f"'zero-sync' only; algo={cfg.algo!r} runs without "
+            "accumulation",
+            stacklevel=2,
+        )
+    if cfg.exchange_dtype != "none" and algo != "easgd":
+        warnings.warn(
+            f"exchange_dtype={cfg.exchange_dtype!r} only applies to the "
+            f"easgd/eamsgd exchange collective; algo={cfg.algo!r} runs "
+            "full-precision (flag ignored)",
+            stacklevel=2,
+        )
+    if algo == "sync":
         return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
     xdtype = torch.bfloat16 if cfg.exchange_dtype == "bf16" else None
     return EASGDTrainer(
@@ -198,11 +235,19 @@ def run(cfg: TrainConfig, device=None) -> dict:
     tau = 1 if is_sync else cfg.tau
 
     model = build_model(cfg, topo.device, meta)
-    steps_per_epoch = max(len(x_tr) // max(cfg.global_batch, 1), 1)
-    opt = build_optimizer(cfg, cfg.epochs * steps_per_epoch)
+    # cosine horizon: PS clients count LOCAL steps; everyone else counts
+    # fit-loop units
+    if cfg.algo.startswith("ps-"):
+        total_updates = cfg.steps
+    else:
+        total_updates = cfg.epochs * max(len(x_tr) // max(cfg.global_batch, 1), 1)
+    opt = build_optimizer(cfg, total_updates)
     log = MetricsLogger(path=cfg.metrics_path, tag=cfg.algo, echo=False)
     results: dict = {"config": cfg.to_json(), "workers": topo.num_workers,
                      "platform": topo.platform}
+    if cfg.algo.startswith("ps-"):
+        return _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log,
+                             results, topo.device)
 
     trainer = build_trainer(cfg, model, opt, topo)
     gb = max(cfg.global_batch // topo.num_workers, 1) * topo.num_workers
@@ -261,14 +306,90 @@ def run(cfg: TrainConfig, device=None) -> dict:
     return results
 
 
+def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device):
+    """The reference's literal pclient/pserver shape (BASELINE.json:7),
+    ``mpit_tpu/run.py:621-710``. ``log_every`` logs the per-step client
+    losses post-hoc (there is no global step during the run: clients are
+    asynchronous by design). ``grad_accum`` and ``exchange_dtype`` have no
+    meaning here and warn. The training set is staged on the device
+    before the clock; the clients index their shards there.
+
+    Beside the reference's keys, ``results`` carries, per client,
+    ``client_losses`` (every local step's loss) and
+    ``exchange_ms_per_round`` (the host milliseconds of one successful
+    exchange — fetch, push, elastic move — averaged over its rounds)."""
+    from mpit_tpu_torch.parallel import AsyncPSTrainer
+
+    if cfg.grad_accum > 1:
+        warnings.warn(
+            f"'grad_accum' is not supported with algo={cfg.algo!r} "
+            "(async PS clients run their own local steps); ignoring",
+            stacklevel=3,
+        )
+    if cfg.exchange_dtype != "none":
+        warnings.warn(
+            "exchange_dtype compresses the collective easgd exchange; the "
+            "host-async PS protocol serializes parameters on its own path "
+            "and ignores it",
+            stacklevel=3,
+        )
+    ps_algo = cfg.resolved_algo().removeprefix("ps-")
+    alpha = cfg.alpha if cfg.alpha is not None else 0.9 / cfg.clients
+    trainer = AsyncPSTrainer(
+        model, opt,
+        num_clients=cfg.clients, num_servers=cfg.servers,
+        algo=ps_algo,
+        alpha=alpha, tau=cfg.tau,
+        transport=cfg.transport,
+        client_timeout=cfg.client_timeout,
+        device=device,
+    )
+    per_client = max(cfg.global_batch // cfg.clients, 1)
+    x_dev = torch.as_tensor(x_tr).to(device)
+    y_dev = torch.as_tensor(y_tr).to(device)
+    t0 = time.perf_counter()
+    center, stats = trainer.train(
+        x_dev, y_dev, steps=cfg.steps, batch_size=per_client, seed=cfg.seed
+    )
+    wall = time.perf_counter() - t0
+    acc = trainer.evaluate(center, x_te, y_te)
+    samples = cfg.steps * per_client * cfg.clients
+    if cfg.log_every:
+        # stop before the final step — the summary line below logs it
+        for s in range(cfg.log_every - 1, cfg.steps - 1, cfg.log_every):
+            step_losses = [l[s] for l in stats["losses"] if len(l) > s]
+            if step_losses:
+                log.log(s + 1, loss=float(np.mean(step_losses)))
+    log.log(cfg.steps, loss=stats["mean_final_loss"], accuracy=acc)
+    results.update(
+        accuracy=acc,
+        final_loss=stats["mean_final_loss"],
+        server_counts=stats["server_counts"],
+        dead_clients=stats["dead_clients"],
+        center_restored=stats["center_restored"],
+        samples=samples,
+        wall_s=wall,
+        samples_per_sec=samples / wall,
+        clients=cfg.clients,
+        servers=cfg.servers,
+        client_losses=stats["losses"],
+        exchange_ms_per_round=[
+            1e3 * s["exchange_s"] / s["rounds"] if s.get("rounds") else None
+            for s in trainer.exchange_stats
+        ],
+    )
+    log.close()
+    return results
+
+
 def main(argv=None) -> None:
     """CLI over the presets the port runs; prints the results dict as one
     JSON line."""
     cfg = TrainConfig.from_args(
         argv,
         description="mpit_tpu_torch training on one CUDA card (e.g. "
-        "--preset mnist-easgd --epochs 1, or --preset ptb-transformer-large "
-        "--algo sync --attn-impl flash)",
+        "--preset mnist-easgd --epochs 1, --preset ptb-transformer-large "
+        "--algo sync --attn-impl flash, or --preset mnist-ps)",
     )
     print(json.dumps(run(cfg), default=repr))
 

@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, mpit_tpu_torch, mpit_tpu_torch.run, mpit_tpu_torch.ops, "
-        "mpit_tpu_torch.parallel, mpit_tpu_torch.convert\n"
+        "mpit_tpu_torch.parallel, mpit_tpu_torch.convert, mpit_tpu_torch.quant, "
+        "mpit_tpu_torch.transport, mpit_tpu_torch.parallel.ps_trainer, "
+        "mpit_tpu_torch.obs.core, mpit_tpu_torch.obs.live, "
+        "mpit_tpu_torch.analysis.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
