@@ -9,14 +9,22 @@ non-zero before the result lines:
 1. card    — name and power limit from ``nvidia-smi``.
 2. build   — compile every CUDA kernel of the port from ``mpit_tpu_torch/ops/csrc``
              (one ``nvcc`` per source, all started together).
-3. kernels — the elastic update against its plain PyTorch version on the
+3. wire    — the frame codec: the frozen corpus
+             (``tests/fixtures/wire_corpus/corpus.jsonl``) replays through the
+             port's decoder with its 400 recorded verdicts, with this machine's
+             numpy; LeNet's flat vector, and its bf16 and int8 quantizations,
+             round-trip as push frames, timed per encode and decode.
+4. native  — build the port's C++ broker with the host compiler (compiler and
+             seconds printed) and carry a message over it: it must build, so
+             that ``transport="auto"`` means the C++ broker here.
+5. kernels — the elastic update against its plain PyTorch version on the
              card, with TF32 off: one leaf at the reference's test shapes,
              then whole lists of leaves in one call (LeNet's 8, a ragged list
              whose leaves start off 16-byte boundaries, a list longer than
              one launch takes); a round of LeNet's leaves timed as one
              launch and as one launch per leaf, with CUDA events and device
              time, beside its bound, the plain version and ``lerp`` + ``add``.
-4. flash   — both flash-attention families against their plain versions:
+6. flash   — both flash-attention families against their plain versions:
              the CUDA-core kernels (forward, dQ, dK/dV) at the reference's
              test cases and the path's shape, called directly; then, through
              the dispatch of the ``autograd.Function``, the tensor-core
@@ -29,38 +37,51 @@ non-zero before the result lines:
              events and device time, beside the bound, the plain version and
              ``scaled_dot_product_attention`` (forward, and its autograd
              backward) as the library yardstick.
-5. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
+7. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
              against the same round on the CPU (plain version).
-6. step    — one sync-DP step of an f32 2-layer flash transformer on the card
+8. step    — one sync-DP step of an f32 2-layer flash transformer on the card
              (kernels) against the same step on the CPU (plain versions); the
              flash counts are set to 0 just before and read after. This f32
              path is where the CUDA-core kernels run, so their rows of the
              kernels line take their launches from here.
-7. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
+9. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
              workers stacked on the card, bf16 LeNet; the elastic kernel's
              launch count is set to 0 just before and read just after: one
              launch per round.
-8. profile — ``torch.profiler`` over a few of the same rounds: the card's
+10. profile — ``torch.profiler`` over a few of the same rounds: the card's
              busy share and the kernels that take the most time.
-9. ps-parity — a 1-client, 1-server ``AsyncPSTrainer`` run of an f32 LeNet
+11. ps-parity — a 1-client, 1-server ``AsyncPSTrainer`` run of an f32 LeNet
              on the card (EASGD, α = 0.5, τ = 4, 24 steps of batch 32)
              against the collective ``EASGDTrainer`` at W = 1 on the card,
              from the same init and batches: the centers agree within the
              reference's limits, and the collective side launches the
              elastic kernel once per round.
-10. ps     — ``run()`` with the ``mnist-ps`` preset at full width (2 client
+12. ps     — ``run()`` with the ``mnist-ps`` preset at full width (2 client
              threads, 1 server thread, 200 local steps each, τ = 4, bf16
-             LeNet), once to warm up, once timed and once under the
-             profiler, each held to the server's counts, finite and falling
-             losses and accuracy: samples/s, each client's exchange time per
-             round and the card's busy share. The path launches no kernel
-             of the port (asserted).
-11. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
+             LeNet) on its ``transport="auto"``, which must resolve to the
+             C++ broker: once to warm up, once timed and once under the
+             profiler; then one timed run each over ``inproc`` and
+             ``socket``. Each is held to the server's counts, finite and
+             falling losses and accuracy: samples/s, each client's exchange
+             time per round and the card's busy share. The path launches no
+             kernel of the port (asserted).
+13. ps-chaos — thread mode over ``socket`` at the same width under the
+             reference's seeded chaos schedule (drops, duplicates, resets):
+             every push applied exactly once, each kind fires, and a second
+             run with the seed logs the same faults.
+14. ps-proc — process mode: ``python -m mpit_tpu_torch.launch -n 3
+             mpit_tpu_torch/examples/ptest_proc.py --preset mnist-ps`` as a
+             subprocess with a timeout: exit 0, the server's counts of the
+             reference's process mode, no dead client, client 0's accuracy,
+             no CUDA context on the server, each client's samples/s; then an
+             elastic leg whose server snapshot loads with ``load_shard_state``
+             and holds the center its client fetched last.
+15. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
              kernels' launch counts are set to 0 just before and read after:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
-12. lm-profile — ``torch.profiler`` over a few of the same steps: the
+16. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
 
 Then a JSON line ``{"kernels": [...]}`` and, last, the device line
@@ -680,6 +701,88 @@ def _ps_vs_collective(tau, alpha, steps, bs, seed):
     return center, state, stats, launched
 
 
+LENET_PARAMS = 857_738     # LeNet's flat parameter vector (the PS exchange), 3.43 MB
+WIRE_CORPUS = os.path.join("tests", "fixtures", "wire_corpus", "corpus.jsonl")
+PS_PROC = os.path.join("mpit_tpu_torch", "examples", "ptest_proc.py")
+PS_PROC_TIMEOUT_S = 300
+
+
+def wire_phase() -> None:
+    """The frame codec: the frozen corpus replays through the port's
+    decoder with its recorded verdicts, and LeNet's flat vector and its
+    bf16 and int8 quantizations round-trip, timed per encode and decode."""
+    import numpy as np
+
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.quant import quantize
+    from mpit_tpu_torch.transport import fuzz, wire
+    from mpit_tpu_torch.utils.params import flatten_params
+
+    report = fuzz.replay_corpus(WIRE_CORPUS)
+    if report.failures or (report.corpus_clean, report.corpus_mutations) != (40, 360):
+        raise AssertionError(f"wire corpus: {report.summary()}: {report.failures[:3]}")
+    phase("wire", f"frozen corpus: {report.corpus_clean} clean frames decode to their "
+          f"recorded values, {report.corpus_mutations} mutations keep their verdicts "
+          f"(numpy {np.__version__})")
+    flat, _ = flatten_params(LeNet(device="cpu").init(torch.Generator().manual_seed(0)))
+    vec = flat.numpy().astype(np.float32)
+    if vec.size != LENET_PARAMS:
+        raise AssertionError(f"LeNet has {vec.size} parameters, not {LENET_PARAMS}")
+    for name, payload in (("f32", vec), ("bf16", quantize(vec, "bf16")),
+                          ("int8", quantize(vec, "int8"))):
+        envelope = (7, 3, 1, payload)  # (attempt, epoch, seq, chunk): a push's shape
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            buffers = wire.encode_frame(1, 3, envelope, version=wire.WIRE_FORMAT_VERSION)
+        enc_ms = 1e3 * (time.perf_counter() - t0) / reps
+        data = b"".join(bytes(b) for b in buffers)
+        # as the socket decodes: the header apart, the body a view of the
+        # buffer it was received into
+        _, flags, hlen, hcrc = wire.split_preamble(data[:wire.PREAMBLE_SIZE])
+        header = data[wire.PREAMBLE_SIZE:wire.PREAMBLE_SIZE + hlen]
+        body = memoryview(data)[wire.PREAMBLE_SIZE + hlen:]
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            src, tag, got = wire.decode_frame(flags, hcrc, header, body)
+        dec_ms = 1e3 * (time.perf_counter() - t0) / reps
+        if (src, tag) != (1, 3) or not fuzz.deep_equal(got, envelope):
+            raise AssertionError(f"wire: the {name} frame did not round-trip")
+        phase("wire", f"LeNet vector as {name}: frame of {len(data)} bytes round-trips "
+              f"bit-equal; encode {enc_ms:.4f} ms (zero-copy buffer list), decode "
+              f"{dec_ms:.4f} ms (views into the received body); host CPU")
+
+
+def native_phase() -> None:
+    """Build the port's C++ broker with the host compiler; it must build
+    and carry a message, so that ``transport="auto"`` means it here."""
+    import numpy as np
+
+    from mpit_tpu_torch import native
+    from mpit_tpu_torch.native import build
+
+    cxx = build.compiler()
+    if cxx is None:
+        raise AssertionError("native: no C++ compiler on this machine")
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    t0 = time.perf_counter()
+    path = build.ensure_built(force=True)
+    secs = time.perf_counter() - t0
+    broker = native.NativeBroker(2)
+    try:
+        tps = broker.transports()
+        tps[0].send(1, 3, np.arange(5.0))
+        got = tps[1].recv(0, 3, timeout=5).payload
+    finally:
+        broker.close()
+    if not np.array_equal(got, np.arange(5.0)) or not native.is_available():
+        raise AssertionError("native: the broker did not carry a message")
+    phase("native", f"tagged_broker.cpp built by {cxx} ({version}) in {secs:.2f} s "
+          f"(set-up) into {os.path.relpath(path)}; a message crossed it")
+
+
+
 def busy_union_ms(prof) -> tuple[float, float]:
     """(union, sum) in ms of the device events a profile recorded: the
     union counts a moment the card runs work on two streams at once once,
@@ -699,8 +802,10 @@ def busy_union_ms(prof) -> tuple[float, float]:
 def ps_path(card_line: str) -> None:
     """The host-async PS path through ``run()`` at the preset's full width:
     a warm-up run, a timed run, and a run under ``torch.profiler`` for the
-    card's busy share; each is held to the server's counts, finite and
-    falling losses and the accuracy floor."""
+    card's busy share, all on the preset's ``transport="auto"`` (which must
+    resolve to the C++ broker), then one timed run each over ``inproc`` and
+    ``socket``; each is held to the server's counts, finite and falling
+    losses and the accuracy floor."""
     import math
 
     from torch.profiler import ProfilerActivity, profile
@@ -716,12 +821,12 @@ def ps_path(card_line: str) -> None:
     phase("ps", f"preset mnist-ps: {cfg.model}, {cfg.algo}, {cfg.clients} clients, "
           f"{cfg.servers} server, {cfg.steps} local steps each, tau {cfg.tau}, lr "
           f"{cfg.lr}, momentum {cfg.momentum}, global batch {cfg.global_batch}, alpha "
-          f"0.9/clients = {0.9 / cfg.clients}, transport {cfg.transport} (the "
-          f"in-process broker), train_size {cfg.train_size}")
+          f"0.9/clients = {0.9 / cfg.clients}, transport {cfg.transport}, train_size "
+          f"{cfg.train_size}")
 
-    def checked_run(what: str) -> dict:
+    def checked_run(what: str, transport: str = cfg.transport) -> dict:
         before = (elastic.launches, dict(fa.launches))
-        res = run(cfg)
+        res = run(dataclasses.replace(cfg, transport=transport))
         torch.cuda.synchronize()
         if (elastic.launches, fa.launches) != before:
             raise AssertionError(f"{what}: the PS path launched a kernel of the port")
@@ -743,7 +848,11 @@ def ps_path(card_line: str) -> None:
         return res
 
     warm = checked_run("warm-up run")  # first-call set-up: cuDNN, streams, allocator
-    phase("ps", f"warm-up run: {warm['samples_per_sec']:.1f} samples/s")
+    if warm["transport_used"] != "native":
+        raise AssertionError(f"transport auto used {warm['transport_used']}, not the "
+                             "C++ broker")
+    phase("ps", f"warm-up run: {warm['samples_per_sec']:.1f} samples/s; transport "
+          f"{cfg.transport} used the {warm['transport_used']} broker")
     res = checked_run("timed run")
     for c, losses in enumerate(res["client_losses"]):
         phase("ps", f"client {c}: loss first 8 steps {statistics.mean(losses[:8]):.4f}, "
@@ -766,6 +875,159 @@ def ps_path(card_line: str) -> None:
             f"overlaps counted once; {sum_ms:.3f} ms summed, of {window_ms:.3f} ms)")
     phase("ps", f"device busy share of a run under torch.profiler: {busy}; that run "
           f"{prof_res['samples_per_sec']:.1f} samples/s; {card_line}")
+    for transport in ("inproc", "socket"):
+        r = checked_run(f"{transport} run", transport)
+        counts = {k: r["server_counts"][0][k] for k in want}
+        phase("ps", f"transport {transport}: {r['samples_per_sec']:.1f} samples/s, wall "
+              f"{r['wall_s']:.3f} s, exchange ms per round by client "
+              f"{[round(v, 3) for v in r['exchange_ms_per_round']]}, server {counts}, "
+              f"accuracy {r['accuracy']}; {card_line}")
+
+
+# the reference's acceptance schedule for chaos (tests/test_chaos.py:337-344):
+# drops only on the retryable FETCH/PARAM path, duplicates and resets also
+# on the pushes, so "applied exactly once" is checkable as counts == sends
+def chaos_config(seed: int):
+    from mpit_tpu_torch.parallel.pserver import TAG_FETCH, TAG_PARAM, TAG_PUSH_EASGD
+    from mpit_tpu_torch.transport import ChaosConfig
+
+    return ChaosConfig(
+        seed=seed, drop=0.06, drop_tags=(TAG_FETCH, TAG_PARAM), duplicate=0.12,
+        reset=0.08, reset_tags=(TAG_FETCH, TAG_PUSH_EASGD),
+        tags=(TAG_FETCH, TAG_PARAM, TAG_PUSH_EASGD),
+    )
+
+
+PS_CHAOS_SEED = 1234
+PS_CHAOS_STEPS = 48
+
+
+def ps_chaos(card_line: str) -> None:
+    """Thread mode over real sockets under the seeded chaos schedule, at the
+    preset's width (bf16 LeNet on the card, 2 clients, τ = 4, batch 128):
+    every push the clients sent is applied exactly once, each fault kind
+    fires, and a second run with the same seed logs the same faults."""
+    import math
+
+    from mpit_tpu_torch.data import load_mnist
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import AsyncPSTrainer
+
+    x, y, _, _ = load_mnist(synthetic_train=8192, synthetic_test=512)
+
+    def one_run():
+        trainer = AsyncPSTrainer(
+            LeNet(device="cuda"), SGD(0.05, 0.9), num_clients=2, num_servers=1,
+            alpha=0.45, tau=4, transport="socket", chaos=chaos_config(PS_CHAOS_SEED),
+            max_exchange_failures=5, fetch_timeout=1.0, fetch_retries=3, device="cuda",
+        )
+        t0 = time.perf_counter()
+        _, stats = trainer.train(x, y, steps=PS_CHAOS_STEPS, batch_size=128)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = stats["server_counts"][0]
+        sent = sum(c.get(0, 0) for c in stats["push_sent"])
+        if counts["push_easgd"] != sent:
+            raise AssertionError(f"ps-chaos: applied {counts['push_easgd']} pushes, "
+                                 f"sent {sent}")
+        if not all(math.isfinite(v) for l in stats["losses"] for v in l):
+            raise AssertionError("ps-chaos: a loss is not finite")
+        return trainer.fault_log.events(), stats, wall
+
+    events, stats, wall = one_run()
+    faults = stats["chaos_faults"]
+    if not all(faults.get(k, 0) > 0 for k in ("drop", "duplicate", "reset")):
+        raise AssertionError(f"ps-chaos: a fault kind never fired: {faults}")
+    events2, stats2, wall2 = one_run()
+    if events2 != events:
+        raise AssertionError("ps-chaos: the same seed gave another fault log")
+    counts = stats["server_counts"][0]
+    phase("ps-chaos", f"socket transport, seed {PS_CHAOS_SEED}, {PS_CHAOS_STEPS} steps "
+          f"per client: faults {faults}; push_easgd {counts['push_easgd']} = pushes sent, "
+          f"dup_dropped {counts['dup_dropped']}, skipped rounds {stats['skipped_rounds']}; "
+          f"a second run logged the same {len(events)} faults; walls {wall:.3f} and "
+          f"{wall2:.3f} s; {card_line}")
+
+
+def _launch(n: int, args: list, env: dict) -> tuple[str, float]:
+    """``python -m mpit_tpu_torch.launch -n n ptest_proc.py args``; returns
+    its output and wall seconds; fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n), PS_PROC, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, capture_output=True,
+        text=True, timeout=PS_PROC_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"launcher exited {r.returncode}:\n{r.stdout[-4000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    return r.stdout, wall
+
+
+def ps_proc(card_line: str) -> None:
+    """Process mode: the launcher runs ``--preset mnist-ps`` as three OS
+    processes over sockets, the pserver without a CUDA context and each
+    pclient on the card; then an elastic leg whose server snapshot must
+    load and hold the center its client last fetched."""
+    import hashlib
+    import tempfile
+
+    from mpit_tpu_torch.utils.checkpoint import load_shard_state
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig().apply_preset("mnist-ps")
+    rounds = cfg.steps // cfg.tau
+    # every client pushes once a round and fetches once a round plus its
+    # first fetch; client 0 fetches once more to evaluate the center
+    # (examples/ptest_proc.py:211)
+    want = (f"'fetch': {cfg.clients * (rounds + 1) + 1}, 'push_easgd': "
+            f"{cfg.clients * rounds}")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MPIT_", "CUDA_VISIBLE"))}
+    env["CUDA_VISIBLE_DEVICES"] = os.environ["CUDA_VISIBLE_DEVICES"]
+    out, wall = _launch(cfg.servers + cfg.clients, ["--preset", "mnist-ps"], env)
+    server = [l for l in out.splitlines() if "pserver rank 0: counts=" in l]
+    if len(server) != 1 or want not in server[0] or "dead_clients=[]" not in server[0]:
+        raise AssertionError(f"ps-proc: server line {server} lacks {want} or "
+                             f"dead_clients=[]:\n{out[-3000:]}")
+    if "pserver rank 0: cuda initialized=False" not in out:
+        raise AssertionError(f"ps-proc: the server created a CUDA context:\n{out[-3000:]}")
+    acc = re.search(r"pclient 0: test acc=([0-9.]+)", out)
+    if acc is None or not float(acc.group(1)) > 0.3:
+        raise AssertionError(f"ps-proc: client 0's accuracy is missing or near chance:"
+                             f"\n{out[-3000:]}")
+    loops = re.findall(r"pclient (\d+): trained (\d+) samples in ([0-9.]+) s of its "
+                       r"training loop, ([0-9.]+) samples/s on cuda; exchange ([0-9.]+) "
+                       r"ms per round", out)
+    if len(loops) != cfg.clients:
+        raise AssertionError(f"ps-proc: {len(loops)} client timing lines:\n{out[-3000:]}")
+    samples = sum(int(n) for _, n, _, _, _ in loops)
+    slowest = max(float(t) for _, _, t, _, _ in loops)
+    phase("ps-proc", f"python -m mpit_tpu_torch.launch -n 3 {PS_PROC} --preset "
+          f"mnist-ps: exit 0 in {wall:.3f} s of launcher wall (process start, data and "
+          f"CUDA set-up included); server {want}, dead_clients=[], no CUDA context on "
+          f"the server; client 0 test acc {acc.group(1)}")
+    phase("ps-proc", "per client: " + "; ".join(
+        f"pclient {c}: {n} samples in {t} s, {r} samples/s, exchange {x} ms per round"
+        for c, n, t, r, x in loops)
+        + f"; together {samples / slowest:.1f} samples/s over the slower loop; "
+        + card_line)
+    with tempfile.TemporaryDirectory(prefix="ps-proc-elastic-") as ckpt:
+        env2 = dict(env, MPIT_ELASTIC_RESPAWN="1", MPIT_ELASTIC_CKPT_DIR=ckpt)
+        out2, wall2 = _launch(2, ["--preset", "mnist-ps", "--steps", "40"], env2)
+        digest = re.search(r"pclient 0: fetched center sha256=([0-9a-f]+)", out2)
+        state = load_shard_state(os.path.join(ckpt, "shard_0.msgpack"))
+        center = state["center"]
+        got = hashlib.sha256(center.tobytes()).hexdigest()
+        if digest is None or got != digest.group(1):
+            raise AssertionError(f"ps-proc: the snapshot's center ({got}) is not the one "
+                                 f"the client last fetched:\n{out2[-3000:]}")
+    phase("ps-proc", f"elastic leg (1 server, 1 client, 40 steps, MPIT_ELASTIC_RESPAWN=1, "
+          f"MPIT_ELASTIC_CKPT_DIR): exit 0 in {wall2:.3f} s; shard_0.msgpack loads with "
+          f"load_shard_state ({center.size} floats, version {state['version']}, gen "
+          f"{state['gen']}) and holds the center the client last fetched (sha256 equal)")
 
 
 def step_vs_cpu() -> dict:
@@ -941,6 +1203,8 @@ def main() -> int:
 
     card_line = card()
     build()
+    wire_phase()
+    native_phase()
     kernel = kernels_vs_plain()
     flash = flash_vs_plain()
     round_vs_cpu()
@@ -949,6 +1213,8 @@ def main() -> int:
     profile_rounds()
     ps_parity()
     ps_path(card_line)
+    ps_chaos(card_line)
+    ps_proc(card_line)
     lm_launches = lm_path(flash)
     for name in flash:
         # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the

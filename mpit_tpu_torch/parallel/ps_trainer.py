@@ -11,12 +11,15 @@ function shared by all clients; the reference's compiled XLA step
 releases the GIL while it runs, while here the clients' eager dispatch
 shares it.
 
-What the reference has and the port does not yet: the C++ broker
-(``transport="native"``), real TCP sockets (``"socket"``) and chaos
-fault injection (ROADMAP.md item A7c), and the obs plane (item A12).
-Asking for any of them raises ``NotImplementedError`` naming the item;
-nothing is silently ignored. The in-process broker gives the same
-protocol and the same server counts as the reference's ``auto`` choice.
+The message plane is the reference's: ``transport="auto"`` takes the C++
+broker (:mod:`mpit_tpu_torch.native`) wherever it builds and the Python
+one otherwise, ``"native"`` insists on the C++ one, ``"inproc"`` takes the
+Python one, and ``"socket"`` gives every rank a real TCP
+:class:`~mpit_tpu_torch.transport.SocketTransport` on loopback. Chaos
+fault injection (the ``chaos`` argument or ``MPIT_CHAOS_*`` knobs) wraps
+whichever was chosen. What the port does not have yet is the obs plane
+(ROADMAP.md item A12): asking for it raises ``NotImplementedError``
+naming the item; nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -39,6 +42,12 @@ from mpit_tpu_torch.parallel.pserver import (
     spawn_server_thread,
 )
 from mpit_tpu_torch.transport import Broker
+from mpit_tpu_torch.transport.chaos import (
+    ChaosConfig,
+    FaultLog,
+    config_from_env,
+    wrap_transports,
+)
 from mpit_tpu_torch.utils.params import flatten_params, tree_map, unflatten_params
 
 
@@ -61,15 +70,19 @@ class AsyncPSTrainer:
         "downpour" (push accumulated delta, pull-replace).
       alpha: elastic coupling (both server- and client-side move).
       tau: local steps between exchanges.
-      transport: "auto" or "inproc" (the in-process broker). "native" and
-        "socket" are ROADMAP.md item A7c and raise.
+      transport: "auto" (the C++ broker where it builds, else the Python
+        one), "native" (the C++ broker; raises where it cannot build),
+        "inproc" (the Python broker) or "socket" (TCP on loopback, one
+        listener per rank).
       ckpt_dir: each server persists its center chunk to
         ``ckpt_dir/center_<rank>.npy`` every ``ckpt_every`` updates and at
         teardown; with ``resume`` (the default) a fresh ``train()`` whose
         servers find matching chunks restores the center. ``resume=
         False`` deletes stale chunks first (a deliberate fresh start).
-      chaos: fault injection (item A7c) — set, or any ``MPIT_CHAOS_*``
-        knob in the environment, raises.
+      chaos: a :class:`~mpit_tpu_torch.transport.ChaosConfig` wrapping
+        every rank's transport in the seeded fault injector; None reads
+        the ``MPIT_CHAOS_*`` knobs (no knob, no chaos). The fault log of
+        the last ``train()`` is ``self.fault_log``.
       obs: observability (item A12) — set, or any ``MPIT_OBS_*`` knob,
         raises.
       max_exchange_failures: graceful degradation — a client's failed
@@ -100,7 +113,7 @@ class AsyncPSTrainer:
         ckpt_dir: Optional[str] = None,
         ckpt_every: Optional[int] = 100,
         resume: bool = True,
-        chaos=None,
+        chaos: Optional[ChaosConfig] = None,
         obs=None,
         max_exchange_failures: Optional[int] = 3,
         fetch_timeout: float = 60.0,
@@ -112,9 +125,9 @@ class AsyncPSTrainer:
             raise ValueError(f"unknown algo {algo!r}")
         if transport not in ("auto", "native", "inproc", "socket"):
             raise ValueError(f"unknown transport {transport!r}")
-        if transport in ("native", "socket"):
-            raise _not_ported(f"transport={transport!r}", "item A7c")
         self.transport_kind = transport
+        # what the last train() ran on: "native", "inproc" or "socket"
+        self.transport_used: Optional[str] = None
         self.chaos = chaos
         self.obs = obs
         self._refuse_unported()
@@ -164,22 +177,60 @@ class AsyncPSTrainer:
         # reference's skipped/failed/repaired counts plus rounds and
         # exchange seconds (ps_roles.client_train_loop)
         self.exchange_stats: list[dict] = []
+        self.fault_log: Optional[FaultLog] = None
         # one local step shared by all client threads
         self._local_step = ps_roles.make_local_step(model, optimizer, loss_fn)
 
     def _refuse_unported(self) -> None:
-        """Raise for chaos and obs, by argument or environment knob,
-        before any thread starts."""
-        if self.chaos is not None or any(k.startswith("MPIT_CHAOS_") for k in os.environ):
-            raise _not_ported(
-                "chaos fault injection (the chaos argument or an "
-                "MPIT_CHAOS_* knob)", "item A7c",
-            )
+        """Raise for obs, by argument or environment knob, before any
+        thread starts."""
         if self.obs is not None or any(k.startswith("MPIT_OBS_") for k in os.environ):
             raise _not_ported(
                 "observability (the obs argument or an MPIT_OBS_* knob)",
                 "item A12",
             )
+
+    def _make_broker(self, size: int):
+        if self.transport_kind in ("auto", "native"):
+            from mpit_tpu_torch import native
+
+            if native.is_available():
+                self.transport_used = "native"
+                return native.NativeBroker(size)
+            if self.transport_kind == "native":
+                # surface WHY it is unavailable (an explicit request must
+                # never silently get the Python broker)
+                native.ensure_built()
+                self.transport_used = "native"
+                return native.NativeBroker(size)
+        self.transport_used = "inproc"
+        return Broker(size)
+
+    def _make_transports(self, size: int) -> list:
+        if self.transport_kind != "socket":
+            return self._make_broker(size).transports()
+        # real-TCP loopback world: reserve one ephemeral port per rank
+        # (bind 0, read, release), then hand every rank the full address
+        # table. The release→bind window is racy in principle; in practice
+        # the kernel avoids handing a just-released ephemeral port straight
+        # back out, and a lost race fails loudly at bind.
+        import socket as _socket
+
+        from mpit_tpu_torch.transport.socket_transport import SocketTransport
+
+        probes = []
+        addrs: list[tuple[str, int]] = []
+        for _ in range(size):
+            s = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+            s.bind(("127.0.0.1", 0))
+            addrs.append(("127.0.0.1", s.getsockname()[1]))
+            probes.append(s)
+        for s in probes:
+            s.close()
+        self.transport_used = "socket"
+        return [
+            SocketTransport(r, size, addresses=addrs) for r in range(size)
+        ]
 
     def train(
         self,
@@ -216,7 +267,16 @@ class AsyncPSTrainer:
         x = torch.as_tensor(x).to(self.device)
         y = torch.as_tensor(y).to(self.device)
 
-        transports = Broker(self.num_servers + self.num_clients).transports()
+        raw_transports = self._make_transports(
+            self.num_servers + self.num_clients
+        )
+        transports = raw_transports
+        # fault injection: explicit config wins, env knobs activate it for
+        # launcher-driven runs (MPIT_CHAOS_*; see launch.py's diagnostic)
+        chaos_cfg = self.chaos if self.chaos is not None else config_from_env()
+        self.fault_log = None
+        if chaos_cfg is not None:
+            transports, self.fault_log = wrap_transports(transports, chaos_cfg)
         server_ranks = list(range(self.num_servers))
         client_ranks = list(
             range(self.num_servers, self.num_servers + self.num_clients)
@@ -342,6 +402,17 @@ class AsyncPSTrainer:
             threading.Thread(target=client_main, args=(c,), daemon=True)
             for c in range(self.num_clients)
         ]
+
+        def teardown_transports():
+            # socket mode owns real OS resources (listeners, connections,
+            # sender threads) — close them; broker modes die with the run
+            if self.transport_kind == "socket":
+                for t in raw_transports:
+                    try:
+                        t.close()
+                    except OSError:
+                        pass
+
         for t in client_threads:
             t.start()
         for t in client_threads:
@@ -351,8 +422,10 @@ class AsyncPSTrainer:
         self.exchange_stats = exchange_stats
         server_errors = [s.error for s in servers if s.error is not None]
         if server_errors:
+            teardown_transports()
             raise RuntimeError("pserver died during training") from server_errors[0]
         if errors:
+            teardown_transports()
             raise errors[0]
 
         if shard_map is None:
@@ -417,6 +490,14 @@ class AsyncPSTrainer:
                 for s in servers
             ],
         }
+        if self.fault_log is not None:
+            stats["chaos_faults"] = self.fault_log.counts()
+        # exact socket-level byte totals (socket mode only)
+        if self.transport_kind == "socket":
+            stats["wire_bytes"] = [
+                t.wire_byte_counts() for t in raw_transports
+            ]
+        teardown_transports()
         return center_params, stats
 
     @torch.no_grad()

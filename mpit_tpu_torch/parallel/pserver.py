@@ -2,10 +2,9 @@
 
 A copy of ``mpit_tpu/parallel/pserver.py``: numpy only, so the server's
 arithmetic and its protocol are the reference's bit for bit
-(``tests/test_torch_ps.py`` drives both servers with one script). The one
-difference: the full shard snapshot (a non-``.npy`` ``ckpt_path``) is
-written with flax's msgpack in the reference, and raises
-``NotImplementedError`` here until ROADMAP.md item A7c.
+(``tests/test_torch_ps.py`` drives both servers with one script), and its
+full shard snapshot is the reference's msgpack file byte for byte
+(:mod:`mpit_tpu_torch.utils.checkpoint`).
 
 Reference parity (SURVEY.md §2 comp. 3, §3(c)): the reference's ``pserver``
 held the center parameter vector as a flat tensor and ran a blocking
@@ -13,7 +12,7 @@ held the center parameter vector as a flat tensor and ran a blocking
 This is that actor: the center lives in host memory as a numpy chunk (the
 server does O(bytes) axpy work, which is memory-bound host arithmetic),
 clients' local steps run on the card, and the protocol runs over
-``mpit_tpu_torch.transport`` (threads in-process).
+``mpit_tpu_torch.transport`` (threads in-process, TCP across processes).
 
 Sharding: with S servers, the flat parameter vector is split into S
 contiguous chunks (``np.array_split`` boundaries); server s owns chunk s —
@@ -85,11 +84,14 @@ Elastic membership + checkpointed recovery (docs/ROBUSTNESS.md "Elastic
 membership"): JOIN/REJOIN/LEAVE envelopes drive the
 :class:`~mpit_tpu_torch.parallel.elastic.ElasticMembership` view, so a
 replacement process on a killed rank re-enters the run mid-flight
-instead of staying in ``dead_clients`` forever. A ``.npy`` ``ckpt_path``
-persists the bare center with ``np.save`` and restores it on restart. The
-reference's full shard snapshot (center + version + restart generation +
-dedup window + membership as one msgpack file, :meth:`_snapshot_state`'s
-keys) is ROADMAP.md item A7c: a non-``.npy`` path raises.
+instead of staying in ``dead_clients`` forever. With a non-``.npy``
+``ckpt_path``, :meth:`persist` writes a full shard snapshot (center +
+version + restart generation + dedup window + membership, one atomic
+msgpack file via ``utils/checkpoint.save_shard_state``) instead of the
+legacy bare-center ``np.save``; a restarted server restores all of it,
+so acked pushes are never double-applied across the restart (the dedup
+window rolls back exactly as far as the center does) and the PARAM
+version counter resumes monotone within the bumped generation ``gen``.
 """
 
 from __future__ import annotations
@@ -204,14 +206,6 @@ class _DedupWindow:
             self._seen[key] = {int(s) for s in seen}  # mpit-analysis: ignore[MPT005]
 
 
-def _shard_snapshot_not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ckpt_path={path!r}: the full shard snapshot (a non-.npy path; "
-        "flax msgpack in the reference) is not ported to mpit_tpu_torch "
-        "yet (ROADMAP.md, item A7c); use a .npy path for the bare center"
-    )
-
-
 def partition_bounds(total: int, num_servers: int) -> list[tuple[int, int]]:
     """Contiguous chunk [start, end) per server (np.array_split boundaries:
     the first ``total % num_servers`` chunks get one extra element)."""
@@ -260,8 +254,7 @@ class PServer:
         ``center_chunk``, so a restarted server resumes where the dead
         one left off. A shape mismatch (different model or server count)
         fails loudly — re-chunking across topologies is a layout change,
-        not a resume. The path must end in ``.npy`` (the shard snapshot
-        is item A7c).
+        not a resume.
 
         ``shard_map``: a :class:`~mpit_tpu_torch.comm.topology.ShardMap` opts
         this server into consistent-hash sharded ownership
@@ -355,21 +348,85 @@ class PServer:
         self.ckpt_every = None if ckpt_every is None else int(ckpt_every)
         self._updates_since_save = 0
         self.restored = False
-        if ckpt_path is not None and not ckpt_path.endswith(".npy"):
-            raise _shard_snapshot_not_ported(ckpt_path)
         if ckpt_path is not None and os.path.exists(ckpt_path):
-            # legacy bare-center snapshot (ps_trainer's center_<r>.npy)
             with open(ckpt_path, "rb") as f:
-                saved = np.load(f)
+                magic = f.read(6)
+            if magic == b"\x93NUMPY":
+                # legacy bare-center snapshot (ps_trainer's center_<r>.npy)
+                with open(ckpt_path, "rb") as f:
+                    saved = np.load(f)
+                if saved.shape != self.center.shape:
+                    raise ValueError(
+                        f"persisted center chunk {ckpt_path!r} has shape "
+                        f"{saved.shape}, this server owns "
+                        f"{self.center.shape} — resuming across a "
+                        "model/server-count change is not supported"
+                    )
+                self.center = saved.astype(np.float32, copy=True)
+            else:
+                self._restore_shard(ckpt_path)
+            self.restored = True
+
+    def _restore_shard(self, ckpt_path: str) -> None:
+        """Restore a full shard snapshot (elastic recovery format): the
+        center + version + dedup window + membership come back as one
+        consistent cut, so an acked push either survives with the center
+        it mutated or rolls back with it — never half."""
+        from mpit_tpu_torch.utils.checkpoint import load_shard_state
+
+        state = load_shard_state(ckpt_path)
+        saved = np.asarray(state["center"], dtype=np.float32)
+        shards = state.get("shards")
+        if shards is None or self._shard_map is None:
             if saved.shape != self.center.shape:
                 raise ValueError(
-                    f"persisted center chunk {ckpt_path!r} has shape "
-                    f"{saved.shape}, this server owns "
-                    f"{self.center.shape} — resuming across a "
-                    "model/server-count change is not supported"
+                    f"persisted shard snapshot {ckpt_path!r} has shape "
+                    f"{saved.shape}, this server owns {self.center.shape} "
+                    "— resuming across a model/server-count change is not "
+                    "supported"
                 )
-            self.center = saved.astype(np.float32, copy=True)
-            self.restored = True
+        else:
+            # sharded snapshot: the persisted ownership rows, not the
+            # constructor's map, say what the center covers (ownership
+            # may have moved between construction and the snapshot)
+            owned = [
+                (int(x[0]), int(x[1]), int(x[2]))  # mpit-analysis: ignore[MPT005]
+                for x in shards
+            ]
+            if sum(e - s for _, s, e in owned) != saved.size:
+                raise ValueError(
+                    f"persisted shard snapshot {ckpt_path!r}: ownership "
+                    "rows do not cover the persisted center"
+                )
+            self._owned = owned
+            self._pending = {}
+            self.shard_versions = {
+                int(x[0]): int(x[3])  # mpit-analysis: ignore[MPT005]
+                for x in shards
+            }
+        ring = state.get("ring")
+        if ring is not None and self._shard_map is not None:
+            rv = int(ring[0])  # mpit-analysis: ignore[MPT005]
+            if rv > self._shard_map.ring.version:
+                members = [int(m) for m in ring[1]]  # mpit-analysis: ignore[MPT005]
+                self._shard_map = self._shard_map.with_ring(
+                    HashRing(
+                        members,
+                        vnodes=self._shard_map.ring.vnodes,
+                        version=rv,
+                    )
+                )
+        self.center = saved.copy()
+        self.version = int(state.get("version", 0))
+        # a restore is a new generation: PARAM version records after the
+        # restart carry gen+1 so monotonicity is judged per generation
+        self.gen = int(state.get("gen", 0)) + 1
+        dedup = state.get("dedup")
+        if dedup is not None:
+            self._dedup.load_state(dedup)
+        membership = state.get("membership")
+        if membership is not None:
+            self._membership.load_state(membership)
 
     def _note(self, field: str, write: bool = True) -> None:
         """RT103 annotation: stamp an access to a shared field into the
@@ -1034,9 +1091,10 @@ class PServer:
         """Atomically write the persistent snapshot (tmp + rename — a
         server killed mid-write leaves the previous snapshot intact).
         A ``.npy`` path keeps the legacy bare-center ``np.save`` format
-        (ps_trainer's ``center_<rank>.npy`` resume contract); the full
-        shard snapshot of any other path is item A7c. Opened file handles
-        keep ``np.save`` from appending its own ``.npy``."""
+        (ps_trainer's ``center_<rank>.npy`` resume contract); any other
+        path gets the full shard snapshot, which is what elastic
+        recovery restores from. Opened file handles keep ``np.save``
+        from appending its own ``.npy``."""
         if self.ckpt_path is None:
             return
         if self.ckpt_path.endswith(".npy"):
@@ -1049,7 +1107,9 @@ class PServer:
                 np.save(f, snap)
             os.replace(tmp, self.ckpt_path)
             return
-        raise _shard_snapshot_not_ported(self.ckpt_path)
+        from mpit_tpu_torch.utils.checkpoint import save_shard_state
+
+        save_shard_state(self.ckpt_path, self._snapshot_state())
 
     def _expire(self, last_seen: dict) -> None:
         now = time.monotonic()

@@ -10,7 +10,12 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   only);
 - ``ps-easgd``/``ps-eamsgd``/``ps-downpour`` with ``lenet``/``mlp`` on
   MNIST: the host-async parameter server, servers and clients as threads
-  over the in-process broker, each client's local steps on the card.
+  over the message plane ``transport`` names (``auto``: the C++ broker
+  where it builds; ``native``, ``inproc`` or ``socket``), each client's
+  local steps on the card, with chaos fault injection when ``MPIT_CHAOS_*``
+  knobs are set. Process mode (one OS process per rank) is
+  ``python -m mpit_tpu_torch.launch -n 3
+  mpit_tpu_torch/examples/ptest_proc.py``.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it. Flags that do not apply to the chosen algo warn, with the
@@ -317,7 +322,9 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
     Beside the reference's keys, ``results`` carries, per client,
     ``client_losses`` (every local step's loss) and
     ``exchange_ms_per_round`` (the host milliseconds of one successful
-    exchange — fetch, push, elastic move — averaged over its rounds)."""
+    exchange — fetch, push, elastic move — averaged over its rounds), and
+    ``transport_used``, the message plane ``transport`` resolved to
+    (``native``, ``inproc`` or ``socket``)."""
     from mpit_tpu_torch.parallel import AsyncPSTrainer
 
     if cfg.grad_accum > 1:
@@ -377,6 +384,7 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
             1e3 * s["exchange_s"] / s["rounds"] if s.get("rounds") else None
             for s in trainer.exchange_stats
         ],
+        transport_used=trainer.transport_used,
     )
     log.close()
     return results

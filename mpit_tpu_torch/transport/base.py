@@ -1,9 +1,10 @@
 """Transport interface: mpiT's Send/Recv/Isend/Irecv/Probe surface.
 
 A copy of ``mpit_tpu/transport/base.py``, with :class:`CorruptedPayload`
-from ``mpit_tpu/transport/chaos.py`` beside it: the PS server drops such a
-payload, and the fault injector that makes them comes with ROADMAP.md
-item A7c.
+from ``mpit_tpu/transport/chaos.py`` beside it: the fault injector
+(:mod:`~mpit_tpu_torch.transport.chaos`) and the socket transport deliver
+it, the wire codec maps the reference's pickles of it here, and the PS
+server drops it.
 """
 
 from __future__ import annotations

@@ -72,7 +72,7 @@ class TrainConfig:
     clients: int = 2  # ps-* algos
     servers: int = 1
     steps: int = 200  # ps-* algos: local steps per client
-    transport: str = "auto"  # ps-* message plane: auto | native | inproc
+    transport: str = "auto"  # ps-* message plane: auto | native | inproc | socket
     client_timeout: Optional[float] = None  # ps-* watchdog (None = hang,
     # matching the reference's dead-rank semantics)
     # stem for models with an MXU-hostile 3-channel first conv (resnet50,

@@ -247,7 +247,7 @@ def _sharded_script(q):
     ]
 
 
-def _serve_script(pkg, script_fn, sharded):
+def _serve_script(pkg, script_fn, sharded, ckpt_path=None):
     pserver, broker, q = pkg
     tps = broker(4).transports()
     shard_map = None
@@ -256,7 +256,7 @@ def _serve_script(pkg, script_fn, sharded):
         shard_map = topo.ShardMap(topo.HashRing([0]), DIM, 5)
     server = pserver.PServer(
         tps[0], _vec(0), num_clients=2, alpha=0.5, server_lr=0.5,
-        client_ranks=[1, 2], quant="off", shard_map=shard_map,
+        client_ranks=[1, 2], quant="off", shard_map=shard_map, ckpt_path=ckpt_path,
     )
     for src, tag, payload in script_fn(q):
         tps[src].send(0, tag, payload)
@@ -676,8 +676,9 @@ def _ps_cfg(mod_config, **kw):
 
 def test_run_mnist_ps_returns_the_reference_keys_and_warns_as_it_does():
     """``run()`` on the mnist-ps preset cut to 16 steps, in both packages:
-    the port's results carry the reference's keys (and two of its own,
-    ``client_losses`` and ``exchange_ms_per_round``), the counts are the
+    the port's results carry the reference's keys (and three of its own,
+    ``client_losses``, ``exchange_ms_per_round`` and ``transport_used``),
+    the counts are the
     reference's, and
     ``grad_accum`` and ``exchange_dtype`` warn in both."""
     kw = dict(grad_accum=2, exchange_dtype="bf16")
@@ -687,7 +688,8 @@ def test_run_mnist_ps_returns_the_reference_keys_and_warns_as_it_does():
         got = port_run.run(_ps_cfg(TrainConfig, **kw), device=CPU)
     msgs = lambda rec: sorted(str(w.message) for w in rec)  # noqa: E731
     assert msgs(port_warned) == msgs(ref_warned) and len(msgs(port_warned)) == 2
-    assert set(got) == set(want) | {"client_losses", "exchange_ms_per_round"}
+    assert set(got) == set(want) | {"client_losses", "exchange_ms_per_round",
+                                    "transport_used"}
     assert [len(l) for l in got["client_losses"]] == [16, 16]
     assert got["final_loss"] == np.mean([l[-1] for l in got["client_losses"]])
     assert got["server_counts"] == want["server_counts"]
@@ -703,32 +705,19 @@ def _threads():
     return {t.name for t in threading.enumerate()}
 
 
-@pytest.mark.parametrize("case", ["native", "socket", "chaos-env", "obs-env", "chaos-arg",
-                                  "obs-arg", "snapshot"])
+@pytest.mark.parametrize("case", ["obs-env", "obs-arg"])
 def test_unported_planes_raise_naming_their_item(case, monkeypatch, tmp_path):
-    """The C++ broker, sockets, chaos, obs and the shard snapshot raise
-    naming their ROADMAP.md item, before any thread starts."""
+    """The obs plane raises naming its ROADMAP.md item, before any thread
+    starts."""
     before = _threads()
     cfg = _ps_cfg(TrainConfig)
-    item = "A12" if case.startswith("obs") else "A7c"
-    if case in ("native", "socket"):
-        call = lambda: port_run.run(dataclasses.replace(cfg, transport=case),  # noqa: E731
-                                    device=CPU)
-    elif case == "chaos-env":
-        monkeypatch.setenv("MPIT_CHAOS_DROP", "0.1")
-        call = lambda: port_run.run(cfg, device=CPU)  # noqa: E731
-    elif case == "obs-env":
+    if case == "obs-env":
         monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
         call = lambda: port_run.run(cfg, device=CPU)  # noqa: E731
-    elif case == "snapshot":
-        call = lambda: port_pserver.PServer(  # noqa: E731
-            PortBroker(2).transports()[0], np.zeros(4, np.float32), num_clients=1,
-            ckpt_path=str(tmp_path / "shard.msgpack"))
     else:
-        arg = {case.split("-")[0]: object()}
         call = lambda: AsyncPSTrainer(MLP(device=CPU), SGD(0.1), device=CPU,  # noqa: E731
-                                      **arg)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+                                      obs=object())
+    with pytest.raises(NotImplementedError, match="item A12"):
         call()
     assert _threads() == before
     assert not os.listdir(tmp_path)
@@ -777,3 +766,152 @@ def test_flags_that_do_not_apply_warn_in_both_packages(case, topo8):
         if case not in ("moe_experts", "seq_impl"):
             port_run.build_trainer(cfg, model, SGD(0.05), Topology(8, torch.device(CPU)))
     assert [str(w.message) for w in port_warned] == [str(w.message) for w in ref_warned]
+
+
+# ------------------------------------------------- transports in thread mode
+
+
+@pytest.mark.parametrize("transport,used", [("auto", "native"), ("native", "native"),
+                                            ("inproc", "inproc"), ("socket", "socket")])
+def test_run_mnist_ps_trains_over_every_transport(transport, used):
+    """``run()`` on mnist-ps (the MLP, 8 steps) over each message plane:
+    ``auto`` takes the C++ broker where it builds, as the reference's does,
+    and every plane gives the reference's counts."""
+    cfg = dataclasses.replace(_ps_cfg(TrainConfig), model="mlp", steps=8,
+                              train_size=1024, transport=transport)
+    got = port_run.run(cfg, device=CPU)
+    assert got["transport_used"] == used
+    assert got["server_counts"][0]["push_easgd"] == 2 * (8 // 4)
+    assert got["server_counts"][0]["fetch"] == 2 * (8 // 4 + 1)
+    assert got["dead_clients"] == [] and np.isfinite(got["final_loss"])
+
+
+# --------------------------------------------------------- shard snapshot
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["flat", "sharded"])
+def test_shard_snapshot_is_flax_msgpack_byte_for_byte(sharded, tmp_path):
+    """The scripted server (every envelope, a duplicate, a join, a leave,
+    in sharded mode a handoff) persists its full shard snapshot at its
+    clean stop: the port's file equals the reference's byte for byte, and
+    both equal ``flax.serialization.msgpack_serialize`` of the state."""
+    from flax import serialization
+
+    from mpit_tpu.utils import checkpoint as ref_ckpt
+    from mpit_tpu_torch.utils import checkpoint as port_ckpt
+
+    script = _sharded_script if sharded else _flat_script
+    ref_path, port_path = tmp_path / "ref.msgpack", tmp_path / "port.msgpack"
+    _serve_script(REF, script, sharded, ckpt_path=str(ref_path))
+    _serve_script(PORT, script, sharded, ckpt_path=str(port_path))
+    got, want = port_path.read_bytes(), ref_path.read_bytes()
+    assert got == want
+    state = ref_ckpt.load_shard_state(str(ref_path))
+    assert set(state) == {"center", "version", "gen", "dedup", "membership", "shards", "ring"}
+    assert (state["shards"] is None) is (not sharded)
+    assert serialization.msgpack_serialize(state) == got
+    assert port_ckpt.msgpack_serialize(state) == got
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(
+            _same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def test_each_package_loads_the_others_shard_snapshot(tmp_path):
+    from mpit_tpu.utils import checkpoint as ref_ckpt
+    from mpit_tpu_torch.utils import checkpoint as port_ckpt
+
+    state = {"center": _vec(3), "version": 7, "gen": 2, "ring": [3, [0, 1]],
+             "shards": [[0, 0, 18, 4], [2, 30, 37, 1]],
+             "dedup": [[1, 2**64 - 5, 9, [7, 8, 9]], [2, 123, 0, []]],
+             "membership": {"min_quorum": None, "expected": [1, 2], "dead": [],
+                            "stopped": [2], "left": [], "epochs": [[1, 2**63 + 1]],
+                            "view_epoch": 3}}
+    ref_ckpt.save_shard_state(str(tmp_path / "ref.msgpack"), state)
+    port_ckpt.save_shard_state(str(tmp_path / "port.msgpack"), state)
+    for path in ("ref.msgpack", "port.msgpack"):
+        got = port_ckpt.load_shard_state(str(tmp_path / path))
+        want = ref_ckpt.load_shard_state(str(tmp_path / path))
+        assert _same_tree(got, want)
+    assert _same_tree(port_ckpt.load_shard_state(str(tmp_path / "ref.msgpack")),
+                      ref_ckpt.load_shard_state(str(tmp_path / "port.msgpack")))
+
+
+_PKGS = {"ref": (ref_pserver, ref_pclient, RefBroker),
+         "port": (port_pserver, port_pclient, PortBroker)}
+
+
+def _snapshot_world(pkg, path):
+    pserver, _, broker = _PKGS[pkg]
+    tps = broker(2).transports()
+    server = pserver.PServer(tps[0], np.zeros(DIM, np.float32), num_clients=1, alpha=0.5,
+                             client_ranks=[1], ckpt_path=path, ckpt_every=1)
+    return tps, server, pserver.spawn_server_thread(server)
+
+
+@pytest.mark.parametrize("killed,restored", [("ref", "port"), ("port", "ref"),
+                                             ("port", "port")])
+def test_kill_and_restore_keeps_exactly_once(killed, restored, tmp_path):
+    """The reference's check (tests/test_elastic.py:205) across the
+    packages: a server of one package is "killed" after two pushes, a
+    server of the other restores its snapshot; the version continues, the
+    generation bumps, the center is the one persisted, and a replayed
+    pre-kill push is dropped as a duplicate."""
+    import shutil
+    import time
+
+    path, frozen = str(tmp_path / "shard_0.msgpack"), str(tmp_path / "killed.msgpack")
+    tps, server, thread = _snapshot_world(killed, path)
+    client = _PKGS[killed][1].PClient(tps[1], [0], DIM)
+    client.join()
+    client.push_easgd(np.ones(DIM, np.float32))
+    client.push_easgd(np.full(DIM, 2.0, np.float32))
+    deadline = time.monotonic() + 5
+    while server.version < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert server.version == 2
+    want_center = server.snapshot()
+    shutil.copy(path, frozen)  # the snapshot as a preempted server left it
+    client.stop()
+    thread.join(timeout=5)
+    assert not thread.is_alive() and server.error is None
+
+    tps2, revived, thread2 = _snapshot_world(restored, frozen)
+    assert revived.restored and revived.version == 2 and revived.gen == 1
+    np.testing.assert_array_equal(revived.snapshot(), want_center)
+    tps2[1].send(0, port_pserver.TAG_PUSH_EASGD,
+                 (client._epoch, 2, np.full(DIM, 2.0, np.float32)))
+    tps2[1].send(0, port_pserver.TAG_STOP, None)
+    thread2.join(timeout=5)
+    assert not thread2.is_alive() and revived.error is None
+    assert revived.counts["dup_dropped"] == 1 and revived.counts["push_easgd"] == 0
+    assert revived.version == 2
+    np.testing.assert_array_equal(revived.snapshot(), want_center)
+
+
+def test_oversized_arrays_are_chunked_as_flax_chunks_them(monkeypatch, tmp_path):
+    """flax writes an array above its chunk limit as a dict of flat pieces;
+    with the limit cut to 64 bytes in both, a snapshot's center is chunked
+    to the same bytes, and each package restores the other's."""
+    from flax import serialization
+
+    from mpit_tpu_torch.utils import checkpoint as port_ckpt
+
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    monkeypatch.setattr(port_ckpt, "_MAX_CHUNK_SIZE", 64)
+    state = {"center": _vec(5, 50), "version": 3, "nested": {"big": _vec(6, 20)},
+             "rows": [_vec(7, 40)]}
+    got = port_ckpt.msgpack_serialize(state)
+    assert got == serialization.msgpack_serialize(state)
+    assert b"__msgpack_chunked_array__" in got
+    assert _same_tree(port_ckpt.msgpack_restore(got), serialization.msgpack_restore(got))
+    assert port_ckpt.msgpack_restore(got)["center"].tobytes() == state["center"].tobytes()
