@@ -19,11 +19,12 @@ non-zero before the result lines:
              that ``transport="auto"`` means the C++ broker here.
 5. kernels — the elastic update against its plain PyTorch version on the
              card, with TF32 off: one leaf at the reference's test shapes,
-             then whole lists of leaves in one call (LeNet's 8, a ragged list
-             whose leaves start off 16-byte boundaries, a list longer than
-             one launch takes); a round of LeNet's leaves timed as one
-             launch and as one launch per leaf, with CUDA events and device
-             time, beside its bound, the plain version and ``lerp`` + ``add``.
+             then whole lists of leaves in one call (LeNet's 8, the LSTM's
+             27, a ragged list whose leaves start off 16-byte boundaries, a
+             list longer than one launch takes); a round of LeNet's leaves
+             and one of the LSTM's (11,364,112 floats) timed as one launch
+             and as one launch per leaf, with CUDA events and device time,
+             beside the bound, the plain version and ``lerp`` + ``add``.
 6. flash   — both flash-attention families against their plain versions:
              the CUDA-core kernels (forward, dQ, dK/dV) at the reference's
              test cases and the path's shape, called directly; then, through
@@ -76,12 +77,24 @@ non-zero before the result lines:
              no CUDA context on the server, each client's samples/s; then an
              elastic leg whose server snapshot loads with ``load_shard_state``
              and holds the center its client fetched last.
-15. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
+15. vgg, resnet, lstm, alexnet — BASELINE's other four presets
+             (``cifar-vgg-sync``, ``resnet50-sync``, ``ptb-lstm-easgd``,
+             ``alexnet-downpour``), each: one f32 step or round on the card
+             against the same on the CPU from one init (VGG at full width,
+             ResNet (1, 1, 1, 1) at 64², AlexNet at 64², a 2-layer LSTM;
+             tolerance 1e-4), three profiled units on random inputs (busy
+             share, top kernels; also the warm-up), then ``run()`` at the
+             preset's width and ``train_size``: the reference's units and
+             samples, finite losses, samples/s (tokens/s for the LSTM), ms
+             per unit, elastic launches = rounds on the LSTM (counts set to
+             0 just before), and a loss whose last quarter is below its first
+             (ResNet and AlexNet in a longer leg: 1024 × 3 epochs, 2048 × 2).
+16. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
              kernels' launch counts are set to 0 just before and read after:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
-16. lm-profile — ``torch.profiler`` over a few of the same steps: the
+17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
 
 Then a JSON line ``{"kernels": [...]}`` and, last, the device line
@@ -222,14 +235,41 @@ def elastic_bound_ms(w: int, n: int) -> float:
     return 1e3 * max(by_bytes, by_ops)
 
 
-def lenet_leaf_shapes() -> list[tuple]:
-    """The shape of each LeNet parameter leaf, in leaf order: the leaves
-    of the main path's elastic round."""
-    from mpit_tpu_torch.models import LeNet
+def leaf_shapes(name: str) -> list[tuple]:
+    """The shape of each parameter leaf of a registry model at its
+    preset's width, in leaf order: the leaves of an elastic round (LeNet's
+    on the main path, the LSTM's on ``ptb-lstm-easgd``)."""
+    from mpit_tpu_torch.models import get_model
     from mpit_tpu_torch.utils.params import tree_leaves
 
-    params = LeNet(device="cuda").init(torch.Generator().manual_seed(0))
+    params = get_model(name, device="cuda").init(torch.Generator().manual_seed(0))
     return [tuple(t.shape) for t in tree_leaves(params)]
+
+
+LSTM_LEAVES, LSTM_PARAMS = 27, 11_364_112  # ptb-lstm-easgd's tree at vocab 10,000
+
+
+def elastic_round_times(leaves, alpha: float) -> dict:
+    """One round's elastic update over ``leaves`` (xs, cs, ds) as one
+    launch, one launch per leaf, the plain version and ``lerp`` + ``add``,
+    by CUDA events and by device time, beside the bound."""
+    from mpit_tpu_torch.ops import elastic
+
+    xs, cs, ds = leaves
+    fns = dict(
+        ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True),
+        per_leaf_ms=lambda: [elastic.elastic_update(x, c, d, alpha, use_kernel=True)
+                             for x, c, d in zip(xs, cs, ds)],
+        plain_ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False),
+        library_ms=lambda: [(torch.lerp(x, c, alpha), torch.add(c, d, alpha=alpha))
+                            for x, c, d in zip(xs, cs, ds)],
+    )
+    row = dict(floats=sum(c.numel() for c in cs),
+               bound_ms=sum(elastic_bound_ms(WORKERS, c.numel()) for c in cs))
+    for k, fn in fns.items():
+        row[k] = time_ms(fn)
+        row["device_" + k] = device_ms(fn)
+    return row
 
 
 def kernels_vs_plain() -> dict:
@@ -254,7 +294,9 @@ def kernels_vs_plain() -> dict:
         return [list(t) for t in zip(*out)]
 
     max_err = 0.0
-    lenet = lenet_leaf_shapes()
+    lenet, lstm = leaf_shapes("lenet"), leaf_shapes("lstm")
+    if (len(lstm), sum(torch.Size(t).numel() for t in lstm)) != (LSTM_LEAVES, LSTM_PARAMS):
+        raise AssertionError(f"the LSTM's tree: {len(lstm)} leaves")
     cases = [(s, w) for s in [(7,), (65536,), (65549,), (3, 50, 11)] for w in (1, 8)]
     cases += [(s, WORKERS) for s in lenet]
     for shape, w in cases:
@@ -271,7 +313,8 @@ def kernels_vs_plain() -> dict:
 
     ragged = [(7,), (13,), (3, 50, 11), (65549,), (1,), (1021,)]
     many = [(1 + 97 * i % 2999,) for i in range(elastic.MAX_LEAVES + 9)]
-    lists = [("LeNet", WORKERS, lenet, 0), ("ragged", 1, ragged, 1),
+    lists = [("LeNet", WORKERS, lenet, 0), ("LSTM", WORKERS, lstm, 0),
+             ("ragged", 1, ragged, 1),
              ("ragged", WORKERS, ragged, 3), ("longer than the cap", WORKERS, many, 0)]
     leaves_err = 0.0
     for name, w, shapes, offset in lists:
@@ -291,23 +334,14 @@ def kernels_vs_plain() -> dict:
               f"version (rtol=atol={TOL})")
     max_err = max(max_err, leaves_err)
 
-    # a round at the main path's shapes: LeNet's 8 leaves, W = 8, as one
-    # launch and, for comparison in this call, as one launch per leaf
-    xs, cs, ds = leaf_list(WORKERS, lenet)
-    fns = dict(
-        ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True),
-        per_leaf_ms=lambda: [elastic.elastic_update(x, c, d, alpha, use_kernel=True)
-                             for x, c, d in zip(xs, cs, ds)],
-        plain_ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False),
-        library_ms=lambda: [(torch.lerp(x, c, alpha), torch.add(c, d, alpha=alpha))
-                            for x, c, d in zip(xs, cs, ds)],
-    )
-    row = dict(bound_ms=sum(elastic_bound_ms(WORKERS, c.numel()) for c in cs))
-    for k, fn in fns.items():
-        row[k] = time_ms(fn)
-        row["device_" + k] = device_ms(fn)
-    phase("kernels", "elastic_update_leaves per round (LeNet, W = 8; ms by CUDA "
-          "events, device_ms by the profiler): " + json.dumps(row))
+    # a round at each path's shapes (LeNet's 8 leaves, the LSTM's 27), W = 8,
+    # as one launch and, for comparison in this call, as one launch per leaf
+    rows = {name: elastic_round_times(leaf_list(WORKERS, shapes), alpha)
+            for name, shapes in (("LeNet", lenet), ("LSTM", lstm))}
+    for name, row in rows.items():
+        phase("kernels", f"elastic_update_leaves per round ({name}, W = 8; ms by CUDA "
+              "events, device_ms by the profiler): " + json.dumps(row))
+    row = rows["LeNet"]
     return dict(
         name="elastic_update", route="cuda",
         source="mpit_tpu_torch/ops/csrc/elastic.cu",
@@ -1191,6 +1225,206 @@ def profile_lm(steps: int = 3) -> None:
               f"{e.count // steps:5d} calls/step  {e.key[:80]}")
 
 
+# BASELINE's other four configs (phases vgg, resnet, lstm, alexnet): the
+# reference's arithmetic for each preset's units and samples, and what the
+# phase holds on the card. ``leg`` is a longer second run where the preset
+# is too short to show that the model trains.
+BASELINE = {
+    "vgg": dict(preset="cifar-vgg-sync", units=96, samples=96 * 256),
+    "resnet": dict(preset="resnet50-sync", units=8, samples=8 * 64,
+                   leg=dict(train_size=1024, epochs=3)),
+    "lstm": dict(preset="ptb-lstm-easgd", units=16, samples=16 * 4 * 128),
+    "alexnet": dict(preset="alexnet-downpour", units=2, samples=2 * 4 * 128,
+                    leg=dict(train_size=2048, epochs=2)),
+}
+# one f32 step or round, card against CPU, from the same init: the centers
+# or params after it agree within this (f32 sums run in other orders)
+UNIT_TOL = 1e-4
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def falls(losses) -> tuple[float, float]:
+    """(first, last) quarter means of a run's losses; asserts last < first."""
+    q = max(len(losses) // 4, 1)
+    first, last = statistics.mean(losses[:q]), statistics.mean(losses[-q:])
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first quarter {first}, last {last}")
+    return first, last
+
+
+def unit_vs_cpu(name: str, make_model, make_trainer, x, y) -> None:
+    """One f32 step (sync) or round (τ-round trainers) of ``make_model`` on
+    the card against the same on the CPU, from the same init and batch."""
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.utils.params import tree_leaves, tree_map
+
+    params = make_model("cpu").init(torch.Generator().manual_seed(0))
+    out, losses = {}, {}
+    for dev in ("cuda", "cpu"):
+        trainer = make_trainer(make_model(dev), Topology(WORKERS, torch.device(dev)))
+        state = trainer.init_state(params=tree_map(torch.clone, params))
+        state, m = trainer.step(state, x, y)
+        held = state.params if hasattr(state, "params") else trainer.center_params(state)
+        out[dev] = [t.cpu() for t in tree_leaves(held)]
+        losses[dev] = float(m["loss"])
+    err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
+    if not err <= UNIT_TOL or abs(losses["cuda"] - losses["cpu"]) > UNIT_TOL:
+        raise AssertionError(f"{name}: card differs from CPU: params {err}, losses {losses}")
+    phase(name, f"f32, one {'step' if hasattr(state, 'params') else 'round'}, card vs "
+          f"CPU: max |param err| {err:.3g}, loss {losses['cuda']:.6f} vs "
+          f"{losses['cpu']:.6f} (tolerance {UNIT_TOL})")
+
+
+def baseline_checks(name: str) -> None:
+    """The f32 card-vs-CPU unit of a BASELINE phase, at a small size."""
+    import numpy as np
+
+    from mpit_tpu_torch.models import get_model
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import DataParallelTrainer, DownpourTrainer, EASGDTrainer
+
+    rng = np.random.default_rng(0)
+    f32 = torch.float32
+
+    def images(tau, size, classes):
+        shape = (tau, WORKERS * 2, size, size, 3) if tau else (WORKERS, size, size, 3)
+        x = rng.uniform(0, 1, shape).astype(np.float32)
+        return x, rng.integers(0, classes, shape[:-3]).astype(np.int32)
+
+    if name == "vgg":
+        unit_vs_cpu(name, lambda dev: get_model("vgg", compute_dtype=f32, device=dev),
+                    lambda m, t: DataParallelTrainer(m, SGD(0.02, 0.9), t),
+                    *images(0, 32, 10))
+    elif name == "resnet":
+        unit_vs_cpu(name, lambda dev: get_model(
+                        "resnet50", stage_sizes=(1, 1, 1, 1), in_shape=(64, 64, 3),
+                        compute_dtype=f32, device=dev),
+                    lambda m, t: DataParallelTrainer(m, SGD(0.1, 0.9), t),
+                    *images(0, 64, 1000))
+    elif name == "alexnet":
+        unit_vs_cpu(name, lambda dev: get_model(
+                        "alexnet", in_shape=(64, 64, 3), compute_dtype=f32, device=dev),
+                    lambda m, t: DownpourTrainer(m, SGD(0.01, 0.9), t, tau=2,
+                                                 staleness=1),
+                    *images(2, 64, 1000))
+    else:
+        tokens = rng.integers(0, 97, (2, WORKERS * 2, 33))
+        unit_vs_cpu(name, lambda dev: get_model(
+                        "lstm", vocab_size=97, embed_dim=32, hidden=64,
+                        compute_dtype=f32, device=dev),
+                    lambda m, t: EASGDTrainer(m, SGD(1.0), t, tau=2),
+                    tokens[..., :-1].astype(np.int32), tokens[..., 1:].astype(np.int32))
+
+
+def profile_units(name: str, cfg, units: int = 3) -> None:
+    """Where a step's or a round's time goes: ``torch.profiler`` over a few
+    units of ``cfg``'s trainer, built as ``run()`` builds it, on random
+    inputs of the preset's shapes, after two warm-up units (which also warm
+    cuDNN's and the allocator's first calls up for the timed run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.run import _image_shape, build_model, build_optimizer, build_trainer
+
+    topo = topology()
+    trainer = build_trainer(cfg, build_model(cfg, topo.device), build_optimizer(cfg), topo)
+    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sync = cfg.resolved_algo() == "sync"
+    lead = (cfg.global_batch,) if sync else (
+        WORKERS, cfg.tau, cfg.global_batch // WORKERS)
+    if cfg.dataset == "ptb":
+        x = torch.randint(0, 10_000, (*lead, cfg.seq_len), generator=gen, device="cuda")
+        y = torch.randint(0, 10_000, (*lead, cfg.seq_len), generator=gen, device="cuda")
+    else:
+        classes = 1000 if cfg.dataset == "imagenet" else 10
+        x = torch.rand((*lead, *_image_shape(cfg)), generator=gen, device="cuda")
+        y = torch.randint(0, classes, lead, generator=gen, device="cuda")
+    unit = trainer._step if sync else trainer._round
+    for _ in range(2):
+        state, _ = unit(state, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(units):
+            state, m = unit(state, x, y)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    what = "step" if sync else "round"
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    union_ms, sum_ms = busy_union_ms(prof)
+    if union_ms == 0:
+        phase(name, "device busy time: not measured (no device events)")
+        return
+    phase(name, f"{units} {what}s under the profiler: wall {wall_ms:.3f} ms, device busy "
+          f"{union_ms:.3f} ms ({100 * union_ms / wall_ms:.1f}%, overlaps counted once), "
+          f"idle {100 * (1 - union_ms / wall_ms):.1f}%; {sum_ms / units:.3f} ms of device "
+          f"time per {what} (summed over streams)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        phase(name, f"  {e.self_device_time_total / 1e3 / units:9.4f} ms/{what} "
+              f"{e.count // units:5d} calls/{what}  {e.key[:90]}")
+
+
+def baseline_path(name: str, card_line: str) -> int:
+    """One of BASELINE's configs through ``run()`` on the card at its
+    preset's width and ``train_size``: the f32 card-vs-CPU unit, a profile
+    of a few units (the warm-up), the timed run held to the reference's
+    units and samples, finite losses, and a loss that falls (here or in the
+    longer leg). Returns the elastic launches of the timed run."""
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    want = BASELINE[name]
+    cfg = TrainConfig().apply_preset(want["preset"])
+    phase(name, f"preset {cfg.preset}: {cfg.model} on {cfg.dataset}, {cfg.algo}, lr "
+          f"{cfg.lr}, momentum {cfg.momentum}, global batch {cfg.global_batch}, "
+          f"train_size {cfg.train_size}, epochs {cfg.epochs}"
+          + ("" if cfg.algo == "sync" else f", tau {cfg.tau}, W = {WORKERS}")
+          + (f", staleness {cfg.staleness}" if cfg.algo == "downpour" else ""))
+    baseline_checks(name)
+    profile_units(name, cfg)
+
+    elastic.launches = 0
+    res = run(cfg)
+    launches = elastic.launches
+    units, losses = res["trained_units"], res["round_losses"]
+    if (units, res["samples"]) != (want["units"], want["samples"]):
+        raise AssertionError(f"{name}: {units} units, {res['samples']} samples, not "
+                             f"{want['units']} and {want['samples']}")
+    if not finite(losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if cfg.algo == "easgd" and launches != units:
+        raise AssertionError(f"{name}: elastic launches {launches} != rounds {units}")
+    what = "step" if cfg.algo == "sync" else "round"
+    rate = f"{res['samples_per_sec']:.1f} samples/s"
+    if cfg.dataset == "ptb":
+        rate += f", {res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s"
+    phase(name, json.dumps({k: res.get(k) for k in (
+        "accuracy", "eval_loss", "final_loss", "round_losses", "trained_units",
+        "samples", "wall_s", "samples_per_sec")}))
+    phase(name, f"{units} {what}s, {res['samples']} samples: {rate}, "
+          f"{1e3 * res['wall_s'] / units:.3f} ms per {what}; elastic launches "
+          f"{launches}{' = rounds' if cfg.algo == 'easgd' else ''}; {card_line}")
+    if "leg" in want:
+        leg = dataclasses.replace(cfg, **want["leg"])
+        res = run(leg)
+        losses = res["round_losses"]
+        if not finite(losses):
+            raise AssertionError(f"{name}: non-finite loss in the leg: {losses}")
+        phase(name, f"longer leg (train_size {leg.train_size}, epochs {leg.epochs}): "
+              f"{res['trained_units']} {what}s, {res['samples_per_sec']:.1f} samples/s")
+    first, last = falls(losses)
+    phase(name, f"loss falls: first quarter {first:.4f}, last quarter {last:.4f}; "
+          f"accuracy {res['accuracy']:.4f}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     # one card: hide the others before CUDA starts
     os.environ["CUDA_VISIBLE_DEVICES"] = one_card(os.environ)
@@ -1215,6 +1449,8 @@ def main() -> int:
     ps_path(card_line)
     ps_chaos(card_line)
     ps_proc(card_line)
+    for name in BASELINE:
+        kernel["launches"] += baseline_path(name, card_line)
     lm_launches = lm_path(flash)
     for name in flash:
         # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the

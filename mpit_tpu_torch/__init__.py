@@ -11,14 +11,17 @@ reference's module names, so each module's counterpart is found by name:
   ``optax`` computes them.
 - ``ops``       — hand-written CUDA kernels (the fused elastic update; flash
   attention forward, dQ and dK/dV), each beside its plain PyTorch version.
-- ``models``    — LeNet, the MLP and the transformer LM, with flax-keyed
-  parameter trees; ``convert`` carries weights between the two packages.
-- ``parallel``  — the EASGD trainer and the sync data-parallel trainer.
-- ``data``      — MNIST and PTB or their synthetic stand-ins, batches,
-  prefetch.
+- ``models``    — LeNet, the MLP, VGG-small, ResNet-50, AlexNet, the LSTM
+  and transformer LMs (``get_model``), with flax-keyed parameter trees;
+  ``convert`` carries weights between the two packages.
+- ``parallel``  — the EASGD, Downpour and sync data-parallel trainers, and
+  the host-async parameter server.
+- ``data``      — MNIST, CIFAR-10, ImageNet-like images and PTB or their
+  synthetic stand-ins, batches, prefetch.
 - ``utils``     — parameter trees, config, metrics, completion barrier.
-- ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``, or
-  ``--preset ptb-transformer-large --algo sync --attn-impl flash``.
+- ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
+  (or any BASELINE preset), or ``--preset ptb-transformer-large --algo
+  sync --attn-impl flash``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

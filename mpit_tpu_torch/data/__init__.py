@@ -1,9 +1,12 @@
-"""Data: MNIST and PTB (or their synthetic stand-ins), batches, device
-prefetch."""
+"""Data: MNIST, CIFAR-10, ImageNet-like images and PTB (or their synthetic
+stand-ins), batches, device prefetch."""
 
 from mpit_tpu_torch.data.datasets import (  # noqa: F401
     Batches,
     cast_input_dtype,
+    has_real_dataset,
+    load_cifar10,
+    load_imagenet_like,
     load_mnist,
     load_ptb,
     shard_for_worker,

@@ -1,19 +1,28 @@
 """Flax-shaped layers and the functional model interface.
 
 Each layer holds the leaves of its ``flax.linen`` counterpart under the same
-names (``Conv``/``Dense``: ``kernel``, ``bias``; ``LayerNorm``: ``scale``,
-``bias``; ``Embed``: ``embedding``), so a model's parameters form the flax
-tree (``{"Conv_0": {"bias", "kernel"}, ...}``, nested as deep as the model
-nests its layers). Layouts:
+names (``Conv``/``Dense``: ``kernel``, ``bias``; ``LayerNorm``/``GroupNorm``:
+``scale``, ``bias``; ``Embed``: ``embedding``; ``OptimizedLSTMCell``: the
+gate layers ``ii``/``if``/``ig``/``io`` and ``hi``/``hf``/``hg``/``ho``), so a
+model's parameters form the flax tree (``{"Conv_0": {"bias", "kernel"},
+...}``, nested as deep as the model nests its layers). Layouts:
 
 - ``Conv.kernel`` is OIHW, PyTorch's own, for ``F.conv2d``; flax keeps HWIO.
+  Images run NCHW inside the models; the public input stays NHWC.
 - ``Dense.kernel`` is ``(in, out)``, flax's own, and the layer computes
   ``x @ kernel``. So a Dense leaf is the same array in both packages.
 
+Padding follows ``lax``: ``"SAME"`` gives ``ceil(size / stride)`` outputs
+and splits the total pad with the smaller half before, so a stride-2
+window over an even size pads 0 before and 1 after (PyTorch's symmetric
+``padding=1`` would shift every window by one); ``"VALID"`` pads nothing;
+an int pads that much on both sides.
+
 ``mpit_tpu_torch.convert`` maps the two trees. Initialisation mirrors
 flax's defaults, drawn on the CPU from a ``torch.Generator``: lecun-normal
-kernels (truncated at two standard deviations), zero biases, unit norm
-scales, and embeddings normal with variance 1 / features.
+kernels (truncated at two standard deviations), orthogonal recurrent
+kernels, zero biases, unit norm scales, and embeddings normal with
+variance 1 / features.
 """
 
 from __future__ import annotations
@@ -36,25 +45,81 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
         t.copy_(draw * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
 
 
-class Conv(nn.Module):
-    """``nn.Conv(features, (k, k), padding="SAME")`` on NCHW, stride 1."""
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """``lax``'s ``"SAME"`` split of one spatial dim: (before, after)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, cin: int, cout: int, k: int, dtype, device):
+
+def _pads(size: int, k: int, stride: int, padding) -> tuple[int, int]:
+    if padding == "SAME":
+        return same_pads(size, k, stride)
+    if padding == "VALID":
+        return 0, 0
+    return int(padding), int(padding)
+
+
+def window_out(size: int, k: int, stride: int = 1, padding="VALID") -> int:
+    """Output size of a conv or pool window over one spatial dim."""
+    lo, hi = _pads(size, k, stride, padding)
+    return (size + lo + hi - k) // stride + 1
+
+
+def _pad2d(x, k: int, stride: int, padding, value: float = 0.0):
+    """``x`` (..., H, W) padded as ``padding`` says, and the symmetric pad
+    left for the op itself (0 after an asymmetric ``F.pad``)."""
+    (top, bottom), (left, right) = (_pads(n, k, stride, padding)
+                                    for n in x.shape[-2:])
+    if top == bottom == left == right:
+        return x, top
+    return F.pad(x, (left, right, top, bottom), value=value), 0
+
+
+class Conv(nn.Module):
+    """``nn.Conv(features, (k, k), strides, padding, use_bias)`` on NCHW;
+    ``padding`` is ``"SAME"`` (flax's default), ``"VALID"`` or an int."""
+
+    def __init__(self, cin: int, cout: int, k: int, dtype, device,
+                 stride: int = 1, padding="SAME", use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.stride = stride
+        self.padding = padding
         self.kernel = nn.Parameter(torch.zeros(cout, cin, k, k, device=device))
-        self.bias = nn.Parameter(torch.zeros(cout, device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.kernel, math.prod(self.kernel.shape[1:]), generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        k = self.kernel.shape[-1]
-        return F.conv2d(
-            x, self.kernel.to(self.dtype), self.bias.to(self.dtype),
-            padding=k // 2,
-        )
+        x, pad = _pad2d(x, self.kernel.shape[-1], self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(x, self.kernel.to(self.dtype), bias,
+                        stride=self.stride, padding=pad)
+
+
+def nchw(x: torch.Tensor, dtype) -> torch.Tensor:
+    """An NHWC image batch in ``dtype`` and NCHW, copied into NCHW strides:
+    a permuted view can also be channels-last (one channel always is), and
+    cuDNN would pick a channels-last algorithm for it here but an NCHW one
+    under vmap (the collective trainers), which rounds differently."""
+    return x.to(dtype).permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW features flattened in flax's NHWC order, as ``Dense_0`` reads
+    them."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def max_pool(x, k: int, stride: int, padding="VALID"):
+    """``nn.max_pool(x, (k, k), strides=(stride, stride), padding)`` on
+    NCHW; ``"SAME"`` pads with -inf, split as ``lax`` splits it."""
+    x, pad = _pad2d(x, k, stride, padding, value=float("-inf"))
+    return F.max_pool2d(x, k, stride, padding=pad)
 
 
 class Dense(nn.Module):
@@ -102,6 +167,40 @@ class LayerNorm(nn.Module):
         return ((x - mu) * mul + self.bias).to(self.dtype)
 
 
+class GroupNorm(nn.Module):
+    """``nn.GroupNorm(num_groups, dtype=dtype)`` on NCHW: each group of
+    ``features / num_groups`` consecutive channels normalised over its
+    channels and H, W, with epsilon 1e-6 and the fast variance in float32
+    as :class:`LayerNorm`, then the per-channel affine map in float32; the
+    result in ``dtype``."""
+
+    def __init__(self, features: int, dtype, device, num_groups: int = 32,
+                 epsilon: float = 1e-6):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(
+                f"Number of groups ({num_groups}) does not divide the number "
+                f"of channels ({features})."
+            )
+        self.dtype = dtype
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    reset_parameters = LayerNorm.reset_parameters
+
+    def forward(self, x):
+        shape, g = x.shape, self.num_groups
+        c = shape[1]
+        x = x.float().reshape(shape[0], g, c // g, -1)
+        mu = x.mean((-2, -1), keepdim=True)
+        var = torch.clamp((x * x).mean((-2, -1), keepdim=True) - mu * mu, min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.reshape(g, c // g, 1)
+        y = (x - mu) * mul + self.bias.reshape(g, c // g, 1)
+        return y.reshape(shape).to(self.dtype)
+
+
 class Embed(nn.Module):
     """``nn.Embed(num, features, dtype=dtype)``: rows of ``embedding``
     (num, features), gathered and returned in ``dtype``."""
@@ -119,6 +218,57 @@ class Embed(nn.Module):
 
     def forward(self, tokens):
         return F.embedding(tokens.long(), self.embedding).to(self.dtype)
+
+
+class OptimizedLSTMCell(nn.Module):
+    """``nn.OptimizedLSTMCell(features, dtype=dtype)`` run over a sequence,
+    as ``nn.RNN`` runs it from flax's zero carry.
+
+    Leaves: ``ii``/``if``/``ig``/``io`` with ``kernel`` (in, H) and no bias,
+    ``hi``/``hf``/``hg``/``ho`` with ``kernel`` (H, H) and ``bias``; the gates
+    are i, f, g, o, the forget bias is not shifted. flax casts the operands
+    of both gate products to ``dtype`` and keeps the carry in float32 (its
+    zero carry is float32, and the ``dtype`` gates promote against it), so
+    the gate products and their sums are in ``dtype`` while ``c' = f·c +
+    i·g`` and ``h' = o·tanh(c')`` are float32, and the outputs are float32.
+    The input product of every step is one (B·T, in) × (in, 4H) product
+    before the time loop."""
+
+    GATES = "ifgo"
+
+    def __init__(self, fin: int, hidden: int, dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        for g in self.GATES:
+            self.add_module("i" + g, Dense(fin, hidden, dtype, device, use_bias=False))
+            self.add_module("h" + g, Dense(hidden, hidden, dtype, device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for g in self.GATES:
+            getattr(self, "i" + g).reset_parameters(generator)
+            recurrent = getattr(self, "h" + g)
+            draw = torch.empty(recurrent.kernel.shape)
+            nn.init.orthogonal_(draw, generator=generator)
+            with torch.no_grad():
+                recurrent.kernel.copy_(draw)
+                recurrent.bias.zero_()
+
+    def forward(self, x):
+        """(B, T, in) → (B, T, H) float32."""
+        dt = self.dtype
+        k_in = torch.cat([getattr(self, "i" + g).kernel for g in self.GATES], -1)
+        k_h = torch.cat([getattr(self, "h" + g).kernel for g in self.GATES], -1).to(dt)
+        b_h = torch.cat([getattr(self, "h" + g).bias for g in self.GATES], -1).to(dt)
+        gates_in = x.to(dt) @ k_in.to(dt)
+        hidden = k_h.shape[0]
+        c = h = torch.zeros(x.shape[0], hidden, dtype=torch.float32, device=x.device)
+        out = []
+        for t in range(x.shape[1]):
+            i, f, g, o = ((h.to(dt) @ k_h + b_h) + gates_in[:, t]).chunk(4, -1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        return torch.stack(out, 1)
 
 
 def reset_children(module: nn.Module, generator: torch.Generator) -> None:

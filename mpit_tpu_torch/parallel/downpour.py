@@ -1,0 +1,138 @@
+"""Downpour-SGD trainer on one device (push the accumulated updates, pull a
+possibly stale center); counterpart of ``mpit_tpu/parallel/downpour.py``.
+
+Every worker keeps its own params and optimizer state, stacked on dim 0 as
+in the EASGD trainer. A round is τ local steps of all W workers at once
+(``torch.func.vmap`` over ``torch.func.grad_and_value``), then the push:
+with no ``server_optimizer`` the center moves by the workers' mean update
+(``goptim.downpour_push``, model averaging: the BASELINE config), else the
+server optimizer takes −mean(update) as its gradient. The new center is
+appended to a ring of the last ``staleness + 1`` centers and every worker
+pulls the oldest (``goptim.downpour_pull``), so the staleness the reference
+emulates is exact and reproducible here too.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from mpit_tpu_torch import goptim
+from mpit_tpu_torch.comm import pmean
+from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.comm.topology import topology as _current_topology
+from mpit_tpu_torch.parallel import common
+from mpit_tpu_torch.parallel.easgd import _stack
+from mpit_tpu_torch.utils.params import tree_map
+
+
+@dataclasses.dataclass
+class DownpourState:
+    """worker_params/worker_opt have a leading worker dim W;
+    center_history a leading dim ``staleness + 1`` ([0] = oldest); the
+    center and the server optimizer state have none. ``round`` counts
+    completed rounds."""
+
+    worker_params: Any
+    worker_opt: Any
+    center: Any
+    server_opt: Any
+    center_history: Any
+    round: int = 0
+
+
+class DownpourTrainer(common.RoundTrainer):
+    """Downpour: τ local steps, push the accumulated updates, pull the
+    (stale) center.
+
+    Args:
+      model: a port model (``init``/``apply``), or None with a custom
+        ``loss_fn`` and ``init_state(params=...)``.
+      optimizer: the local worker optimizer.
+      topo: the topology (default: the current one).
+      server_optimizer: applied at the center to −mean(update); None is
+        model averaging (the center moves by the mean update).
+      tau: push/pull period.
+      staleness: rounds of center age the workers see on pull (0 = fresh).
+    """
+
+    def __init__(
+        self,
+        model,
+        optimizer,
+        topo: Optional[Topology] = None,
+        loss_fn: Optional[Callable] = None,
+        server_optimizer=None,
+        tau: int = 4,
+        staleness: int = 0,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.topo = topo if topo is not None else _current_topology()
+        self.tau = int(tau)
+        self.staleness = int(staleness)
+        if self.staleness < 0:
+            raise ValueError("staleness must be >= 0")
+        self.server_optimizer = server_optimizer
+        self.loss_fn = (
+            loss_fn if loss_fn is not None else common.default_loss_fn(model.apply)
+        )
+        self._grad = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))
+        self._log_tag = "downpour"
+
+    def init_state(
+        self, generator: Optional[torch.Generator] = None, params: Any = None
+    ) -> DownpourState:
+        """Workers, the center and every ring entry start from identical
+        params: the given tree, or ``model.init(generator)``."""
+        if params is None:
+            params = self.model.init(generator)
+        params = tree_map(lambda a: a.detach().to(self.topo.device), params)
+        w = self.topo.num_workers
+        server_opt = (self.server_optimizer.init(params)
+                      if self.server_optimizer is not None else ())
+        return DownpourState(
+            worker_params=_stack(params, w),
+            worker_opt=_stack(self.optimizer.init(params), w),
+            center=tree_map(torch.clone, params),
+            server_opt=server_opt,
+            center_history=_stack(params, self.staleness + 1),
+        )
+
+    def _round(self, state: DownpourState, x: torch.Tensor, y: torch.Tensor):
+        """τ local steps on x, y of shape (W, τ, B, ...), the push and the
+        pull. Returns the new state and ``{"loss": mean over workers and
+        steps}`` as a device scalar."""
+        start = state.worker_params
+        params, opt = start, state.worker_opt
+        losses = []
+        for t in range(self.tau):
+            grads, loss = self._grad(params, x[:, t], y[:, t])
+            params, opt = self.optimizer.update(params, grads, opt)
+            losses.append(loss)
+        delta = tree_map(torch.sub, params, start)
+        if self.server_optimizer is None:
+            center = goptim.downpour_push(state.center, delta, average=True)
+            server_opt = state.server_opt
+        else:
+            pseudo_grad = tree_map(torch.neg, pmean(delta))
+            center, server_opt = self.server_optimizer.update(
+                state.center, pseudo_grad, state.server_opt
+            )
+        history = tree_map(lambda h, c: torch.cat([h[1:], c[None]]),
+                           state.center_history, center)
+        pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
+        new = DownpourState(
+            worker_params=_stack(pulled, self.topo.num_workers),
+            worker_opt=opt,
+            center=center,
+            server_opt=server_opt,
+            center_history=history,
+            round=state.round + 1,
+        )
+        return new, {"loss": torch.stack(losses).mean()}
+
+    def center_params(self, state: DownpourState):
+        return state.center

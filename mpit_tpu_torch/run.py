@@ -2,33 +2,38 @@
 
 Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
 
-- ``easgd``/``eamsgd`` with ``lenet``/``mlp`` on MNIST (or its synthetic
-  stand-in), SGD with momentum at a constant learning rate;
-- ``sync`` (data-parallel) with ``lenet``/``mlp`` on MNIST or the
-  ``transformer`` LM on PTB (or its synthetic stand-in), with SGD, Adam or
-  AdamW and a constant, cosine or warmup-cosine schedule (SGD constant
-  only);
-- ``ps-easgd``/``ps-eamsgd``/``ps-downpour`` with ``lenet``/``mlp`` on
-  MNIST: the host-async parameter server, servers and clients as threads
-  over the message plane ``transport`` names (``auto``: the C++ broker
-  where it builds; ``native``, ``inproc`` or ``socket``), each client's
-  local steps on the card, with chaos fault injection when ``MPIT_CHAOS_*``
-  knobs are set. Process mode (one OS process per rank) is
-  ``python -m mpit_tpu_torch.launch -n 3
-  mpit_tpu_torch/examples/ptest_proc.py``.
+- models: every registry model (``models.get_model``: ``lenet``, ``mlp``,
+  ``vgg``, ``alexnet``, ``resnet50``, ``lstm``, ``transformer`` and the
+  reference's aliases) on any dataset whose shapes fit (``mnist``,
+  ``cifar10``, ``imagenet``, ``ptb``, each with its synthetic stand-in);
+- ``easgd``/``eamsgd`` and ``downpour`` (τ-round trainers over W stacked
+  workers) and ``sync`` (data-parallel), with SGD at a constant learning
+  rate, and under ``sync`` also Adam or AdamW with a constant, cosine or
+  warmup-cosine schedule;
+- ``ps-easgd``/``ps-eamsgd``/``ps-downpour``: the host-async parameter
+  server, servers and clients as threads over the message plane
+  ``transport`` names (``auto``: the C++ broker where it builds;
+  ``native``, ``inproc`` or ``socket``), each client's local steps on the
+  card, with chaos fault injection when ``MPIT_CHAOS_*`` knobs are set.
+  Process mode (one OS process per rank) is ``python -m
+  mpit_tpu_torch.launch -n 3 mpit_tpu_torch/examples/ptest_proc.py``.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it. Flags that do not apply to the chosen algo warn, with the
-reference's wording, as the reference does.
+will bring it. Flags that do not apply to the chosen algo or model warn,
+with the reference's wording, as the reference does.
 
     python -m mpit_tpu_torch.run --preset mnist-easgd
+    python -m mpit_tpu_torch.run --preset cifar-vgg-sync
+    python -m mpit_tpu_torch.run --preset resnet50-sync
+    python -m mpit_tpu_torch.run --preset ptb-lstm-easgd
+    python -m mpit_tpu_torch.run --preset alexnet-downpour
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash
     python -m mpit_tpu_torch.run --preset mnist-ps
 
-run on the card, with W = 8 workers stacked on it (easgd) or sharing its
-global batch (sync) unless the topology was initialized otherwise, or with
-``clients`` client threads and ``servers`` server threads (ps-*), and
-print the results dict as one JSON line.
+run on the card, with W = 8 workers stacked on it (easgd, downpour) or
+sharing its global batch (sync) unless the topology was initialized
+otherwise, or with ``clients`` client threads and ``servers`` server
+threads (ps-*), and print the results dict as one JSON line.
 """
 
 from __future__ import annotations
@@ -40,10 +45,10 @@ import warnings
 import numpy as np
 import torch
 
+from mpit_tpu_torch.models import REMAT_MODELS
 from mpit_tpu_torch.utils.config import TrainConfig
 
-_MODELS = {"mnist": ("lenet", "mlp"), "ptb": ("transformer",)}
-_ALGOS = ("easgd", "sync", "ps-easgd", "ps-downpour")
+_ALGOS = ("easgd", "downpour", "sync", "ps-easgd", "ps-downpour")
 
 
 def _not_ported(what: str, item: str):
@@ -56,15 +61,7 @@ def _check_supported(cfg: TrainConfig) -> None:
     algo = cfg.resolved_algo()
     if algo not in _ALGOS:
         raise _not_ported(f"algo={cfg.algo!r}", "items A6-A11")
-    if cfg.dataset not in _MODELS:
-        raise _not_ported(f"dataset={cfg.dataset!r}", "item A5b")
-    if cfg.model.lower() not in _MODELS[cfg.dataset]:
-        raise _not_ported(
-            f"model={cfg.model!r} on dataset={cfg.dataset!r}", "items A8-A9"
-        )
-    if algo in ("easgd", "ps-easgd", "ps-downpour") and cfg.dataset != "mnist":
-        raise _not_ported(f"{algo} on dataset={cfg.dataset!r}", "item A8")
-    if (algo == "easgd" or cfg.optimizer == "sgd") and (
+    if (algo in ("easgd", "downpour") or cfg.optimizer == "sgd") and (
         cfg.optimizer != "sgd" or cfg.lr_schedule != "constant"
     ):
         raise _not_ported(
@@ -81,7 +78,7 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise _not_ported("checkpointing (ckpt_dir, resume)", "item A5b")
     if cfg.profile_dir:
         raise _not_ported("profile_dir", "item A5b")
-    if cfg.remat:
+    if cfg.remat and cfg.model.lower() in REMAT_MODELS:
         raise _not_ported("remat", "item A9")
     if cfg.exchange_dtype not in ("none", "bf16"):
         raise ValueError(
@@ -119,18 +116,47 @@ def _ptb_windows(cfg: TrainConfig):
 
 
 def _load_dataset(cfg: TrainConfig):
-    from mpit_tpu_torch.data import load_mnist
+    """(x_train, y_train, x_test, y_test, meta) for the config's dataset;
+    ``meta`` carries dataset facts the model needs (e.g. vocab_size)."""
+    from mpit_tpu_torch.data import load_cifar10, load_imagenet_like, load_mnist
 
+    if cfg.dataset == "mnist":
+        return (*load_mnist(synthetic_train=cfg.train_size), {})
+    if cfg.dataset == "cifar10":
+        return (*load_cifar10(synthetic_train=cfg.train_size), {})
+    if cfg.dataset == "imagenet":
+        return (
+            *load_imagenet_like(
+                synthetic_train=cfg.train_size,
+                synthetic_test=max(cfg.train_size // 4, 64),
+                image_size=cfg.image_size,
+            ),
+            {},
+        )
     if cfg.dataset == "ptb":
         return _ptb_windows(cfg)
-    return (*load_mnist(synthetic_train=cfg.train_size), {})
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
+
+
+def _image_shape(cfg: TrainConfig):
+    """(H, W, C) of the dataset's images (None for text): the port's image
+    models fix their input size at construction, where flax infers it."""
+    return {"mnist": (28, 28, 1), "cifar10": (32, 32, 3),
+            "imagenet": (cfg.image_size, cfg.image_size, 3)}.get(cfg.dataset)
 
 
 def build_model(cfg: TrainConfig, device, meta: dict | None = None):
-    from mpit_tpu_torch.models import MLP, LeNet, TransformerLM
+    from mpit_tpu_torch.models import STEM_MODELS, get_model
 
-    name = cfg.model.lower()
+    meta = meta or {}
+    name = cfg.model.lower()  # the registry lowercases; match it
     algo = cfg.resolved_algo()
+    if cfg.remat and name not in REMAT_MODELS:
+        warnings.warn(
+            f"remat is implemented for {REMAT_MODELS} only; model "
+            f"{cfg.model!r} runs without it",
+            stacklevel=2,
+        )
     if cfg.moe_experts and not (name == "transformer" and algo == "moe-sync"):
         warnings.warn(
             f"moe_experts={cfg.moe_experts} only applies with "
@@ -146,8 +172,9 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
             stacklevel=2,
         )
     if name == "transformer":
-        return TransformerLM(
-            vocab_size=(meta or {}).get("vocab_size", 10_000),
+        return get_model(
+            cfg.model,
+            vocab_size=meta.get("vocab_size", 10_000),
             num_layers=cfg.layers,
             d_model=cfg.d_model,
             num_heads=cfg.heads,
@@ -156,7 +183,18 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
             attn_impl=cfg.attn_impl,
             device=device,
         )
-    return (LeNet if name == "lenet" else MLP)(device=device)
+    if name in ("lstm", "lstm_lm", "ptb_lstm"):
+        return get_model(cfg.model, vocab_size=meta.get("vocab_size", 10_000),
+                         device=device)
+    # capability kwargs derive from the registry lists, as the reference's
+    kwargs = {}
+    if name in STEM_MODELS:
+        kwargs["stem"] = cfg.stem
+    if name in REMAT_MODELS:
+        kwargs["remat"] = cfg.remat
+    if _image_shape(cfg) is not None:
+        kwargs["in_shape"] = _image_shape(cfg)
+    return get_model(cfg.model, device=device, **kwargs)
 
 
 def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
@@ -189,7 +227,9 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
 def build_trainer(cfg: TrainConfig, model, opt, topo):
     """The trainer for ``cfg.algo`` (the kernels on by default for CUDA
     tensors)."""
-    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
+    from mpit_tpu_torch.parallel import (
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer,
+    )
 
     _check_supported(cfg)
     algo = cfg.resolved_algo()
@@ -209,6 +249,9 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
         )
     if algo == "sync":
         return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
+    if algo == "downpour":
+        return DownpourTrainer(model, opt, topo, tau=cfg.tau,
+                               staleness=cfg.staleness)
     xdtype = torch.bfloat16 if cfg.exchange_dtype == "bf16" else None
     return EASGDTrainer(
         model, opt, topo, alpha=cfg.alpha, tau=cfg.tau, exchange_dtype=xdtype
@@ -396,8 +439,10 @@ def main(argv=None) -> None:
     cfg = TrainConfig.from_args(
         argv,
         description="mpit_tpu_torch training on one CUDA card (e.g. "
-        "--preset mnist-easgd --epochs 1, --preset ptb-transformer-large "
-        "--algo sync --attn-impl flash, or --preset mnist-ps)",
+        "--preset mnist-easgd --epochs 1, --preset cifar-vgg-sync, --preset "
+        "resnet50-sync, --preset ptb-lstm-easgd, --preset alexnet-downpour, "
+        "--preset ptb-transformer-large --algo sync --attn-impl flash, or "
+        "--preset mnist-ps)",
     )
     print(json.dumps(run(cfg), default=repr))
 

@@ -106,6 +106,118 @@ def test_load_mnist_byte_equal(tmp_path, monkeypatch, on_disk):
     assert len(got[0]) == (12 if on_disk else 96)
 
 
+def _write_cifar_bin(path, rng, n, gz=False):
+    """n CIFAR-10 records: 1 label byte + 3072 channel-planar pixel bytes."""
+    import gzip
+
+    rows = np.concatenate([rng.integers(0, 10, (n, 1)), rng.integers(0, 256, (n, 3072))],
+                          axis=1).astype(np.uint8)
+    (gzip.open if gz else open)(path, "wb").write(rows.tobytes())
+
+
+@pytest.mark.parametrize("branch", ["synthetic", "bin-files", "bin-subdir-gz", "npz"])
+def test_load_cifar10_byte_equal(tmp_path, monkeypatch, branch):
+    rng = np.random.default_rng(1)
+    if branch == "synthetic":
+        monkeypatch.delenv("MPIT_DATA_DIR", raising=False)
+    else:
+        monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+    if branch.startswith("bin"):
+        base = tmp_path / "cifar-10-batches-bin" if "subdir" in branch else tmp_path
+        base.mkdir(exist_ok=True)
+        sfx = ".gz" if "gz" in branch else ""
+        for i in range(1, 6):
+            _write_cifar_bin(base / f"data_batch_{i}.bin{sfx}", rng, 3, gz=bool(sfx))
+        _write_cifar_bin(base / f"test_batch.bin{sfx}", rng, 4, gz=bool(sfx))
+    elif branch == "npz":
+        np.savez(tmp_path / "cifar10.npz",
+                 x_train=rng.uniform(0, 1, (6, 32, 32, 3)), y_train=rng.integers(0, 10, 6),
+                 x_test=rng.uniform(0, 1, (2, 32, 32, 3)), y_test=rng.integers(0, 10, 2))
+    ref = jax_datasets.load_cifar10(synthetic_train=48, synthetic_test=16)
+    got = datasets.load_cifar10(synthetic_train=48, synthetic_test=16)
+    for a, b in zip(ref, got):
+        _same(a, b)
+    assert got[0].shape[1:] == (32, 32, 3)
+    assert len(got[0]) == {"synthetic": 48, "npz": 6}.get(branch, 15)
+    assert datasets.has_real_dataset("cifar10") == jax_datasets.has_real_dataset(
+        "cifar10") == (branch != "synthetic")
+
+
+def test_cifar10_bad_record_size_raises_as_the_reference(tmp_path, monkeypatch):
+    monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+    for i in range(1, 6):
+        (tmp_path / f"data_batch_{i}.bin").write_bytes(b"\0" * 3073)
+    (tmp_path / "test_batch.bin").write_bytes(b"\0" * 100)
+    with pytest.raises(ValueError, match="3073-byte CIFAR-10 record"):
+        datasets.load_cifar10()
+    with pytest.raises(ValueError, match="3073-byte CIFAR-10 record"):
+        jax_datasets.load_cifar10()
+
+
+def _write_image_tree(root, rng, classes, per_class, split="train"):
+    from PIL import Image
+
+    for c in classes:
+        d = root / "imagenet" / split / c
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            w, h = (int(v) for v in rng.integers(20, 40, 2))
+            img = rng.integers(0, 256, (h, w, 3)).astype(np.uint8)
+            Image.fromarray(img).save(d / f"img{i}.{'png' if i % 2 else 'bmp'}")
+        (d / "notes.txt").write_text("not an image")
+
+
+@pytest.mark.parametrize("branch", ["synthetic", "train-only", "train-val", "env-limit"])
+def test_load_imagenet_like_byte_equal(tmp_path, monkeypatch, branch):
+    rng = np.random.default_rng(2)
+    if branch == "synthetic":
+        monkeypatch.delenv("MPIT_DATA_DIR", raising=False)
+    else:
+        monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+        _write_image_tree(tmp_path, rng, ["n01", "n02", "n03"], 4)
+        if branch == "train-val":
+            _write_image_tree(tmp_path, rng, ["n01", "n03"], 2, split="val")
+    if branch == "env-limit":
+        monkeypatch.setenv("MPIT_IMAGENET_LIMIT", "7")
+    else:
+        monkeypatch.delenv("MPIT_IMAGENET_LIMIT", raising=False)
+    kw = dict(synthetic_train=10, synthetic_test=6, image_size=16, num_classes=20)
+    ref = jax_datasets.load_imagenet_like(**kw)
+    got = datasets.load_imagenet_like(**kw)
+    for a, b in zip(ref, got):
+        _same(a, b)
+    assert got[0].shape[1:] == (16, 16, 3)
+    assert datasets.has_real_dataset("imagenet") == jax_datasets.has_real_dataset(
+        "imagenet") == (branch != "synthetic")
+
+
+def test_imagenet_like_refusals_match_the_reference(tmp_path, monkeypatch):
+    """More classes than the head has, and a val split with a class the
+    train split lacks, raise as in the reference."""
+    rng = np.random.default_rng(3)
+    monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+    monkeypatch.delenv("MPIT_IMAGENET_LIMIT", raising=False)
+    _write_image_tree(tmp_path, rng, ["a", "b", "c"], 1)
+    for load in (datasets.load_imagenet_like, jax_datasets.load_imagenet_like):
+        with pytest.raises(ValueError, match="exceed the model head"):
+            load(synthetic_train=8, image_size=8, num_classes=2)
+    _write_image_tree(tmp_path, rng, ["a", "z"], 1, split="val")
+    for load in (datasets.load_imagenet_like, jax_datasets.load_imagenet_like):
+        with pytest.raises(ValueError, match="not in the training class list"):
+            load(synthetic_train=8, image_size=8, num_classes=10)
+
+
+def test_has_real_dataset_matches_the_reference(tmp_path, monkeypatch):
+    monkeypatch.setenv("MPIT_DATA_DIR", str(tmp_path))
+    (tmp_path / "ptb.train.txt").write_text("a b\n")
+    (tmp_path / "ptb.valid.txt").write_text("a\n")
+    for name in ("mnist", "cifar10", "ptb", "imagenet"):
+        assert datasets.has_real_dataset(name) == jax_datasets.has_real_dataset(name)
+    assert datasets.has_real_dataset("ptb")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        datasets.has_real_dataset("svhn")
+
+
 def test_batches_epoch_and_shards_byte_equal():
     x, y, _, _ = synthetic.synthetic_image_classification(
         100, 4, (28, 28, 1), 10

@@ -124,8 +124,8 @@ def test_run_trains_preset_on_cpu():
 
 
 @pytest.mark.parametrize("change", [
-    dict(algo="downpour"), dict(model="vgg"), dict(optimizer="adam"),
-    dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(dataset="cifar10"),
+    dict(algo="zero-sync"), dict(algo="moe-sync"), dict(optimizer="adam"),
+    dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(profile_dir="prof"),
 ])
 def test_run_refuses_what_is_not_ported(change):
     from mpit_tpu_torch.run import run

@@ -184,7 +184,7 @@ def test_run_trains_the_transformer_preset_on_cpu():
 
 @pytest.mark.parametrize("change", [
     dict(algo="seq-sync"), dict(optimizer="sgd"), dict(clip_norm=1.0),
-    dict(remat=True), dict(model="lstm"),
+    dict(remat=True), dict(algo="pp-sync"),
 ])
 def test_run_refuses_transformer_options_not_ported(change):
     from mpit_tpu_torch.run import run
