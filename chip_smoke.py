@@ -96,8 +96,29 @@ non-zero before the result lines:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
 17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
+18. resume-easgd — ``mnist-easgd`` (W = 8, cosine, clip_norm 1.0) two
+             epochs straight, checkpointing each epoch, and resumed from a
+             copy of the straight run's first-epoch checkpoint (a preempted
+             job: the cosine spans the whole run): the final checkpoint
+             files are byte-equal, and the resumed leg launches the elastic
+             kernel once per round (counts set to 0 just before).
+19. resume-lm — the same for the transformer at full width (clip_norm 1.0,
+             warmup-cosine, 2 epochs of 16 steps): byte-equal final files
+             (about 607 MB each, in a temporary directory), the sm90 flash
+             launches of the resumed leg, the checkpoint's size and its save
+             and restore times.
+20. ps-resume — ``mnist-ps`` with ``ckpt_dir``, then resumed: the second run
+             restores the servers' center chunks, both keep the reference's
+             counts, and the ``ps_center`` checkpoint loads.
+21. profile-dir — one ``mnist-easgd`` epoch with ``profile_dir``: the Chrome
+             trace holds the card's kernels, the elastic kernel once a round.
+22. dist   — ``python -m mpit_tpu_torch.launch --jax-distributed
+             mpit_tpu_torch/examples/multihost_sync.py --algo sync`` with one
+             rank on the card (NCCL) and two on the CPU (gloo): exit 0, the
+             world's worker count, equal losses on every rank, a bit-exact
+             checkpoint round trip.
 
-Then a JSON line ``{"kernels": [...]}`` and, last, the device line
+Each phase's seconds follow its lines. Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
 others (``CUDA_VISIBLE_DEVICES``) before CUDA starts, so the device line's
 count is the number of cards the run used. Without CUDA it exits 2 and
@@ -1425,6 +1446,293 @@ def baseline_path(name: str, card_line: str) -> int:
     return launches
 
 
+# --------------------------------------------------------------- A5b phases
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _differing_leaves(a: str, b: str) -> list:
+    """The leaves of two checkpoint files that differ, with their largest
+    difference (to name what a mismatch comes from)."""
+    import numpy as np
+
+    from mpit_tpu_torch.utils.checkpoint import msgpack_restore
+
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            for k in tree:
+                yield from walk(tree[k], f"{path}/{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        want, got = dict(walk(msgpack_restore(fa.read()))), dict(walk(msgpack_restore(fb.read())))
+    return [(k, float(np.abs(want[k].astype(float) - got[k]).max()))
+            for k in want if not np.array_equal(want[k], got[k])][:12]
+
+
+def _preempted(cfg, ckpt_dir: str, mid: int) -> str:
+    """A copy of the straight run's checkpoint ``mid`` (and its metadata) in
+    a fresh directory: what a job preempted after unit ``mid`` leaves."""
+    import shutil
+
+    os.makedirs(ckpt_dir)
+    for ext in ("msgpack", "json"):
+        shutil.copy(os.path.join(cfg.ckpt_dir, f"ckpt_{mid:08d}.{ext}"), ckpt_dir)
+    return ckpt_dir
+
+
+def resume_easgd() -> dict:
+    """``mnist-easgd`` at W = 8 with the cosine schedule and clip_norm 1.0:
+    two epochs straight, checkpointing every epoch, then a run resumed from
+    a copy of the straight run's first-epoch checkpoint (a preempted job:
+    the cosine's horizon is the whole run, so a separate one-epoch run
+    would follow another schedule). The final ``ckpt_00000016`` files are
+    byte-equal, and the resumed leg launches the elastic kernel once per
+    round."""
+    import tempfile
+
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    base = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), epochs=2,
+                               lr_schedule="cosine", clip_norm=1.0)
+    with tempfile.TemporaryDirectory(prefix="resume-easgd-") as tmp:
+        straight = dataclasses.replace(base, ckpt_dir=os.path.join(tmp, "a"), ckpt_every=8)
+        a = run(straight)
+        total = a["last_checkpoint"]
+        mid = total // 2
+        resumed = dataclasses.replace(
+            base, resume=True, ckpt_dir=_preempted(straight, os.path.join(tmp, "b"), mid))
+        elastic.launches = 0
+        b = run(resumed)
+        launches = elastic.launches
+        fa, fb = (os.path.join(d, f"ckpt_{total:08d}.msgpack")
+                  for d in (straight.ckpt_dir, resumed.ckpt_dir))
+        if total != 16 or b["resumed_from"] != mid or b["trained_units"] != total - mid:
+            raise AssertionError(f"resume-easgd: units {total}, resumed from "
+                                 f"{b['resumed_from']}, {b['trained_units']} trained")
+        if not _same_bytes(fa, fb):
+            raise AssertionError(f"resume-easgd: the resumed state differs from the "
+                                 f"straight one: {_differing_leaves(fa, fb)}")
+        size = os.path.getsize(fa)
+        if launches != b["trained_units"]:
+            raise AssertionError(f"resume-easgd: elastic launches {launches} != "
+                                 f"{b['trained_units']} rounds")
+    phase("resume-easgd", f"mnist-easgd W=8, cosine, clip_norm 1.0: straight 2 epochs "
+          f"({a['trained_units']} rounds, {1e3 * a['wall_s'] / a['trained_units']:.3f} "
+          f"ms/round) and resumed from round {mid} ({b['trained_units']} rounds, "
+          f"{1e3 * b['wall_s'] / b['trained_units']:.3f} ms/round): "
+          f"ckpt_{total:08d}.msgpack byte-equal ({size} bytes); elastic launches in the "
+          f"resumed leg {launches} = its rounds; losses {b['round_losses']}")
+    return dict(launches=launches)
+
+
+def resume_lm(card_line: str) -> dict:
+    """``ptb-transformer-large --algo sync --attn-impl flash`` at full width
+    with clip_norm 1.0 and the preset's warmup-cosine, 128 windows (16
+    steps an epoch), two epochs: straight with a checkpoint every epoch,
+    then resumed from a copy of its first-epoch checkpoint (the schedule's
+    horizon is the whole run). The final states are byte-equal; the
+    resumed leg launches the sm90 flash kernels 6 x 16 times (plus the
+    eval forwards); the checkpoint's size and its save and restore times
+    are printed. The files go to a temporary directory the phase removes."""
+    import tempfile
+
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import _ptb_windows, build_model, build_optimizer, build_trainer, run
+    from mpit_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    base = dataclasses.replace(lm_config(), train_size=128, epochs=2, clip_norm=1.0)
+    with tempfile.TemporaryDirectory(prefix="resume-lm-") as tmp:
+        straight = dataclasses.replace(base, ckpt_dir=os.path.join(tmp, "a"), ckpt_every=16)
+        a = run(straight)
+        total = a["last_checkpoint"]
+        mid = total // 2
+        resumed = dataclasses.replace(
+            base, resume=True, ckpt_dir=_preempted(straight, os.path.join(tmp, "b"), mid))
+        for k in fa.launches:
+            fa.launches[k] = 0
+        b = run(resumed)
+        launches = dict(fa.launches)
+        steps = b["trained_units"]
+        x_va = _ptb_windows(base)[2]
+        batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
+        eval_chunks = len(x_va) // batch * -(-batch // 64)
+        want = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
+                "flash_forward_sm90": LM_LAYERS * (steps + eval_chunks),
+                "flash_dq_sm90": LM_LAYERS * steps, "flash_dkv_sm90": LM_LAYERS * steps}
+        if total != 32 or b["resumed_from"] != 16 or steps != 16:
+            raise AssertionError(f"resume-lm: units {total}, resumed from "
+                                 f"{b['resumed_from']}, {steps} steps")
+        if not all(v == v and abs(v) != float("inf") for v in b["round_losses"]):
+            raise AssertionError(f"resume-lm: non-finite loss {b['round_losses']}")
+        f_a, f_b = (os.path.join(d, f"ckpt_{total:08d}.msgpack")
+                    for d in (straight.ckpt_dir, resumed.ckpt_dir))
+        if not _same_bytes(f_a, f_b):
+            raise AssertionError(f"resume-lm: the resumed state differs from the "
+                                 f"straight one: {_differing_leaves(f_a, f_b)}")
+        if launches != want:
+            raise AssertionError(f"resume-lm: flash launches {launches} != {want}")
+        size = os.path.getsize(f_a)
+        # save and restore of this state, timed on their own
+        topo = topology()
+        meta = _ptb_windows(dataclasses.replace(base, train_size=8))[4]
+        trainer = build_trainer(base, build_model(base, topo.device, meta),
+                                build_optimizer(base, total), topo)
+        template = trainer.init_state(torch.Generator().manual_seed(base.seed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step = restore_checkpoint(resumed.ckpt_dir, template)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "c"), state, step)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        if step != total or not _same_bytes(path, f_b):
+            raise AssertionError("resume-lm: a restore and save of the final state "
+                                 "does not give its file back")
+    phase("resume-lm", f"full width, 2 epochs of 16 steps, clip_norm 1.0, "
+          f"{base.lr_schedule}: straight {1e3 * a['wall_s'] / a['trained_units']:.3f} "
+          f"ms/step, resumed from step {mid} {1e3 * b['wall_s'] / steps:.3f} ms/step "
+          f"(both with their checkpoint saves); ckpt_{total:08d}.msgpack byte-equal; "
+          f"flash launches in the resumed leg {json.dumps(launches)}")
+    phase("resume-lm", f"checkpoint {size} bytes ({size / 2**20:.1f} MiB: params, "
+          f"AdamW's mu and nu, counts); save {save_ms:.1f} ms, restore {restore_ms:.1f} "
+          f"ms ({size / 2**30 / (save_ms / 1e3):.2f} / "
+          f"{size / 2**30 / (restore_ms / 1e3):.2f} GiB/s); {card_line}")
+    return launches
+
+
+def ps_resume() -> None:
+    """``mnist-ps`` with ``ckpt_dir``, then again with ``resume``: the second
+    run restores the servers' persisted center chunks, both runs keep the
+    reference's counts, and the final ``ps_center`` checkpoint loads."""
+    import tempfile
+
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.run import build_model, run
+    from mpit_tpu_torch.utils.checkpoint import restore_checkpoint
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    cfg = TrainConfig().apply_preset("mnist-ps")
+    rounds = cfg.steps // cfg.tau
+    want = {"push_easgd": cfg.clients * rounds, "fetch": cfg.clients * (rounds + 1)}
+    with tempfile.TemporaryDirectory(prefix="ps-resume-") as tmp:
+        cfg = dataclasses.replace(cfg, ckpt_dir=tmp)
+        first = run(cfg)
+        again = run(dataclasses.replace(cfg, resume=True))
+        for name, r, restored in (("first", first, False), ("resumed", again, True)):
+            got = {k: r["server_counts"][0][k] for k in want}
+            if got != want or r["dead_clients"] or r["center_restored"] != restored:
+                raise AssertionError(f"ps-resume: {name} run: counts {got} != {want}, "
+                                     f"dead {r['dead_clients']}, center_restored "
+                                     f"{r['center_restored']}")
+        with open(os.path.join(tmp, f"ckpt_{cfg.steps:08d}.json")) as f:
+            kind = json.load(f)["kind"]
+        template = build_model(cfg, topology().device).init(torch.Generator().manual_seed(1))
+        center, step = restore_checkpoint(tmp, template)
+        if kind != "ps_center" or step != cfg.steps:
+            raise AssertionError(f"ps-resume: checkpoint kind {kind}, step {step}")
+    phase("ps-resume", f"mnist-ps with ckpt_dir: first run {want}, center_restored "
+          f"False, accuracy {first['accuracy']}; resumed run {want}, center_restored "
+          f"True, accuracy {again['accuracy']}; ckpt_{cfg.steps:08d}.msgpack (kind "
+          f"ps_center) loads into LeNet's tree on {topology().device}")
+
+
+def profile_phase() -> None:
+    """``mnist-easgd`` for one epoch with ``profile_dir``: the trace holds
+    the card's kernels, the elastic kernel once per round."""
+    import tempfile
+
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    cfg = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), epochs=1)
+    with tempfile.TemporaryDirectory(prefix="profile-") as tmp:
+        res = run(dataclasses.replace(cfg, profile_dir=tmp))
+        names = os.listdir(tmp)
+        if len(names) != 1 or not names[0].endswith(".pt.trace.json"):
+            raise AssertionError(f"profile: {names} in the profile directory")
+        with open(os.path.join(tmp, names[0])) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(tmp, names[0]))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    elastic = [e for e in kernels if "elastic_update_kernel(" in e.get("name", "")]
+    rounds = res["trained_units"]
+    if not kernels or len(elastic) != rounds:
+        raise AssertionError(f"profile: {len(kernels)} kernel events, {len(elastic)} of "
+                             f"the elastic kernel for {rounds} rounds")
+    phase("profile-dir", f"mnist-easgd 1 epoch with profile_dir: {names[0]} ({size} "
+          f"bytes), {len(events)} events, {len(kernels)} CUDA kernel events, "
+          f"elastic_update_kernel {len(elastic)} = {rounds} rounds")
+
+
+DIST_TIMEOUT_S = 300
+
+
+def dist_phase() -> None:
+    """The process world through the launcher: one rank on the card (NCCL)
+    and two ranks on the CPU (gloo) of ``multihost_sync.py --algo sync``;
+    each exits 0 with the reference's worker count, and the two ranks'
+    losses are equal. One card cannot run NCCL across ranks."""
+    import tempfile
+
+    script = os.path.join("mpit_tpu_torch", "examples", "multihost_sync.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MPIT_", "JAX_COORDINATOR", "CUDA_VISIBLE"))}
+    env["CUDA_VISIBLE_DEVICES"] = os.environ["CUDA_VISIBLE_DEVICES"]
+    with tempfile.TemporaryDirectory(prefix="dist-") as tmp:
+        for n, extra, backend in ((1, [], "nccl"), (2, ["--device", "cpu"], "gloo")):
+            out = os.path.join(tmp, f"n{n}")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n),
+                 "--jax-distributed", script, "--algo", "sync", "--steps", "40",
+                 "--ckpt-dir", os.path.join(tmp, f"ck{n}"), "--out", out, *extra],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"dist: -n {n} exited {r.returncode}:\n"
+                                     f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            ranks = []
+            for i in range(n):
+                with open(f"{out}.rank{i}.json") as f:
+                    ranks.append(json.load(f))
+            if ([m["num_workers"] for m in ranks] != [n] * n
+                    or len({m["last_loss"] for m in ranks}) != 1
+                    or not all(m["ckpt_roundtrip"] for m in ranks)
+                    or not ranks[0]["last_loss"] < ranks[0]["first_loss"]):
+                raise AssertionError(f"dist: -n {n}: {ranks}")
+            device = "cuda" if n == 1 else "cpu"
+            if f"device={device}" not in r.stdout:
+                raise AssertionError(f"dist: -n {n} did not run on {device}:\n{r.stdout}")
+            phase("dist", f"launch -n {n} --jax-distributed multihost_sync.py --algo "
+                  f"sync ({backend}, {device}): exit 0 in {wall:.3f} s; num_workers "
+                  f"{ranks[0]['num_workers']}; loss {ranks[0]['first_loss']:.4f} -> "
+                  f"{ranks[0]['last_loss']:.4f} on every rank; checkpoint round trip "
+                  f"bit-exact on every rank")
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase(name, f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     # one card: hide the others before CUDA starts
     os.environ["CUDA_VISIBLE_DEVICES"] = one_card(os.environ)
@@ -1436,28 +1744,36 @@ def main() -> int:
     import mpit_tpu_torch  # noqa: F401  (fails alone, without the repository)
 
     card_line = card()
-    build()
-    wire_phase()
-    native_phase()
-    kernel = kernels_vs_plain()
-    flash = flash_vs_plain()
-    round_vs_cpu()
-    step_launches = step_vs_cpu()
-    kernel.update(main_path(kernel["ms"]))
-    profile_rounds()
-    ps_parity()
-    ps_path(card_line)
-    ps_chaos(card_line)
-    ps_proc(card_line)
+    timed("build", build)
+    timed("wire", wire_phase)
+    timed("native", native_phase)
+    kernel = timed("kernels", kernels_vs_plain)
+    flash = timed("flash", flash_vs_plain)
+    timed("round", round_vs_cpu)
+    step_launches = timed("step", step_vs_cpu)
+    kernel.update(timed("main", main_path, kernel["ms"]))
+    timed("profile", profile_rounds)
+    timed("ps-parity", ps_parity)
+    timed("ps", ps_path, card_line)
+    timed("ps-chaos", ps_chaos, card_line)
+    timed("ps-proc", ps_proc, card_line)
     for name in BASELINE:
-        kernel["launches"] += baseline_path(name, card_line)
-    lm_launches = lm_path(flash)
+        kernel["launches"] += timed(name, baseline_path, name, card_line)
+    lm_launches = timed("lm", lm_path, flash)
     for name in flash:
         # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the
         # f32 path, whose launches the step phase counted
         path = lm_launches if name.endswith("_sm90") else step_launches
         flash[name]["launches"] = path[name]
-    profile_lm()
+    timed("lm-profile", profile_lm)
+    kernel["launches"] += timed("resume-easgd", resume_easgd)["launches"]
+    resumed = timed("resume-lm", resume_lm, card_line)
+    for name in flash:
+        if name.endswith("_sm90"):
+            flash[name]["launches"] += resumed[name]
+    timed("ps-resume", ps_resume)
+    timed("profile-dir", profile_phase)
+    timed("dist", dist_phase)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = [kernel, *flash.values()]

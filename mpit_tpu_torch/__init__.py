@@ -4,11 +4,12 @@ The JAX package ``mpit_tpu`` is the reference; this package imports only
 ``torch`` and numpy, never JAX and nothing of ``mpit_tpu``. It keeps the
 reference's module names, so each module's counterpart is found by name:
 
-- ``comm``      — topology (W workers stacked on one device) and the sums
-  over the worker dim.
+- ``comm``      — topology (W workers stacked on one device, in one or
+  several processes) and the collectives over the worker dim.
 - ``goptim``    — EASGD / EAMSGD / Downpour math.
-- ``optim``     — SGD, Adam and AdamW and their learning-rate schedules as
-  ``optax`` computes them.
+- ``optim``     — SGD, Adam and AdamW, global-norm clipping and the
+  learning-rate schedules as ``optax`` computes them, in optax's state
+  layout.
 - ``ops``       — hand-written CUDA kernels (the fused elastic update; flash
   attention forward, dQ and dK/dV), each beside its plain PyTorch version.
 - ``models``    — LeNet, the MLP, VGG-small, ResNet-50, AlexNet, the LSTM
@@ -18,7 +19,8 @@ reference's module names, so each module's counterpart is found by name:
   the host-async parameter server.
 - ``data``      — MNIST, CIFAR-10, ImageNet-like images and PTB or their
   synthetic stand-ins, batches, prefetch.
-- ``utils``     — parameter trees, config, metrics, completion barrier.
+- ``utils``     — parameter trees, config, metrics, checkpoints in the
+  reference's file format, profiler traces, completion barrier.
 - ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
   (or any BASELINE preset), or ``--preset ptb-transformer-large --algo
   sync --attn-impl flash``.
@@ -30,14 +32,27 @@ __version__ = "0.1.0"
 
 from mpit_tpu_torch.comm import (  # noqa: F401
     AVG,
+    MAX,
+    MIN,
+    PROD,
     SUM,
     Topology,
+    allgather,
     allreduce,
+    barrier,
+    bcast,
+    device_barrier,
     finalize,
     init,
     is_initialized,
+    pmax,
     pmean,
+    pmin,
+    process_count,
+    process_rank,
     psum,
+    rank,
+    reduce_scatter,
     size,
     topology,
 )

@@ -1,4 +1,4 @@
-"""Topology bootstrap: the port's ``mpiT.Init / Comm_size``.
+"""Topology bootstrap: the port's ``mpiT.Init / Comm_rank / Comm_size``.
 
 Counterpart of ``mpit_tpu/comm/topology.py``. The JAX package gives every
 worker its own device on a mesh axis. On one card the port keeps the same
@@ -6,6 +6,20 @@ worker its own device on a mesh axis. On one card the port keeps the same
 (``mpit_tpu/parallel/easgd.py``): every per-worker tensor carries a leading
 dim of size W, and a collective over the workers is a reduction over that
 dim. So W = 8 workers run on one H100 as they do on the 8-device CPU mesh.
+
+A world of several processes (``python -m mpit_tpu_torch.launch -n N
+--jax-distributed``, or the same environment set by hand: ``MPIT_DISTRIBUTED
+=1``, ``MPIT_RANK``, ``MPIT_WORLD_SIZE`` and the coordinator address in
+``JAX_COORDINATOR_ADDRESS``, the reference's contract) joins a
+``torch.distributed`` group in :func:`init`: NCCL when the workers live on
+the card (process ``r`` on card ``r``), gloo when they live on the CPU.
+Each process stacks its own W workers; the world's worker count is W times
+the process count, as the reference's mesh spans its processes, and each
+collective reduces the local dim first, then makes one call across the
+processes.
+
+Two identities, as in the reference: ``process_rank()``/``process_count()``
+name the host process, ``rank()``/``size()`` the workers.
 
 Devices: an entry point runs on the card unless the caller passes
 ``device="cpu"``. Without CUDA, asking for the default device raises; the
@@ -20,6 +34,7 @@ constant, equal in both packages (``tests/test_torch_ps.py``).
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Optional, Union
 
@@ -33,6 +48,7 @@ DEFAULT_WORKERS = 8
 
 _lock = threading.Lock()
 _topology: Optional["Topology"] = None
+_distributed_initialized = False
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -51,11 +67,22 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """World description produced by :func:`init`: W workers stacked on
-    dim :data:`WORKER_DIM` of every per-worker tensor, on one device."""
+    """World description produced by :func:`init`: ``num_workers`` workers
+    in the world, stacked on dim :data:`WORKER_DIM` of every per-worker
+    tensor, :attr:`local_workers` of them in each of ``process_count``
+    processes, this one ``process_index``."""
 
     num_workers: int
     device: torch.device
+    process_index: int = 0
+    process_count: int = 1
+
+    def __post_init__(self):
+        if self.num_workers % self.process_count:
+            raise ValueError(
+                f"{self.num_workers} workers do not split evenly over "
+                f"{self.process_count} processes"
+            )
 
     @property
     def platform(self) -> str:
@@ -65,15 +92,74 @@ class Topology:
     def worker_axis(self) -> int:
         return WORKER_DIM
 
+    @property
+    def local_workers(self) -> int:
+        """The stacked W of this process."""
+        return self.num_workers // self.process_count
+
+    @property
+    def num_devices(self) -> int:
+        return self.process_count
+
+    def local_slice(self, n: int) -> slice:
+        """This process's share of ``n`` items split evenly over the world's
+        workers in order (a global batch, a stacked leaf)."""
+        per = n // self.process_count
+        return slice(self.process_index * per, (self.process_index + 1) * per)
+
+
+def _should_init_distributed() -> bool:
+    """A process world is opt-in through the launcher's environment, as in
+    the reference (``MPIT_DISTRIBUTED`` or a coordinator address)."""
+    if os.environ.get("MPIT_DISTRIBUTED", "").lower() in ("1", "true"):
+        return True
+    return bool(os.environ.get("JAX_COORDINATOR_ADDRESS"))
+
+
+def _init_distributed(device: torch.device) -> torch.device:
+    """Join the ``torch.distributed`` group the environment describes;
+    returns the device of this process's workers."""
+    import torch.distributed as dist
+
+    coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    nproc = os.environ.get("MPIT_WORLD_SIZE")
+    pid = os.environ.get("MPIT_RANK")
+    if not (coord and nproc is not None and pid is not None):
+        raise RuntimeError(
+            "a process world needs MPIT_RANK, MPIT_WORLD_SIZE and "
+            "JAX_COORDINATOR_ADDRESS (host:port); `python -m "
+            "mpit_tpu_torch.launch -n N --jax-distributed` sets them"
+        )
+    nproc, pid = int(nproc), int(pid)
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if nproc > cards:
+            raise RuntimeError(
+                f"{nproc} processes but {cards} visible card(s): NCCL runs "
+                "one process per card and cannot share one; run fewer "
+                "ranks, or put the workers on the CPU (device='cpu', gloo)"
+            )
+        device = torch.device("cuda", pid)
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coord}", world_size=nproc, rank=pid
+    )
+    return device
+
 
 def init(
     num_workers: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
 ) -> Topology:
-    """Initialize the world. Idempotent: a repeated call returns the
-    existing topology unless :func:`finalize` ran in between; explicit
-    arguments on an existing world raise, as in the reference."""
-    global _topology
+    """Initialize the world. ``num_workers`` is the stacked W of this
+    process (default 8); in a process world the topology counts every
+    process's. Idempotent: a repeated call returns the existing topology
+    unless :func:`finalize` ran in between; explicit arguments on an
+    existing world raise, as in the reference."""
+    global _topology, _distributed_initialized
     with _lock:
         if _topology is not None:
             if num_workers is not None or device is not None:
@@ -85,15 +171,31 @@ def init(
         w = DEFAULT_WORKERS if num_workers is None else int(num_workers)
         if w < 1:
             raise ValueError(f"num_workers={num_workers} must be >= 1")
-        _topology = Topology(num_workers=w, device=resolve_device(device))
+        dev = resolve_device(device)
+        index, count = 0, 1
+        if _should_init_distributed():
+            import torch.distributed as dist
+
+            if not _distributed_initialized:
+                dev = _init_distributed(dev)
+                _distributed_initialized = True
+            index, count = dist.get_rank(), dist.get_world_size()
+        _topology = Topology(num_workers=w * count, device=dev,
+                             process_index=index, process_count=count)
         return _topology
 
 
 def finalize() -> None:
-    """``mpiT.Finalize()``: drop the world. Safe when uninitialized."""
-    global _topology
+    """``mpiT.Finalize()``: drop the world, and leave the process group
+    :func:`init` joined. Safe when uninitialized."""
+    global _topology, _distributed_initialized
     with _lock:
         _topology = None
+        if _distributed_initialized:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+            _distributed_initialized = False
 
 
 def is_initialized() -> bool:
@@ -108,8 +210,39 @@ def topology() -> Topology:
 
 
 def size() -> int:
-    """Number of workers — ``mpiT.Comm_size``."""
+    """Number of workers in the world — ``mpiT.Comm_size``."""
     return topology().num_workers
+
+
+def rank() -> torch.Tensor:
+    """The world's indices of this process's stacked workers, one per
+    entry of the worker dim (the stacked counterpart of the reference's
+    ``lax.axis_index``)."""
+    topo = topology()
+    base = topo.process_index * topo.local_workers
+    return torch.arange(base, base + topo.local_workers, device=topo.device)
+
+
+def process_rank() -> int:
+    """Host-process index (the MPI rank of the process)."""
+    return topology().process_index
+
+
+def process_count() -> int:
+    return topology().process_count
+
+
+def current_process() -> tuple[int, int]:
+    """``(process_index, process_count)`` of the current world, ``(0, 1)``
+    when none is initialized (never initializes one)."""
+    topo = _topology
+    return (0, 1) if topo is None else (topo.process_index, topo.process_count)
+
+
+def in_process_group() -> bool:
+    """Whether :func:`init` joined a ``torch.distributed`` group, whose
+    calls the collectives then make (in a world of one process too)."""
+    return _distributed_initialized
 
 # ---------------------------------------------------------------------------
 # Consistent-hash shard ring (sharded parameter servers).

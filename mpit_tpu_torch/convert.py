@@ -2,11 +2,19 @@
 
 The trees have the same keys. Leaves differ in one layout only:
 
-- a conv ``kernel`` (4-D) is HWIO in flax and OIHW in the port;
+- a conv ``kernel`` (4-D) is HWIO in flax and OIHW in the port, and a
+  stacked one (5-D, the W workers on dim 0 as the τ-round trainers keep
+  them, or a ring of centers) is ``(W, kh, kw, I, O)`` in flax and ``(W,
+  O, I, kh, kw)`` in the port: the same map behind the leading dim;
 - a Dense ``kernel`` is ``(in, out)`` in both (the port computes
   ``x @ kernel``), and biases, LayerNorm scales, embeddings and the
   transformer's ``pos_embedding`` are the same arrays. The transformer's
   tree has no 4-D leaf, so every leaf carries across unchanged.
+
+No model of either package has a 3-D leaf, so a 4-D leaf is always an
+unstacked conv kernel and a 5-D one a stacked conv kernel. The optimizer
+states' trees (momentum trace, Adam's moments) have the params' shapes and
+carry across the same way.
 
 Both directions go through numpy, so a test hands the JAX package's
 arrays to the port and back without either package importing the other.
@@ -28,22 +36,39 @@ def from_flax(params_np: Any, device=None) -> Any:
     float tensors on ``device`` (the card unless it names the CPU)."""
     dev = resolve_device(device)
 
-    def leaf(a):
-        a = np.asarray(a)
-        if a.ndim == 4:
-            a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        return torch.tensor(a, device=dev)
+    return tree_map(lambda a: torch.tensor(leaf_from_flax(a), device=dev),
+                    params_np)
 
-    return tree_map(leaf, params_np)
+
+def leaf_from_flax(a) -> np.ndarray:
+    """One leaf, flax layout -> the port's (numpy, C-contiguous, as the
+    port's own init lays a leaf out: ``torch.tensor`` keeps a view's
+    strides, and a conv on other strides may sum in another order)."""
+    a = np.asarray(a)
+    if a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    elif a.ndim == 5:
+        a = a.transpose(0, 4, 3, 1, 2)  # W,HWIO -> W,OIHW
+    return _c_order(a)
+
+
+def _c_order(a: np.ndarray) -> np.ndarray:
+    """``a`` in C order, 0-d staying 0-d (``np.ascontiguousarray`` makes it
+    1-d)."""
+    return a if a.flags.c_contiguous else a.copy(order="C")
+
+
+def leaf_to_flax(t: torch.Tensor) -> np.ndarray:
+    """One leaf, the port's layout -> flax's (a C-contiguous numpy copy
+    on the host)."""
+    a = t.detach().cpu().numpy()
+    if a.ndim == 4:
+        a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    elif a.ndim == 5:
+        a = a.transpose(0, 3, 4, 2, 1)  # W,OIHW -> W,HWIO
+    return _c_order(a)
 
 
 def to_flax(params: Any) -> Any:
     """The port's tree -> the flax layout as numpy arrays."""
-
-    def leaf(t):
-        a = t.detach().cpu().numpy()
-        if a.ndim == 4:
-            a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        return np.ascontiguousarray(a)
-
-    return tree_map(leaf, params)
+    return tree_map(leaf_to_flax, params)

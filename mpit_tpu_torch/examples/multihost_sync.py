@@ -1,0 +1,133 @@
+"""Multi-process training over a ``torch.distributed`` world — the port's
+counterpart of ``examples/multihost_sync.py``.
+
+    python -m mpit_tpu_torch.launch -n 2 --jax-distributed \
+        mpit_tpu_torch/examples/multihost_sync.py --local-devices 2 --device cpu
+
+Each rank joins the process group the launcher wires (gloo between CPU
+processes, NCCL between cards: one card per rank), stacks its
+``--local-devices`` workers, and the trainers' collectives (the sync
+step's gradient mean, EASGD's diff sum, Downpour's update mean) reduce
+the local workers first, then cross the processes. The world has
+``--local-devices`` × N workers, as the reference's mesh spans its
+processes. Every rank feeds the same global batch stream and takes its
+own workers' rows. With ``--ckpt-dir`` the run ends with a checkpoint that
+every rank gathers, rank 0 writes and every rank restores; ``--out``
+writes ``<out>.rank<i>.json`` with the reference's keys.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(
+    0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--algo", choices=("sync", "zero", "easgd", "downpour"),
+                    default="sync")
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--local-devices", type=int, default=1,
+                    help="workers stacked in each rank (the stacked W)")
+    ap.add_argument("--device", default=None,
+                    help="cpu, or the card (default; NCCL, one card per rank)")
+    ap.add_argument("--out", default="",
+                    help="write final metrics JSON to <out>.rank<i>.json")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save + restore a checkpoint at the end (rank 0 "
+                         "writes what every rank gathers; every rank restores)")
+    ns = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    import mpit_tpu_torch
+    from mpit_tpu_torch.data import load_mnist
+    from mpit_tpu_torch.models import MLP
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import (
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer,
+    )
+
+    if ns.algo == "zero":
+        raise NotImplementedError(
+            "--algo zero (ZeRO-1 sharded optimizer state) is not ported to "
+            "mpit_tpu_torch yet (ROADMAP.md, item A6)"
+        )
+    topo = mpit_tpu_torch.init(num_workers=ns.local_devices, device=ns.device)
+    w = topo.num_workers
+    print(
+        f"[rank {topo.process_index}/{topo.process_count}] "
+        f"local={topo.local_workers} global_workers={w} device={topo.device}",
+        flush=True,
+    )
+
+    # every process feeds the SAME global batch stream (deterministic
+    # seeds) and takes its own workers' rows of it
+    x, y, *_ = load_mnist(synthetic_train=2048)
+    model = MLP(hidden=(64,), compute_dtype=torch.float32, device=topo.device)
+    if ns.algo == "sync":
+        trainer = DataParallelTrainer(model, SGD(0.2), topo)
+    elif ns.algo == "easgd":
+        trainer = EASGDTrainer(model, SGD(0.2, momentum=0.9), topo, tau=4)
+    else:
+        trainer = DownpourTrainer(model, SGD(0.2), topo, tau=4)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    gb = 16 * w
+    tau = getattr(trainer, "tau", 1)
+    first = last = None
+    for step in range(ns.steps):
+        idx = np.random.default_rng(step).integers(0, len(x), tau * gb)
+        if ns.algo == "sync":
+            state, m = trainer.step(state, x[idx], y[idx])
+        else:  # one whole τ-round per step
+            state, m = trainer.step(
+                state,
+                x[idx].reshape(tau, gb, *x.shape[1:]),
+                y[idx].reshape(tau, gb),
+            )
+        loss = float(m["loss"])
+        if first is None:
+            first = loss
+        last = loss
+    print(f"[rank {topo.process_index}] loss {first:.4f} -> {last:.4f}", flush=True)
+    ckpt_roundtrip = None
+    if ns.ckpt_dir:
+        from mpit_tpu_torch.utils.checkpoint import (
+            restore_checkpoint, save_checkpoint,
+        )
+        from mpit_tpu_torch.utils.params import tree_leaves
+
+        # the gather of the stacked workers runs on EVERY process; only
+        # process 0 writes
+        save_checkpoint(ns.ckpt_dir, state, step=ns.steps)
+        restored, step = restore_checkpoint(ns.ckpt_dir, state)
+        assert step == ns.steps
+        params = getattr(state, "worker_params", None) or state.params
+        back = getattr(restored, "worker_params", None) or restored.params
+        ckpt_roundtrip = all(torch.equal(a, b) for a, b in
+                             zip(tree_leaves(params), tree_leaves(back)))
+        print(f"[rank {topo.process_index}] checkpoint roundtrip "
+              f"bit-exact={ckpt_roundtrip}", flush=True)
+    if ns.out:
+        with open(f"{ns.out}.rank{topo.process_index}.json", "w") as f:
+            json.dump(
+                {
+                    "rank": topo.process_index,
+                    "process_count": topo.process_count,
+                    "num_workers": w,
+                    "first_loss": first,
+                    "last_loss": last,
+                    "ckpt_roundtrip": ckpt_roundtrip,
+                },
+                f,
+            )
+    mpit_tpu_torch.finalize()
+
+
+if __name__ == "__main__":
+    main()

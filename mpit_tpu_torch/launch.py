@@ -23,11 +23,18 @@ connect-retry window) — up to ``MPIT_ELASTIC_MAX_RESPAWNS`` times per
 rank, with ``MPIT_RESPAWN_GEN`` exported so the child knows its restart
 generation.
 
-Not ported yet, and refused before any rank starts: ``--jax-distributed``,
-whose counterpart here is a ``torch.distributed`` world across the ranks
-(ROADMAP.md item A5b), and the observability plane — any ``MPIT_OBS_*``
-knob, which in the reference also arms the membership journal and the
-black-box dumps around kills and exits (item A12).
+``--jax-distributed`` (the reference's flag name, kept for its users)
+reserves one more port for the coordinator and exports ``MPIT_DISTRIBUTED=1``
+and ``JAX_COORDINATOR_ADDRESS``: each rank's ``mpit_tpu_torch.init()``
+then joins a ``torch.distributed`` group (NCCL on cards, gloo on the CPU;
+``comm/topology.py``), whose collectives cross the processes:
+
+    python -m mpit_tpu_torch.launch -n 2 --jax-distributed mpit_tpu_torch/examples/multihost_sync.py --device cpu
+
+Not ported yet, and refused before any rank starts: the observability
+plane — any ``MPIT_OBS_*`` knob, which in the reference also arms the
+membership journal and the black-box dumps around kills and exits
+(ROADMAP.md item A12).
 """
 
 from __future__ import annotations
@@ -83,9 +90,10 @@ def main(argv=None) -> int:
                    help="number of processes (ranks)")
     p.add_argument(
         "--jax-distributed", action="store_true",
-        help="the reference's jax.distributed bootstrap; its counterpart "
-             "here, a torch.distributed world across the ranks, is not "
-             "ported yet (ROADMAP.md item A5b) and raises",
+        help="also bootstrap a torch.distributed world across the ranks "
+             "(the counterpart of the reference's jax.distributed: "
+             "collectives across the processes; NCCL on cards, gloo on "
+             "the CPU)",
     )
     p.add_argument("script", help="python script to run in every rank")
     p.add_argument("args", nargs=argparse.REMAINDER,
@@ -104,11 +112,6 @@ def main(argv=None) -> int:
             + " ".join(f"{k}={os.environ[k]}" for k in chaos_env),
             file=sys.stderr,
         )
-    if ns.jax_distributed:
-        raise NotImplementedError(
-            "--jax-distributed: a torch.distributed world across the ranks "
-            "is not ported to mpit_tpu_torch yet (ROADMAP.md, item A5b)"
-        )
     obs_env = sorted(k for k in os.environ if k.startswith("MPIT_OBS_"))
     if obs_env:
         raise NotImplementedError(
@@ -117,7 +120,12 @@ def main(argv=None) -> int:
             "(ROADMAP.md, item A12)"
         )
 
-    reserving, ports = _reserve_ports(ns.n)
+    # one extra port for the process group's coordinator (rank 0 binds it)
+    reserving, ports = _reserve_ports(ns.n + (1 if ns.jax_distributed else 0))
+    coord_sock, coord_port = None, None
+    if ns.jax_distributed:
+        # released right before rank 0 spawns, as the rank ports are
+        coord_sock, coord_port = reserving.pop(), ports.pop()
     hosts = ",".join(f"127.0.0.1:{port}" for port in ports)
 
     # elastic supervision knobs (docs/ROBUSTNESS.md "Elastic membership")
@@ -147,6 +155,9 @@ def main(argv=None) -> int:
         env["MPIT_RANK"] = str(rank)
         env["MPIT_WORLD_SIZE"] = str(ns.n)
         env["MPIT_TRANSPORT_HOSTS"] = hosts
+        if coord_port is not None:
+            env["MPIT_DISTRIBUTED"] = "1"
+            env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{coord_port}"
         if elastic:
             env["MPIT_RESPAWN_GEN"] = str(gen)
         proc = subprocess.Popen(
@@ -166,7 +177,9 @@ def main(argv=None) -> int:
     try:
         for rank in range(ns.n):
             # release this rank's port only now, right before its process
-            # exists
+            # exists (and the coordinator port with rank 0, which binds it)
+            if rank == 0 and coord_sock is not None:
+                coord_sock.close()
             reserving[rank].close()
             procs.append(_spawn(rank, 0))
     except BaseException:
@@ -175,6 +188,8 @@ def main(argv=None) -> int:
         # in connect-retry against ports that will never get a listener
         for s in reserving:
             s.close()
+        if coord_sock is not None:
+            coord_sock.close()
         for proc in procs:
             proc.terminate()
         raise

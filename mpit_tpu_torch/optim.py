@@ -1,34 +1,46 @@
-"""Local optimizers and learning-rate schedules, as ``optax`` computes them.
+"""Local optimizers, gradient clipping and learning-rate schedules, as
+``optax`` computes them, with optax's state layout.
 
-``optax.sgd(lr, momentum)`` keeps a trace ``t ← g + μ·t`` (``t₀ = 0``) and
-applies ``p ← p + (−lr)·t``. ``optax.adam``/``optax.adamw`` chain
-``scale_by_adam`` (bias-corrected moments, eps outside the root),
-``add_decayed_weights`` (adamw only, on every leaf) and
-``scale_by_learning_rate``::
+An optimizer is a chain of transforms, each with the state optax keeps for
+it, so a checkpoint of the state (``utils/checkpoint.py``) has the layout
+``flax.serialization.to_state_dict`` gives the reference's:
 
-    m ← b1·m + (1−b1)·g            v ← b2·v + (1−b2)·g²       c ← c + 1
-    u = m/(1−b1^c) / (√(v/(1−b2^c) + eps_root) + eps) + wd·p
-    p ← p − lr(c − 1)·u
+- ``sgd(lr, momentum)`` = ``trace(momentum)`` (none when momentum is None),
+  then ``scale_by_learning_rate(lr)``: ``t ← g + μ·t``, ``u = −lr·t``;
+- ``adam(lr)`` = ``scale_by_adam``, then ``scale_by_learning_rate``;
+  ``adamw`` puts ``add_decayed_weights`` (on every leaf) between them::
 
-The schedule is read at the count *before* the step, so a warmup that
-starts at 0 makes the first update exactly 0, weight decay included.
-``torch.optim.AdamW`` is not this function: it decays the weights before
-the moment step and reads its schedule elsewhere.
+      m ← b1·m + (1−b1)·g            v ← b2·v + (1−b2)·g²       c ← c + 1
+      u = m/(1−b1^c) / (√(v/(1−b2^c) + eps_root) + eps) + wd·p
 
-The functions compute the same on every leaf of a tree, stacked
-``(W, ...)`` leaves included, and return new tensors, leaving their inputs
-as they were. Adam runs each of its elementwise passes as one
-``torch._foreach_*`` call over all leaves, so a step launches a few dozen
-kernels, not a few per leaf. Schedules are evaluated on the host in
-float32, as optax evaluates them. Gradient clipping (``clip_norm``) is not
-ported yet.
+- ``chain(clip_by_global_norm(max_norm), opt)`` scales the gradient first:
+  ``t if ‖g‖ < max_norm else (t / ‖g‖) · max_norm``, ``‖g‖`` the square
+  root of the sum of squares over all leaves;
+- ``p ← p + u``.
+
+``scale_by_learning_rate`` with a schedule keeps a ``count`` and reads the
+schedule at the count *before* the step, so a warmup that starts at 0
+makes the first update exactly 0, weight decay included. Counts are host
+ints, as the schedule and Adam's bias corrections are evaluated on the
+host in float32, as optax evaluates them. ``torch.optim.AdamW`` is not
+this function: it decays the weights before the moment step.
+
+The functions compute the same on every leaf of a tree, stacked ``(W,
+...)`` leaves included, and return new tensors, leaving their inputs as
+they were. ``update(..., per_worker=True)`` says that dim 0 of every leaf
+indexes workers, as the τ-round trainers stack them: each worker's state
+and update stay its own (the reference's vmapped worker optimizer), and
+the clip's norm is taken per worker, over that worker's leaves only. The
+elementwise passes run as ``torch._foreach_*`` calls over all leaves, so
+a step launches a few dozen kernels, not a few per leaf; the norm's sums
+of squares are one ``_foreach_norm`` pass.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -37,6 +49,7 @@ from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
 Schedule = Callable[[int], float]
 _F32 = np.float32
+fe = torch
 
 
 def constant_schedule(value: float) -> Schedule:
@@ -87,99 +100,211 @@ def warmup_cosine_decay_schedule(
     return lambda count: warm(count) if count < warmup_steps else cos(count - warmup_steps)
 
 
-def sgd_init(params: Any) -> Any:
-    """The zero momentum trace (``optax.trace``'s initial state)."""
-    return tree_map(torch.zeros_like, params)
-
-
-def sgd_update(
-    params: Any, grads: Any, trace: Any, lr: float, momentum: float
-) -> tuple[Any, Any]:
-    """One step; returns ``(new_params, new_trace)``."""
-    trace = tree_map(lambda g, t: g + momentum * t, grads, trace)
-    params = tree_map(lambda p, t: p + (-lr) * t, params, trace)
-    return params, trace
+# ---------------------------------------------------------------- states
+# optax's state classes, field for field: a checkpoint writes them as
+# flax writes optax's (a dataclass as the dict of its fields, a chain's
+# tuple as {"0": ..., "1": ...}, a count as an int32 array).
 
 
 @dataclasses.dataclass(frozen=True)
-class SGD:
-    """The optimizer a trainer is given: its hyperparameters and the two
-    functions above bound to them."""
-
-    lr: float
-    momentum: float = 0.0
-
-    def init(self, params: Any) -> Any:
-        return sgd_init(params)
-
-    def update(self, params: Any, grads: Any, trace: Any) -> tuple[Any, Any]:
-        return sgd_update(params, grads, trace, self.lr, self.momentum)
+class EmptyState:
+    """``optax.EmptyState``: a transform without state."""
 
 
-@dataclasses.dataclass
-class AdamState:
-    """``count`` is the number of updates made so far (a host int, as the
-    schedule is read on the host); ``mu``/``nu`` are trees like the params."""
+@dataclasses.dataclass(frozen=True)
+class TraceState:
+    """``optax.TraceState``: the momentum trace, a tree like the params."""
+
+    trace: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleByScheduleState:
+    """``optax.ScaleByScheduleState``: updates made so far."""
+
+    count: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleByAdamState:
+    """``optax.ScaleByAdamState``: ``count`` updates made so far;
+    ``mu``/``nu`` trees like the params."""
 
     count: int
     mu: Any
     nu: Any
 
 
-def adam_init(params: Any) -> AdamState:
-    return AdamState(0, tree_map(torch.zeros_like, params),
-                     tree_map(torch.zeros_like, params))
+# ------------------------------------------------------------ transforms
+# Each works on the leaf lists of the gradient (``u``) and the params
+# (``p``) and returns (new u, new state).
 
 
-def adam_update(
-    params: Any, grads: Any, state: AdamState, lr: Schedule,
-    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-    eps_root: float = 0.0, weight_decay: float = 0.0,
-) -> tuple[Any, AdamState]:
-    """One Adam (``weight_decay`` 0) or AdamW step; returns
-    ``(new_params, new_state)``."""
-    p, g = tree_leaves(params), tree_leaves(grads)
-    mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
-    count = state.count + 1
-    fe = torch
-    mu = fe._foreach_add(fe._foreach_mul(g, 1 - b1), fe._foreach_mul(mu, b1))
-    nu = fe._foreach_add(fe._foreach_mul(fe._foreach_mul(g, g), 1 - b2),
-                         fe._foreach_mul(nu, b2))
-    bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
-    bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
-    den = fe._foreach_add(
-        fe._foreach_sqrt(fe._foreach_add(fe._foreach_div(nu, bc2), eps_root)), eps
-    )
-    upd = fe._foreach_div(fe._foreach_div(mu, bc1), den)
-    if weight_decay:
-        upd = fe._foreach_add(upd, fe._foreach_mul(p, weight_decay))
-    new_p = fe._foreach_add(p, fe._foreach_mul(upd, -lr(state.count)))
-    return tree_unflatten(params, new_p), AdamState(
-        count, tree_unflatten(params, mu), tree_unflatten(params, nu)
-    )
+def _zeros(params: Any) -> Any:
+    return tree_map(torch.zeros_like, params)
 
 
 @dataclasses.dataclass(frozen=True)
-class Adam:
-    """``optax.adam(lr)``, or ``optax.adamw(lr, weight_decay)`` when
-    ``weight_decay`` is set; ``lr`` is a float or a schedule."""
+class ClipByGlobalNorm:
+    """``optax.clip_by_global_norm(max_norm)``."""
 
-    lr: Union[float, Schedule]
-    weight_decay: float = 0.0
+    max_norm: float
+
+    def init(self, params):
+        return EmptyState()
+
+    def transform(self, u, state, p, per_worker):
+        if not u:
+            return u, state
+        if per_worker:
+            w = u[0].shape[0]
+            norms = fe._foreach_norm([g[i] for g in u for i in range(w)])
+            norm = torch.stack(norms).reshape(len(u), w).square().sum(0).sqrt()
+        else:
+            norm = torch.stack(fe._foreach_norm(u)).square().sum().sqrt()
+        clip = norm >= self.max_norm
+        # t / 1 * 1 is t exactly; else (t / norm) * max_norm, optax's order
+        den = torch.where(clip, norm, torch.ones_like(norm))
+        mul = torch.where(clip, torch.full_like(norm, self.max_norm),
+                          torch.ones_like(norm))
+        if per_worker:
+            den = [den.view(-1, *[1] * (g.dim() - 1)) for g in u]
+            mul = [mul.view(-1, *[1] * (g.dim() - 1)) for g in u]
+        return fe._foreach_mul(fe._foreach_div(u, den), mul), state
+
+
+@dataclasses.dataclass(frozen=True)
+class Trace:
+    """``optax.trace(decay)``: ``t ← g + decay·t``; the update is ``t``."""
+
+    decay: float
+
+    def init(self, params):
+        return TraceState(_zeros(params))
+
+    def transform(self, u, state, p, per_worker):
+        t = tree_leaves(state.trace)
+        t = fe._foreach_add(u, fe._foreach_mul(t, self.decay))
+        return t, TraceState(tree_unflatten(state.trace, t))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleByAdam:
+    """``optax.scale_by_adam``."""
+
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     eps_root: float = 0.0
 
-    def init(self, params: Any) -> AdamState:
-        return adam_init(params)
+    def init(self, params):
+        return ScaleByAdamState(0, _zeros(params), _zeros(params))
 
-    def update(self, params: Any, grads: Any, state: AdamState):
-        lr = self.lr if callable(self.lr) else constant_schedule(self.lr)
-        return adam_update(params, grads, state, lr, self.b1, self.b2,
-                           self.eps, self.eps_root, self.weight_decay)
+    def transform(self, u, state, p, per_worker):
+        b1, b2 = self.b1, self.b2
+        mu = fe._foreach_add(fe._foreach_mul(u, 1 - b1),
+                             fe._foreach_mul(tree_leaves(state.mu), b1))
+        nu = fe._foreach_add(fe._foreach_mul(fe._foreach_mul(u, u), 1 - b2),
+                             fe._foreach_mul(tree_leaves(state.nu), b2))
+        count = state.count + 1
+        bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
+        bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
+        den = fe._foreach_add(fe._foreach_sqrt(
+            fe._foreach_add(fe._foreach_div(nu, bc2), self.eps_root)), self.eps)
+        out = fe._foreach_div(fe._foreach_div(mu, bc1), den)
+        return out, ScaleByAdamState(count, tree_unflatten(state.mu, mu),
+                                     tree_unflatten(state.nu, nu))
 
 
-def AdamW(lr: Union[float, Schedule], weight_decay: float = 1e-4) -> Adam:
+@dataclasses.dataclass(frozen=True)
+class AddDecayedWeights:
+    """``optax.add_decayed_weights(weight_decay)``: ``u + wd·p``."""
+
+    weight_decay: float
+
+    def init(self, params):
+        return EmptyState()
+
+    def transform(self, u, state, p, per_worker):
+        return fe._foreach_add(u, fe._foreach_mul(p, self.weight_decay)), state
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleByLearningRate:
+    """``optax.scale_by_learning_rate(lr)``: ``u·(−lr)``; a schedule is
+    read at the count before the step and keeps that count."""
+
+    lr: Union[float, Schedule]
+
+    def init(self, params):
+        return ScaleByScheduleState(0) if callable(self.lr) else EmptyState()
+
+    def transform(self, u, state, p, per_worker):
+        if callable(self.lr):
+            lr, state = self.lr(state.count), ScaleByScheduleState(state.count + 1)
+        else:
+            lr = self.lr
+        return fe._foreach_mul(u, -lr), state
+
+
+class Chain:
+    """``optax.chain(*transforms)``: the state is the tuple of theirs.
+
+    ``init(params)`` builds the state; ``update(params, grads, state,
+    per_worker=False)`` returns ``(new_params, new_state)``."""
+
+    def __init__(self, *transforms):
+        self.transforms = tuple(transforms)
+
+    def __repr__(self) -> str:
+        return f"Chain{self.transforms!r}"
+
+    def init(self, params: Any) -> tuple:
+        return tuple(t.init(params) for t in self.transforms)
+
+    def transform(self, u, state, p, per_worker):
+        new = []
+        for t, s in zip(self.transforms, state, strict=True):
+            u, s = t.transform(u, s, p, per_worker)
+            new.append(s)
+        return u, tuple(new)
+
+    def update(self, params: Any, grads: Any, state: tuple,
+               per_worker: bool = False) -> tuple[Any, tuple]:
+        p = tree_leaves(params)
+        u, state = self.transform(tree_leaves(grads), state, p, per_worker)
+        return tree_unflatten(params, fe._foreach_add(p, u)), state
+
+
+def chain(*transforms) -> Chain:
+    return Chain(*transforms)
+
+
+def clip_by_global_norm(max_norm: float) -> ClipByGlobalNorm:
+    return ClipByGlobalNorm(float(max_norm))
+
+
+def SGD(lr: Union[float, Schedule], momentum: Optional[float] = None) -> Chain:
+    """``optax.sgd(lr, momentum)``: no trace when ``momentum`` is None, a
+    trace for any float (0.0 included), as optax builds it."""
+    scale = ScaleByLearningRate(lr)
+    if momentum is None:
+        return Chain(scale)
+    return Chain(Trace(float(momentum)), scale)
+
+
+def Adam(lr: Union[float, Schedule], weight_decay: Optional[float] = None,
+         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         eps_root: float = 0.0) -> Chain:
+    """``optax.adam(lr)``, or ``optax.adamw(lr, weight_decay)`` when
+    ``weight_decay`` is given; ``lr`` is a float or a schedule."""
+    adam = ScaleByAdam(b1, b2, eps, eps_root)
+    if weight_decay is None:
+        return Chain(adam, ScaleByLearningRate(lr))
+    return Chain(adam, AddDecayedWeights(float(weight_decay)),
+                 ScaleByLearningRate(lr))
+
+
+def AdamW(lr: Union[float, Schedule], weight_decay: float = 1e-4) -> Chain:
     """``optax.adamw(lr, weight_decay)`` with optax's defaults."""
     return Adam(lr, weight_decay=weight_decay)

@@ -6,8 +6,7 @@ Counterpart of the parts of ``mpit_tpu/parallel/common.py`` that the EASGD
 and sync-DP trainers use. The reference runs a step or a round as one
 jitted ``shard_map`` over the worker mesh; here it runs eagerly on one
 device, with the W workers stacked on dim 0 of every per-worker tensor (or,
-for the sync trainer, as one pass over the global batch). Gradient clipping
-is not ported yet.
+for the sync trainer, as one pass over the global batch).
 """
 
 from __future__ import annotations
@@ -118,6 +117,21 @@ def accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
     return float((np.argmax(logits, -1) == labels).mean())
 
 
+def world_mean(loss: torch.Tensor, topo) -> torch.Tensor:
+    """A mean over this process's workers, made the mean over the world's
+    (equal worker counts per process): the metric every process reports
+    alike, as the reference's pmean'd metrics are."""
+    from mpit_tpu_torch.comm.topology import in_process_group
+
+    if not in_process_group():
+        return loss
+    import torch.distributed as dist
+
+    loss = loss.clone()
+    dist.all_reduce(loss)
+    return loss / topo.process_count
+
+
 class RoundTrainer:
     """Shared machinery for τ-round trainers (EASGD).
 
@@ -140,7 +154,8 @@ class RoundTrainer:
 
     def round_batches(self, x_round, y_round):
         """Reshape τ stacked global batches (τ, W·B, ...) → (W, τ, B, ...)
-        as contiguous CPU tensors."""
+        as contiguous CPU tensors; in a world of several processes, the
+        rows of this process's workers only."""
         x_round, y_round = torch.as_tensor(x_round), torch.as_tensor(y_round)
         tau, w = self.tau, self.topo.num_workers
         if x_round.shape[0] != tau:
@@ -148,9 +163,11 @@ class RoundTrainer:
                 f"need {tau} stacked batches, got {x_round.shape[0]}"
             )
         b = check_global_batch(x_round.shape[1], w)
+        mine = self.topo.local_slice(w)
 
         def regroup(a):
-            return a.reshape(tau, w, b, *a.shape[2:]).transpose(0, 1).contiguous()
+            a = a.reshape(tau, w, b, *a.shape[2:])[:, mine]
+            return a.transpose(0, 1).contiguous()
 
         return regroup(x_round), regroup(y_round)
 
@@ -256,22 +273,31 @@ class RoundTrainer:
         return int(correct) / n
 
 
-def synced_fit_loop(step_fn, batches, state, *, device, check, epochs: int = 1,
+def synced_fit_loop(step_fn, batches, state, *, device, check, shard=None,
+                    epochs: int = 1, start_epoch: int = 0, skip_steps: int = 0,
                     on_step=None, prefetch: int = 2):
     """The per-step fit loop of the synchronous trainers:
     ``on_step(steps, state, metrics)`` after every step; batches checked by
-    ``check`` and staged ``prefetch`` ahead on ``device``. Returns (state,
-    last_metrics)."""
+    ``check``, cut to this process's rows by ``shard(x, y)`` (when given)
+    and staged ``prefetch`` ahead on ``device``. A resume
+    re-enters the deterministic data schedule at epoch ``start_epoch``
+    (whose index seeds its permutation), drawing and dropping its first
+    ``skip_steps`` batches. Returns (state, last_metrics)."""
     metrics = None
     steps = 0
 
-    def step_batches(e):
+    def step_batches(e, to_skip):
         for x, y in batches.epoch(e):
+            if to_skip > 0:
+                to_skip -= 1
+                continue
             check(x)
-            yield x, y
+            yield shard(x, y) if shard is not None else (x, y)
 
-    for e in range(epochs):
-        for x, y in prefetch_to_device(step_batches(e), device, depth=prefetch):
+    for e in range(start_epoch, epochs):
+        to_skip = skip_steps if e == start_epoch else 0
+        for x, y in prefetch_to_device(step_batches(e, to_skip), device,
+                                       depth=prefetch):
             state, metrics = step_fn(state, x, y)
             steps += 1
             if on_step is not None:

@@ -90,12 +90,12 @@ class DownpourTrainer(common.RoundTrainer):
         if params is None:
             params = self.model.init(generator)
         params = tree_map(lambda a: a.detach().to(self.topo.device), params)
-        w = self.topo.num_workers
+        stacked = _stack(params, self.topo.local_workers)
         server_opt = (self.server_optimizer.init(params)
                       if self.server_optimizer is not None else ())
         return DownpourState(
-            worker_params=_stack(params, w),
-            worker_opt=_stack(self.optimizer.init(params), w),
+            worker_params=stacked,
+            worker_opt=self.optimizer.init(stacked),
             center=tree_map(torch.clone, params),
             server_opt=server_opt,
             center_history=_stack(params, self.staleness + 1),
@@ -110,7 +110,8 @@ class DownpourTrainer(common.RoundTrainer):
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
-            params, opt = self.optimizer.update(params, grads, opt)
+            params, opt = self.optimizer.update(params, grads, opt,
+                                                per_worker=True)
             losses.append(loss)
         delta = tree_map(torch.sub, params, start)
         if self.server_optimizer is None:
@@ -125,14 +126,15 @@ class DownpourTrainer(common.RoundTrainer):
                            state.center_history, center)
         pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
         new = DownpourState(
-            worker_params=_stack(pulled, self.topo.num_workers),
+            worker_params=_stack(pulled, self.topo.local_workers),
             worker_opt=opt,
             center=center,
             server_opt=server_opt,
             center_history=history,
             round=state.round + 1,
         )
-        return new, {"loss": torch.stack(losses).mean()}
+        loss = common.world_mean(torch.stack(losses).mean(), self.topo)
+        return new, {"loss": loss}
 
     def center_params(self, state: DownpourState):
         return state.center

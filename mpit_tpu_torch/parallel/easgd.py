@@ -46,7 +46,9 @@ class EASGDTrainer(common.RoundTrainer):
       model: a port model (``init``/``apply``), or None when a custom
         ``loss_fn`` over raw params is given with ``init_state(params=...)``.
       optimizer: the *local* optimizer (EAMSGD = momentum here), e.g.
-        ``optim.SGD(lr, momentum)``.
+        ``optim.SGD(lr, momentum)``, optionally chained behind
+        ``optim.clip_by_global_norm`` (each worker clips its own
+        gradient).
       topo: the topology (default: the current one).
       alpha: elastic coupling; default 0.9/W, the paper's β/W rule.
       tau: communication period (local steps per exchange round).
@@ -90,10 +92,11 @@ class EASGDTrainer(common.RoundTrainer):
         if params is None:
             params = self.model.init(generator)
         params = tree_map(lambda a: a.detach().to(self.topo.device), params)
-        w = self.topo.num_workers
+        stacked = _stack(params, self.topo.local_workers)
         return EASGDState(
-            worker_params=_stack(params, w),
-            worker_opt=_stack(self.optimizer.init(params), w),
+            worker_params=stacked,
+            # the stacked init is every worker's init, stacked
+            worker_opt=self.optimizer.init(stacked),
             center=tree_map(torch.clone, params),
         )
 
@@ -105,14 +108,16 @@ class EASGDTrainer(common.RoundTrainer):
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
-            params, opt = self.optimizer.update(params, grads, opt)
+            params, opt = self.optimizer.update(params, grads, opt,
+                                                per_worker=True)
             losses.append(loss)
         params, center = goptim.easgd_round(
             params, state.center, self.alpha,
             use_kernel=self.use_kernel, compress_dtype=self.exchange_dtype,
         )
         new = EASGDState(params, opt, center, state.round + 1)
-        return new, {"loss": torch.stack(losses).mean()}
+        loss = common.world_mean(torch.stack(losses).mean(), self.topo)
+        return new, {"loss": loss}
 
     def center_params(self, state: EASGDState):
         return state.center

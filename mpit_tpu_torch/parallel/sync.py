@@ -9,7 +9,10 @@ batch, so the mean of the W shard-mean gradients is the gradient of the
 mean loss over the global batch: the step computes exactly that, as one
 forward/backward pass (or ``accum_steps`` sequential slices of it), then
 the optimizer update. The batch must still divide by W and the per-worker
-shard by ``accum_steps``, as in the reference.
+shard by ``accum_steps``, as in the reference. In a world of several
+processes each takes its own workers' rows of the global batch, and the
+gradient and loss are averaged across the processes (one all-reduce of
+the flat gradient) before the update.
 
 The bucketed and quantized exchange (``quant``/``bucket_bytes``, the
 ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs) is not ported yet.
@@ -22,7 +25,7 @@ from typing import Any, Optional
 
 import torch
 
-from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.comm.topology import Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.utils.params import tree_map
@@ -37,6 +40,18 @@ def _check_exchange(quant, bucket_bytes) -> None:
             "MPIT_DP_QUANT, MPIT_DP_BUCKET_BYTES) is not ported to "
             "mpit_tpu_torch yet (ROADMAP.md, item A6)"
         )
+
+
+def _mean_across_processes(tree: Any, processes: int) -> Any:
+    """The mean of ``tree`` over the world's processes: one all-reduce of
+    the flat leaves, which returns the same bits on every process."""
+    import torch.distributed as dist
+
+    from mpit_tpu_torch.utils.params import flatten_params, unflatten_params
+
+    flat, spec = flatten_params(tree)
+    dist.all_reduce(flat)
+    return unflatten_params(spec, flat / processes)
 
 
 class DataParallelTrainer:
@@ -80,10 +95,22 @@ class DataParallelTrainer:
     def _check(self, x) -> None:
         common.check_accum_batch(len(x), self.topo.num_workers, self.accum_steps)
 
+    def _shard(self, x, y):
+        """This process's rows of a global batch (all of it in one
+        process)."""
+        mine = self.topo.local_slice(len(x))
+        return x[mine], y[mine]
+
     def _step(self, state: common.TrainState, x: torch.Tensor, y: torch.Tensor):
-        """One step on device tensors; returns the new state and
-        ``{"loss": mean over the global batch}`` as a device scalar."""
+        """One step on device tensors (this process's rows of the global
+        batch); returns the new state and ``{"loss": mean over the global
+        batch}`` as a device scalar. In a world of several processes the
+        gradient and the loss are averaged across them before the update,
+        as the reference's pmean crosses its processes."""
         grads, loss = self._vg(state.params, x, y)
+        if in_process_group():
+            grads, loss = _mean_across_processes((grads, loss),
+                                                 self.topo.process_count)
         params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
         return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
 
@@ -91,9 +118,10 @@ class DataParallelTrainer:
         """One sync-DP step on a global batch (leading dim divisible by W,
         per-worker shard divisible by accum_steps)."""
         self._check(x_global)
+        x, y = self._shard(x_global, y_global)
         dev = self.topo.device
-        return self._step(state, torch.as_tensor(x_global).to(dev),
-                          torch.as_tensor(y_global).to(dev))
+        return self._step(state, torch.as_tensor(x).to(dev),
+                          torch.as_tensor(y).to(dev))
 
     def evaluate(self, state, x, y, batch: int = 1024):
         """Full-dataset eval over the reference's batches; returns
@@ -104,9 +132,12 @@ class DataParallelTrainer:
         )
         return correct / n, loss_sum / n
 
-    def fit(self, batches, state, epochs: int = 1, on_step=None, prefetch: int = 2):
-        """Epoch loop over a :class:`Batches`; returns (state, last_metrics)."""
+    def fit(self, batches, state, epochs: int = 1, start_epoch: int = 0,
+            skip_steps: int = 0, on_step=None, prefetch: int = 2):
+        """Epoch loop over a :class:`Batches` (``start_epoch``/``skip_steps``
+        re-enter its schedule on resume); returns (state, last_metrics)."""
         return common.synced_fit_loop(
             self._step, batches, state, device=self.topo.device, check=self._check,
-            epochs=epochs, on_step=on_step, prefetch=prefetch,
+            shard=self._shard, epochs=epochs, start_epoch=start_epoch, skip_steps=skip_steps,
+            on_step=on_step, prefetch=prefetch,
         )

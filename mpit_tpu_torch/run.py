@@ -7,16 +7,19 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   reference's aliases) on any dataset whose shapes fit (``mnist``,
   ``cifar10``, ``imagenet``, ``ptb``, each with its synthetic stand-in);
 - ``easgd``/``eamsgd`` and ``downpour`` (τ-round trainers over W stacked
-  workers) and ``sync`` (data-parallel), with SGD at a constant learning
-  rate, and under ``sync`` also Adam or AdamW with a constant, cosine or
-  warmup-cosine schedule;
+  workers) and ``sync`` (data-parallel), each with SGD, Adam or AdamW under
+  a constant, cosine or warmup-cosine schedule, and ``clip_norm``;
 - ``ps-easgd``/``ps-eamsgd``/``ps-downpour``: the host-async parameter
   server, servers and clients as threads over the message plane
   ``transport`` names (``auto``: the C++ broker where it builds;
   ``native``, ``inproc`` or ``socket``), each client's local steps on the
   card, with chaos fault injection when ``MPIT_CHAOS_*`` knobs are set.
   Process mode (one OS process per rank) is ``python -m
-  mpit_tpu_torch.launch -n 3 mpit_tpu_torch/examples/ptest_proc.py``.
+  mpit_tpu_torch.launch -n 3 mpit_tpu_torch/examples/ptest_proc.py``;
+- ``ckpt_dir``/``ckpt_every``/``resume``: checkpoints in the reference's
+  file format (``utils/checkpoint.py``), so a run resumes from either
+  package's files, and a resumed run re-enters the same data order;
+  ``profile_dir``: a ``torch.profiler`` trace of the loop.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it. Flags that do not apply to the chosen algo or model warn,
@@ -29,6 +32,8 @@ with the reference's wording, as the reference does.
     python -m mpit_tpu_torch.run --preset alexnet-downpour
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash
     python -m mpit_tpu_torch.run --preset mnist-ps
+    python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 1
+    python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 2 --resume
 
 run on the card, with W = 8 workers stacked on it (easgd, downpour) or
 sharing its global batch (sync) unless the topology was initialized
@@ -39,6 +44,7 @@ threads (ps-*), and print the results dict as one JSON line.
 from __future__ import annotations
 
 import json
+import os
 import time
 import warnings
 
@@ -61,23 +67,10 @@ def _check_supported(cfg: TrainConfig) -> None:
     algo = cfg.resolved_algo()
     if algo not in _ALGOS:
         raise _not_ported(f"algo={cfg.algo!r}", "items A6-A11")
-    if (algo in ("easgd", "downpour") or cfg.optimizer == "sgd") and (
-        cfg.optimizer != "sgd" or cfg.lr_schedule != "constant"
-    ):
-        raise _not_ported(
-            f"optimizer={cfg.optimizer!r} with lr_schedule="
-            f"{cfg.lr_schedule!r} under algo={cfg.algo!r}", "item A5b",
-        )
     if cfg.optimizer not in ("sgd", "adam", "adamw"):
         raise ValueError(
             f"unknown optimizer {cfg.optimizer!r}; have: sgd, adam, adamw"
         )
-    if cfg.clip_norm is not None:
-        raise _not_ported("clip_norm", "item A5b")
-    if cfg.ckpt_dir or cfg.resume:
-        raise _not_ported("checkpointing (ckpt_dir, resume)", "item A5b")
-    if cfg.profile_dir:
-        raise _not_ported("profile_dir", "item A5b")
     if cfg.remat and cfg.model.lower() in REMAT_MODELS:
         raise _not_ported("remat", "item A9")
     if cfg.exchange_dtype not in ("none", "bf16"):
@@ -199,13 +192,14 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
 
 def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
     """The config's optimizer and schedule, as ``optax`` computes them
-    (``mpit_tpu/run.py:164-213``); the cosine decays over
-    ``total_updates``."""
+    (``mpit_tpu/run.py:164-213``), for every algo the port has; the cosine
+    decays over ``total_updates``. With ``clip_norm`` the clip is chained in
+    front: under easgd, downpour and ps-* each worker clips its own local
+    gradient (the reference's "async semantics"), under sync the reduced
+    one."""
     from mpit_tpu_torch import optim
 
     _check_supported(cfg)
-    if cfg.optimizer == "sgd":
-        return optim.SGD(cfg.lr, cfg.momentum)
     total = max(int(total_updates), 2)  # optax needs decay_steps > 0
     if cfg.lr_schedule == "constant":
         lr = cfg.lr
@@ -219,9 +213,15 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
             f"unknown lr_schedule {cfg.lr_schedule!r}; have: constant, "
             "cosine, warmup-cosine"
         )
-    if cfg.optimizer == "adam":
-        return optim.Adam(lr)
-    return optim.AdamW(lr, weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "sgd":
+        opt = optim.SGD(lr, momentum=cfg.momentum)
+    elif cfg.optimizer == "adam":
+        opt = optim.Adam(lr)
+    else:
+        opt = optim.AdamW(lr, weight_decay=cfg.weight_decay)
+    if cfg.clip_norm is not None:
+        opt = optim.chain(optim.clip_by_global_norm(cfg.clip_norm), opt)
+    return opt
 
 
 def build_trainer(cfg: TrainConfig, model, opt, topo):
@@ -258,24 +258,73 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     )
 
 
+def _check_resume_layout(cfg: TrainConfig) -> None:
+    """Refuse a resume whose checkpoint was written with another
+    optimizer-state structure (``mpit_tpu/run.py:384-416``): the optimizer
+    (Adam's moments or SGD's trace), a schedule or not (a count leaf or
+    none) and clip_norm or not (the chain's tuple grows) change the
+    layout; restoring across them would fail deep in the restore with an
+    opaque structure error, so say it here. Value-only changes (lr, the
+    clip threshold, cosine against warmup-cosine, momentum: a trace is kept
+    for any float, 0.0 included) keep the layout and resume."""
+    from mpit_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    step = latest_checkpoint(cfg.ckpt_dir)
+    if step is None:
+        return
+    meta_path = os.path.join(cfg.ckpt_dir, f"ckpt_{step:08d}.json")
+    if not os.path.exists(meta_path):
+        return
+    with open(meta_path) as f:
+        saved = json.loads(json.load(f).get("config", "{}"))
+    if saved.get("algo") != cfg.algo:
+        return  # a restore across algos fails on the structure already
+
+    def structure_of(opt, sched, clip):
+        return {"optimizer": opt, "lr_is_schedule": sched != "constant",
+                "clip_chained": clip is not None}
+
+    cur = structure_of(cfg.optimizer, cfg.lr_schedule, cfg.clip_norm)
+    # metadata without a field: compare only what the checkpoint recorded
+    sav = structure_of(
+        saved.get("optimizer", cfg.optimizer),
+        saved.get("lr_schedule", cfg.lr_schedule),
+        saved.get("clip_norm", cfg.clip_norm),
+    )
+    if sav != cur:
+        diff = {k: (sav[k], cur[k]) for k in cur if sav[k] != cur[k]}
+        raise ValueError(
+            f"resume layout mismatch: checkpoint in {cfg.ckpt_dir!r} was "
+            f"written with a different optimizer-state structure "
+            f"{diff} (saved, requested) — restore with the original "
+            "optimizer/lr_schedule/clip_norm configuration or start fresh"
+        )
+
+
 def run(cfg: TrainConfig, device=None) -> dict:
     """Train per ``cfg``; returns a results dict (acc, loss, throughput...).
 
     Runs on the current topology (initialized on the card if there is
     none), or, when ``device`` is given, on that device with the current
-    topology's worker count (default 8)."""
+    topology's worker count (default 8). With ``resume`` it restores the
+    latest checkpoint of ``ckpt_dir`` and trains on to ``epochs`` in all
+    (the total, not the number to add), re-entering the data order where
+    the checkpoint left it."""
     from mpit_tpu_torch.comm.topology import (
-        DEFAULT_WORKERS, Topology, is_initialized, resolve_device, size, topology,
+        DEFAULT_WORKERS, Topology, is_initialized, resolve_device, topology,
     )
     from mpit_tpu_torch.data import Batches, cast_input_dtype
+    from mpit_tpu_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint, save_checkpoint,
+    )
     from mpit_tpu_torch.utils.metrics import MetricsLogger
-    from mpit_tpu_torch.utils.profiling import force_completion
+    from mpit_tpu_torch.utils.profiling import force_completion, trace
 
     _check_supported(cfg)
     if device is None:
         topo = topology()
     else:
-        w = size() if is_initialized() else DEFAULT_WORKERS
+        w = topology().local_workers if is_initialized() else DEFAULT_WORKERS
         topo = Topology(num_workers=w, device=resolve_device(device))
     x_tr, y_tr, x_te, y_te, meta = _load_dataset(cfg)
     x_tr = cast_input_dtype(x_tr, cfg.input_dtype)
@@ -302,34 +351,57 @@ def run(cfg: TrainConfig, device=None) -> dict:
     gen = torch.Generator().manual_seed(cfg.seed)
     state = trainer.init_state(gen)
 
+    start_unit = 0
+    if cfg.resume and cfg.ckpt_dir:
+        _check_resume_layout(cfg)
+        state, step = restore_checkpoint(cfg.ckpt_dir, state)
+        if step is not None:
+            start_unit = step
+            results["resumed_from"] = step
+
     batches = Batches(x_tr, y_tr, global_batch=gb, seed=cfg.seed)
-    if batches.steps_per_epoch() // tau == 0:
+    units_per_epoch = batches.steps_per_epoch() // tau
+    if units_per_epoch == 0:
         raise ValueError(
             f"epoch of {batches.steps_per_epoch()} step(s) cannot fill one "
             f"{'step' if is_sync else f'round of tau={tau}'}"
         )
-    units = 0
+    # resume re-enters the same data schedule: the unit count maps back to
+    # (epoch, offset); cfg.epochs is the total
+    start_epoch, skip_units = divmod(start_unit, units_per_epoch)
+    unit = start_unit  # steps (sync) or rounds (easgd/downpour)
     losses = []
+    metrics = None
 
-    def on_unit(done, st, m):
-        nonlocal units
-        units = done
+    def on_unit(_done, st, m):
+        nonlocal unit
+        unit += 1
         losses.append(m["loss"])
-        if cfg.log_every and done % cfg.log_every == 0:
-            log.log(done, loss=m["loss"])
+        if cfg.log_every and unit % cfg.log_every == 0:
+            log.log(unit, loss=m["loss"])
+        if cfg.ckpt_dir and cfg.ckpt_every and unit % cfg.ckpt_every == 0:
+            save_checkpoint(cfg.ckpt_dir, st, step=unit,
+                            metadata={"config": cfg.to_json()})
 
     t_start = time.perf_counter()
-    if is_sync:
-        state, metrics = trainer.fit(batches, state, epochs=cfg.epochs,
-                                     on_step=on_unit, prefetch=cfg.prefetch)
-    else:
-        state, metrics = trainer.fit(batches, state, epochs=cfg.epochs,
-                                     on_round=on_unit, prefetch=cfg.prefetch)
-    if metrics is not None:
-        force_completion(trainer.center_params(state) if not is_sync
-                         else state.params, metrics)
+    with trace(cfg.profile_dir, topo.device):
+        if is_sync:
+            state, metrics = trainer.fit(
+                batches, state, epochs=cfg.epochs, start_epoch=start_epoch,
+                skip_steps=skip_units, on_step=on_unit, prefetch=cfg.prefetch)
+        else:
+            state, metrics = trainer.fit(
+                batches, state, epochs=cfg.epochs, start_epoch=start_epoch,
+                skip_rounds=skip_units, on_round=on_unit, prefetch=cfg.prefetch)
+        if metrics is not None:
+            force_completion(trainer.center_params(state) if not is_sync
+                             else state.params, metrics)
     wall = time.perf_counter() - t_start
-    samples = units * tau * gb
+    trained = unit - start_unit
+    samples = trained * tau * gb
+    if cfg.ckpt_dir and trained:
+        save_checkpoint(cfg.ckpt_dir, state, step=unit,
+                        metadata={"config": cfg.to_json()})
 
     if is_sync:
         acc, eval_loss = trainer.evaluate(state, x_te, y_te)
@@ -342,13 +414,15 @@ def run(cfg: TrainConfig, device=None) -> dict:
         accuracy=acc,
         final_loss=float(metrics["loss"]) if metrics is not None else None,
         round_losses=[float(v) for v in losses],
-        trained_units=units,
+        trained_units=trained,
         samples=samples,
         wall_s=wall,
         samples_per_sec=samples / wall,
-        samples_per_sec_per_chip=samples / wall,  # one device
-        step_time={"steps": units,
-                   "mean_s": wall / units if units else None},
+        samples_per_sec_per_chip=samples / wall / topo.num_devices,
+        step_time={"steps": trained,
+                   "mean_s": wall / trained if trained else None},
+        last_checkpoint=(latest_checkpoint(cfg.ckpt_dir)
+                         if cfg.ckpt_dir else None),
     )
     log.close()
     return results
@@ -367,8 +441,16 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
     ``exchange_ms_per_round`` (the host milliseconds of one successful
     exchange — fetch, push, elastic move — averaged over its rounds), and
     ``transport_used``, the message plane ``transport`` resolved to
-    (``native``, ``inproc`` or ``socket``)."""
+    (``native``, ``inproc`` or ``socket``).
+
+    ``profile_dir`` traces the whole async run; ``ckpt_dir`` makes every
+    server persist its center chunk (every ``ckpt_every`` updates and at
+    teardown) and writes the final center checkpoint (``kind:
+    "ps_center"``); ``resume`` restores the persisted chunks, so a
+    restarted job continues from the last center."""
     from mpit_tpu_torch.parallel import AsyncPSTrainer
+    from mpit_tpu_torch.utils.checkpoint import save_checkpoint
+    from mpit_tpu_torch.utils.profiling import trace
 
     if cfg.grad_accum > 1:
         warnings.warn(
@@ -392,17 +474,25 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
         alpha=alpha, tau=cfg.tau,
         transport=cfg.transport,
         client_timeout=cfg.client_timeout,
+        ckpt_dir=cfg.ckpt_dir or None,
+        # ckpt_every=0 means no periodic writes: servers persist only at
+        # teardown
+        ckpt_every=cfg.ckpt_every or None,
+        resume=cfg.resume,
         device=device,
     )
     per_client = max(cfg.global_batch // cfg.clients, 1)
     x_dev = torch.as_tensor(x_tr).to(device)
     y_dev = torch.as_tensor(y_tr).to(device)
     t0 = time.perf_counter()
-    center, stats = trainer.train(
-        x_dev, y_dev, steps=cfg.steps, batch_size=per_client, seed=cfg.seed
-    )
+    with trace(cfg.profile_dir, device):
+        center, stats = trainer.train(
+            x_dev, y_dev, steps=cfg.steps, batch_size=per_client, seed=cfg.seed
+        )
     wall = time.perf_counter() - t0
     acc = trainer.evaluate(center, x_te, y_te)
+    if cfg.dataset == "ptb":
+        acc = acc / cfg.seq_len
     samples = cfg.steps * per_client * cfg.clients
     if cfg.log_every:
         # stop before the final step — the summary line below logs it
@@ -411,6 +501,12 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
             if step_losses:
                 log.log(s + 1, loss=float(np.mean(step_losses)))
     log.log(cfg.steps, loss=stats["mean_final_loss"], accuracy=acc)
+    if cfg.ckpt_dir:
+        save_checkpoint(
+            cfg.ckpt_dir, center, step=cfg.steps,
+            metadata={"config": cfg.to_json(), "kind": "ps_center"},
+        )
+        results["last_checkpoint"] = cfg.steps
     results.update(
         accuracy=acc,
         final_loss=stats["mean_final_loss"],

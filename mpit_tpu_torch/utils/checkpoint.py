@@ -1,27 +1,50 @@
-"""Shard snapshots of the parameter server, in flax's msgpack format.
+"""Checkpoints of whole trainer states and shard snapshots of the parameter
+server, in flax's msgpack format.
 
-Counterpart of ``mpit_tpu/utils/checkpoint.py:132-176``
-(``save_shard_state``/``load_shard_state``), the shard functions only:
-whole-trainer checkpoints are ROADMAP.md item A5b. The reference writes
-the snapshot with ``flax.serialization.msgpack_serialize``; the machine
-with the card has neither flax nor ``msgpack``, so this module carries
-the small part of both that a snapshot needs: dict, list, int, float, str,
-bytes, bool and None, ndarrays as flax's extension type 1 (``(shape,
-dtype name, C-order bytes)``, itself msgpack-packed) and numpy scalars as
-type 3. Maps are written with their keys sorted, as flax's tree copy
-leaves them, and arrays above 1 GiB in flax's chunked form. The bytes
-equal flax's for the same state, so each package reads the other's files
-(``tests/test_torch_ps.py``).
+Counterpart of ``mpit_tpu/utils/checkpoint.py``. A checkpoint is the
+bytes of ``flax.serialization.to_bytes`` of the reference's state for the
+same values, so either package resumes from the other's files:
+
+- :func:`state_to_state_dict` writes a state as flax's ``to_state_dict``
+  writes the reference's: ``TrainState``, ``EASGDState`` and
+  ``DownpourState`` (and the optimizer states of ``optim``) as the dicts of
+  their fields, tuples as ``{"0": ..., "1": ...}``, the step, round and
+  optimizer counts as int32 arrays (a stacked worker optimizer's counts as
+  a ``(W,)`` array, as the reference's ``_stack`` leaves them), tensors in
+  the flax layout (``convert.leaf_to_flax``: conv kernels HWIO, stacked
+  ones W,HWIO);
+- ``ckpt_%08d.msgpack`` files, beside ``.json`` metadata, written
+  atomically (tmp + rename) and pruned to the last ``keep``.
+
+In a world of several processes every process gathers the stacked worker
+fields (a collective), process 0 writes, and all wait at a barrier before
+the save returns; every process restores, keeping its own workers' rows.
+
+The reference writes with ``flax.serialization``; the machine with the
+card has neither flax nor ``msgpack``, so this module carries the small
+part of both that a state needs: dict, list, int, float, str, bytes, bool
+and None, ndarrays as flax's extension type 1 (``(shape, dtype name,
+C-order bytes)``, itself msgpack-packed) and numpy scalars as type 3. Maps
+are written with their keys sorted, as flax's tree copy leaves them, and
+arrays above 1 GiB in flax's chunked form. Array payloads are written
+from the arrays' own memory and read back as views of the file's bytes, so
+a large state is not copied again on either side. The shard snapshots
+(``save_shard_state``/``load_shard_state``) use the same codec
+(``tests/test_torch_ps.py``, ``tests/test_torch_driver.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
+import re
 import struct
 import tempfile
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
 # flax.serialization._MsgpackExtType
 _EXT_NDARRAY = 1
@@ -67,26 +90,59 @@ def _pack_int(out: bytearray, v: int) -> None:
         raise OverflowError(f"int {v} does not fit msgpack's int64")
 
 
-def _pack_ext(out: bytearray, code: int, data: bytes) -> None:
-    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+def _ext_header(out: bytearray, code: int, n: int) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
     if fixed is not None:
         out.append(fixed)
     else:
-        _len_prefix(out, len(data), 0, 0, (0xC7, 0xC8, 0xC9))
+        _len_prefix(out, n, 0, 0, (0xC7, 0xC8, 0xC9))
     out += struct.pack(">b", code)
-    out += data
 
 
-def _ndarray_bytes(arr: np.ndarray) -> bytes:
-    """flax's ``_ndarray_to_bytes``: ``packb((shape, dtype.name, bytes))``."""
+def _check_array(arr: np.ndarray) -> None:
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError(
             "Object and structured dtypes not supported "
             "for serialization of ndarrays."
         )
-    out = bytearray()
-    _pack(out, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
-    return bytes(out)
+
+
+def _pack_ndarray(out: "_Out", arr: np.ndarray) -> None:
+    """flax's ndarray extension: ``packb((shape, dtype.name, bytes))``,
+    the bytes taken from the array's memory."""
+    _check_array(arr)
+    if not arr.flags.c_contiguous:
+        arr = arr.copy(order="C")  # (ascontiguousarray would make 0-d 1-d)
+    head = bytearray([0x93])
+    _pack(head, list(arr.shape))
+    _pack(head, arr.dtype.name)
+    _len_prefix(head, arr.nbytes, 0, 0, (0xC4, 0xC5, 0xC6))
+    _ext_header(out, _EXT_NDARRAY, len(head) + arr.nbytes)
+    out += head
+    data = memoryview(arr.reshape(-1).view(np.uint8))
+    if isinstance(out, _Out):
+        out.raw(data)
+    else:
+        out += data
+
+
+class _Out(bytearray):
+    """The packed bytes as parts: small items gather here, large array
+    payloads stay views of the arrays' memory."""
+
+    def __init__(self):
+        super().__init__()
+        self.parts: list = []
+
+    def raw(self, data: memoryview) -> None:
+        if len(data) < 1 << 16:
+            self += data
+        else:
+            self.parts += [bytes(self), data]
+            del self[:]
+
+    def chunks(self) -> list:
+        return [*self.parts, bytes(self)]
 
 
 def _pack(out: bytearray, v: Any) -> None:
@@ -118,9 +174,15 @@ def _pack(out: bytearray, v: Any) -> None:
             _pack(out, key)
             _pack(out, item)
     elif isinstance(v, np.ndarray):
-        _pack_ext(out, _EXT_NDARRAY, _ndarray_bytes(v))
+        _pack_ndarray(out, v)
     elif isinstance(v, np.generic):
-        _pack_ext(out, _EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+        # flax's ``_ndarray_to_bytes`` of the 0-d array, as extension type 3
+        arr = np.asarray(v)
+        _check_array(arr)
+        data = bytearray()
+        _pack(data, [list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+        _ext_header(out, _EXT_NPSCALAR, len(data))
+        out += data
     else:
         raise TypeError(f"can not serialize {t.__name__!r} object")
 
@@ -137,14 +199,16 @@ def _chunk(arr: np.ndarray) -> dict:
     }
 
 
-def _canonical(v: Any, top: bool = True) -> Any:
-    """The tree flax packs: dicts with sorted keys (its tree copy sorts
-    them), oversized arrays chunked where flax chunks them (dict values
-    and the top level)."""
+def _canonical(v: Any, top: bool = True, sort: bool = True) -> Any:
+    """The tree flax packs: oversized arrays chunked where flax chunks them
+    (dict values and the top level), and, with ``sort``, dicts with their
+    keys sorted, as the tree copy of flax's ``msgpack_serialize`` leaves
+    them (``to_bytes`` packs its state dict as built, without the copy)."""
     if isinstance(v, dict):
-        return {k: _canonical(v[k], top=True) for k in sorted(v)}
+        keys = sorted(v) if sort else v
+        return {k: _canonical(v[k], True, sort) for k in keys}
     if isinstance(v, list):
-        return [_canonical(item, top=False) for item in v]
+        return [_canonical(item, False, sort) for item in v]
     if (
         top
         and isinstance(v, np.ndarray)
@@ -154,17 +218,25 @@ def _canonical(v: Any, top: bool = True) -> Any:
     return v
 
 
+def _serialize_chunks(tree: Any, sort: bool = True) -> list:
+    out = _Out()
+    _pack(out, _canonical(tree, sort=sort))
+    return out.chunks()
+
+
 def msgpack_serialize(tree: Any) -> bytes:
     """The bytes of ``flax.serialization.msgpack_serialize(tree)``."""
-    out = bytearray()
-    _pack(out, _canonical(tree))
-    return bytes(out)
+    return b"".join(_serialize_chunks(tree))
 
 
 class _Reader:
-    def __init__(self, data: bytes):
+    """``views``: bin values come back as views of ``data`` (inside an
+    array extension, whose bytes become the array's memory)."""
+
+    def __init__(self, data, views: bool = False):
         self.data = memoryview(data)
         self.i = 0
+        self.views = views
 
     def take(self, n: int) -> memoryview:
         if self.i + n > len(self.data):
@@ -190,10 +262,10 @@ class _Reader:
 
     def ext(self, n: int) -> Any:
         code = self.unpack(">b")
-        data = bytes(self.take(n))
+        data = self.take(n)
         if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
             raise ValueError(f"unknown msgpack extension type {code}")
-        shape, name, buf = _Reader(data).value()
+        shape, name, buf = _Reader(data, views=True).value()
         arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape, order="C")
         return arr if code == _EXT_NDARRAY else arr[()]
 
@@ -224,7 +296,7 @@ class _Reader:
         if b in lens:
             n = self.unpack(lens[b])
             if b <= 0xC6:
-                return bytes(self.take(n))
+                return self.take(n) if self.views else bytes(self.take(n))
             if b <= 0xDB and b >= 0xD9:
                 return str(self.take(n), "utf-8")
             if b in (0xDC, 0xDD):
@@ -294,3 +366,220 @@ def load_shard_state(path: str) -> dict:
             f"(got {type(state).__name__})"
         )
     return state
+
+
+# ------------------------------------------------------ trainer checkpoints
+
+_CKPT_RE = re.compile(r"^ckpt_(\d{8,})\.msgpack$")
+# a state's per-worker fields: stacked on dim 0, gathered across processes
+_WORKER_FIELDS = ("worker_params", "worker_opt")
+
+
+def _ckpt_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"ckpt_{step:08d}.msgpack")
+
+
+def _fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _worker_fields(obj, fields: dict) -> tuple:
+    """The per-worker fields of a trainer state, and the stacked W of this
+    process (from its worker params)."""
+    if "worker_params" not in fields:
+        return (), 0
+    leaves = [t for t in _tensor_leaves(fields["worker_params"])]
+    return _WORKER_FIELDS, (leaves[0].shape[0] if leaves else 0)
+
+
+def _tensor_leaves(tree) -> list:
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _gathered(t: torch.Tensor) -> torch.Tensor:
+    from mpit_tpu_torch.comm.collectives import _gather
+
+    return _gather(t)
+
+
+def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False) -> Any:
+    """The reference's ``flax.serialization.to_state_dict`` of the state
+    ``obj`` stands for, as host numpy (tensors in the flax layout), in the
+    reference's order: a dataclass's fields as declared, dict keys sorted,
+    tuple entries in order.
+    ``lead`` is the shape of a count (``(W,)`` inside a stacked worker
+    optimizer); ``gather`` gathers stacked tensors across processes."""
+    from mpit_tpu_torch.comm.topology import current_process
+    from mpit_tpu_torch.convert import leaf_to_flax
+
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        fields = _fields(obj)
+        stacked, w = _worker_fields(obj, fields)
+        procs = current_process()[1]
+        return {
+            k: state_to_state_dict(
+                v, (w * procs,) if k in stacked else lead,
+                gather or (k in stacked and procs > 1),
+            )
+            for k, v in fields.items()
+        }
+    if isinstance(obj, (tuple, list)):
+        return {str(i): state_to_state_dict(v, lead, gather)
+                for i, v in enumerate(obj)}
+    if isinstance(obj, dict):
+        # sorted, as jax's tree functions leave the reference's dicts
+        return {k: state_to_state_dict(obj[k], lead, gather) for k in sorted(obj)}
+    if isinstance(obj, torch.Tensor):
+        return leaf_to_flax(_gathered(obj) if gather else obj)
+    if isinstance(obj, int) and not isinstance(obj, bool):
+        return np.full(lead, obj, np.int32)
+    return obj
+
+
+def state_to_host(state: Any) -> Any:
+    """The state as the reference's checkpoint holds it (its state dict,
+    host numpy, flax layout). Collective in a world of several processes:
+    call it from every process."""
+    return state_to_state_dict(state)
+
+
+def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) -> Any:
+    """A state shaped like ``template`` with the values of the state dict
+    ``sd`` (the inverse of :func:`state_to_state_dict`); tensors land on
+    the template's devices with its dtypes. ``rows`` keeps this process's
+    workers of a stacked field. Raises ``ValueError`` where the structures
+    differ, as flax's ``from_state_dict`` does."""
+    from mpit_tpu_torch.comm.topology import current_process
+    from mpit_tpu_torch.convert import leaf_from_flax
+
+    def keys_match(want, have, where):
+        if not isinstance(have, dict) or set(want) != set(have):
+            raise ValueError(
+                f"the checkpoint's structure differs at {where}: it holds "
+                f"{sorted(have) if isinstance(have, dict) else type(have).__name__},"
+                f" the state has {sorted(want)}"
+            )
+
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        fields = _fields(template)
+        keys_match(fields, sd, type(template).__name__)
+        stacked, w = _worker_fields(template, fields)
+        index, procs = current_process()
+        mine = slice(index * w, (index + 1) * w) if procs > 1 else None
+        return dataclasses.replace(template, **{
+            k: state_from_state_dict(v, sd[k], mine if k in stacked else rows)
+            for k, v in fields.items()
+        })
+    if isinstance(template, (tuple, list)):
+        keys_match([str(i) for i in range(len(template))], sd,
+                   type(template).__name__)
+        return type(template)(state_from_state_dict(v, sd[str(i)], rows)
+                              for i, v in enumerate(template))
+    if isinstance(template, dict):
+        keys_match(template, sd, "a dict")
+        return {k: state_from_state_dict(v, sd[k], rows)
+                for k, v in template.items()}
+    if isinstance(template, torch.Tensor):
+        a = leaf_from_flax(sd)
+        if rows is not None:
+            a = a[rows]
+        if tuple(a.shape) != tuple(template.shape):
+            raise ValueError(
+                f"the checkpoint holds an array of shape {tuple(a.shape)} "
+                f"where the state has {tuple(template.shape)}"
+            )
+        return torch.tensor(a, dtype=template.dtype, device=template.device)
+    if isinstance(template, int) and not isinstance(template, bool):
+        a = np.asarray(sd)
+        if a.size and (a != a.flat[0]).any():
+            raise ValueError(f"the workers' counts differ: {a.tolist()}")
+        return int(a.flat[0]) if a.size else int(template)
+    return sd
+
+
+def list_checkpoints(directory: str) -> list[int]:
+    """Steps of all checkpoints in ``directory``, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    steps = []
+    for name in os.listdir(directory):
+        m = _CKPT_RE.match(name)
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def latest_checkpoint(directory: str) -> Optional[int]:
+    steps = list_checkpoints(directory)
+    return steps[-1] if steps else None
+
+
+def _write_atomic(directory: str, path: str, chunks) -> None:
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            for chunk in chunks:
+                f.write(chunk)
+        os.replace(tmp, path)  # atomic: never torn at `path`
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def save_checkpoint(
+    directory: str,
+    state: Any,
+    step: int,
+    keep: int = 3,
+    metadata: Optional[dict] = None,
+) -> Optional[str]:
+    """Write ``state`` (a trainer state, an optimizer state or a params
+    tree) at ``step``; prune to ``keep``. Returns the written path, or
+    None on processes other than 0, which do not write."""
+    from mpit_tpu_torch.comm.collectives import barrier
+    from mpit_tpu_torch.comm.topology import current_process
+
+    # collective (the stacked fields gather across processes): before the
+    # process-0 gate, or the others would wait in the gather for ever
+    host_state = state_to_host(state)
+    path = None
+    try:
+        if current_process()[0] == 0:
+            os.makedirs(directory, exist_ok=True)
+            path = _ckpt_path(directory, step)
+            # to_bytes packs the state dict in its own order
+            _write_atomic(directory, path, _serialize_chunks(host_state, sort=False))
+            if metadata is not None:
+                meta_path = os.path.join(directory, f"ckpt_{step:08d}.json")
+                with open(meta_path, "w") as f:
+                    json.dump({"step": step, **metadata}, f)
+            for old in list_checkpoints(directory)[:-keep]:
+                os.unlink(_ckpt_path(directory, old))
+                meta = os.path.join(directory, f"ckpt_{old:08d}.json")
+                if os.path.exists(meta):
+                    os.unlink(meta)
+    finally:
+        # the save is done for no process until it is done for all: a
+        # process restoring at once must find the file; in a finally, so a
+        # failed write still releases the others
+        barrier(f"mpit_ckpt_save_{step}")
+    return path
+
+
+def restore_checkpoint(
+    directory: str, template: Any, step: Optional[int] = None
+) -> tuple[Any, Optional[int]]:
+    """Restore the latest (or ``step``'s) checkpoint into the structure of
+    ``template`` (a fresh state whose values are replaced), on the
+    template's devices. Returns ``(state, step)``, or ``(template, None)``
+    when there is no checkpoint."""
+    if step is None:
+        step = latest_checkpoint(directory)
+        if step is None:
+            return template, None
+    with open(_ckpt_path(directory, step), "rb") as f:
+        payload = f.read()
+    return state_from_state_dict(template, msgpack_restore(payload)), step

@@ -1,17 +1,58 @@
-"""Completion barrier for timed regions.
+"""Profiler traces and the completion barrier for timed regions.
 
-Counterpart of ``mpit_tpu/utils/profiling.py``'s :func:`force_completion`.
+Counterpart of ``mpit_tpu/utils/profiling.py``. :func:`trace` wraps a
+training loop in ``torch.profiler`` where the reference wraps it in
+``jax.profiler.trace``: host operators always, and the card's kernels and
+copies when the work runs on the card. The trace is a Chrome trace
+(``*.pt.trace.json``, TensorBoard's profiler plugin and Perfetto read it)
+written into ``log_dir`` when the block ends. :func:`annotate` names a
+region on the host timeline.
+
 PyTorch returns from a CUDA call before the card has finished it, so a
-host clock read without a barrier times the enqueue. The barrier is
-``torch.cuda.synchronize()`` plus one host fetch of a scalar that depends
-on the outputs, which proves the work ran and not only that it was queued.
+host clock read without a barrier times the enqueue. :func:`force_completion`
+is ``torch.cuda.synchronize()`` plus one host fetch of a scalar that
+depends on the outputs, which proves the work ran and not only that it
+was queued.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, Optional, Union
+
 import torch
 
 from mpit_tpu_torch.utils.params import tree_leaves
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str],
+          device: Union[str, torch.device, None] = None) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the block into ``log_dir``
+    (a no-op when it is None or empty, so call sites can wrap their loop
+    unconditionally). ``device`` is where the work runs: the card's
+    activity is recorded for a CUDA device, or, when ``device`` is None,
+    whenever CUDA is available."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    on_card = (torch.device(device).type == "cuda" if device is not None
+               else torch.cuda.is_available())
+    activities = [ProfilerActivity.CPU]
+    if on_card:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+        if on_card:
+            torch.cuda.synchronize()
+
+
+def annotate(name: str):
+    """Named region on the host trace timeline (wrap a step or a phase)."""
+    return torch.profiler.record_function(name)
 
 
 def force_completion(*results) -> float:

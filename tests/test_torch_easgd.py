@@ -6,6 +6,7 @@ the port stacks the same 8 workers on one CPU device.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -127,10 +128,27 @@ def test_run_trains_preset_on_cpu():
     dict(algo="zero-sync"), dict(algo="moe-sync"), dict(optimizer="adam"),
     dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(profile_dir="prof"),
 ])
-def test_run_refuses_what_is_not_ported(change):
+def test_run_refuses_what_is_not_ported(change, tmp_path):
+    """The algos of items A6-A11 raise naming the ROADMAP; the driver's
+    flags of item A5b (Adam, a schedule, checkpoints, a profiler trace),
+    which raised until A5b landed, now train under easgd."""
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
     cfg = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(cfg, device="cpu")
+    if "algo" in change:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run(cfg, device="cpu")
+        return
+    change = {k: str(tmp_path / v) if k.endswith("_dir") else v
+              for k, v in change.items()}
+    cfg = dataclasses.replace(cfg, train_size=512, global_batch=64, epochs=1,
+                              **change)
+    res = run(cfg, device="cpu")
+    assert res["trained_units"] == 2 and np.isfinite(res["round_losses"]).all()
+    if "ckpt_dir" in change:
+        assert res["last_checkpoint"] == 2
+        assert sorted(os.listdir(change["ckpt_dir"])) == [
+            "ckpt_00000002.json", "ckpt_00000002.msgpack"]
+    if "profile_dir" in change:
+        assert os.listdir(change["profile_dir"])[0].endswith(".pt.trace.json")

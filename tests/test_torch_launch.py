@@ -10,6 +10,7 @@ it trains with the reference's counts. What is not ported raises naming
 its ROADMAP.md item before any rank starts.
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -22,6 +23,7 @@ from mpit_tpu_torch import launch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_SCRIPT = os.path.join(REPO, "mpit_tpu_torch", "examples", "ptest_proc.py")
 REF_SCRIPT = os.path.join(REPO, "examples", "ptest_proc.py")
+MULTIHOST = os.path.join(REPO, "mpit_tpu_torch", "examples", "multihost_sync.py")
 ARGS = ["--model", "mlp", "--steps", "12", "--train-size", "512"]
 TIMEOUT_S = 180
 
@@ -29,7 +31,8 @@ TIMEOUT_S = 180
 def _env():
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("MPIT_RANK", "MPIT_WORLD_SIZE", "MPIT_TRANSPORT_HOSTS",
-                                "MPIT_CHAOS_", "MPIT_OBS_", "MPIT_ELASTIC_"))}
+                                "MPIT_CHAOS_", "MPIT_OBS_", "MPIT_ELASTIC_",
+                                "MPIT_DISTRIBUTED", "JAX_COORDINATOR"))}
     env["JAX_PLATFORMS"] = "cpu"
     return env
 
@@ -95,13 +98,25 @@ def test_a_mixed_world_trains_with_the_reference_counts():
 
 @pytest.mark.parametrize("case", ["jax-distributed", "obs"])
 def test_unported_launch_planes_raise_naming_their_item(case, monkeypatch, tmp_path):
-    argv = ["-n", "2", PORT_SCRIPT]
+    """The obs plane (item A12) raises naming its item before any rank
+    starts. ``--jax-distributed``, which raised until item A5b landed,
+    now wires a ``torch.distributed`` world: two gloo ranks of
+    ``multihost_sync.py`` train as one world of 2 × 1 workers."""
     if case == "jax-distributed":
-        argv.insert(2, "--jax-distributed")
-        item = "A5b"
-    else:
-        monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
-        item = "A12"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        out = str(tmp_path / "mh")
+        r = subprocess.run(
+            [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", "2",
+             "--jax-distributed", MULTIHOST, "--device", "cpu", "--steps", "4",
+             "--out", out],
+            cwd=REPO, env=_env(), capture_output=True, text=True, timeout=TIMEOUT_S,
+        )
+        assert r.returncode == 0, r.stdout + r.stderr
+        ranks = [json.load(open(f"{out}.rank{i}.json")) for i in range(2)]
+        assert [m["num_workers"] for m in ranks] == [2, 2]
+        assert ranks[0]["last_loss"] == ranks[1]["last_loss"]
+        return
+    argv = ["-n", "2", PORT_SCRIPT]
+    monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item A12"):
         launch.main(argv)
     assert not os.listdir(tmp_path)

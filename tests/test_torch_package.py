@@ -147,8 +147,10 @@ def test_allreduce_matches_jax(topo8, op):
     for a, b in zip(jax.tree.leaves(ref), jax.tree.leaves(
             jax.tree.map(lambda t: t.numpy(), got))):
         np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6, atol=1e-6)
-    with pytest.raises(ValueError):
-        mpit_tpu_torch.allreduce(got, op="max")
+    # MAX, MIN and PROD are ported since item A5b (tests/test_torch_dist.py);
+    # an op neither package has still raises
+    with pytest.raises(ValueError, match="unknown reduction op"):
+        mpit_tpu_torch.allreduce(got, op="xor")
 
 
 def test_flash_source_builds_under_its_own_name():

@@ -9,6 +9,7 @@ tolerance, and the reference's own behaviour tests run on the port.
 """
 
 import dataclasses
+import json
 import importlib
 import os
 import sys
@@ -723,10 +724,14 @@ def test_unported_planes_raise_naming_their_item(case, monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def test_run_refuses_ps_off_mnist_and_keeps_checkpoints_for_a5b():
+def test_run_refuses_ps_off_mnist_and_keeps_checkpoints_for_a5b(tmp_path):
     """``ps-*`` off MNIST runs since A8, as the reference's ``_run_async_ps``
-    takes any model (here a 1-layer transformer on PTB windows);
-    checkpoints still raise, naming A5b."""
+    takes any model (here a 1-layer transformer on PTB windows). Since A5b
+    ``ckpt_dir`` checkpoints the PS run as the reference's does: every
+    server persists its center chunk, the final center goes to a
+    ``ps_center`` checkpoint that loads into the model's tree, and a run
+    with ``resume`` restores the chunks (``center_restored``) and trains
+    with the same counts."""
     res = port_run.run(dataclasses.replace(
         TrainConfig().apply_preset("ptb-transformer-large"), algo="ps-easgd",
         layers=1, d_model=16, heads=2, seq_len=16, train_size=64, steps=4,
@@ -734,9 +739,22 @@ def test_run_refuses_ps_off_mnist_and_keeps_checkpoints_for_a5b():
         transport="inproc"), device=CPU)
     assert res["server_counts"][0]["push_easgd"] == 2 * (4 // 2)
     assert all(len(l) == 4 and np.isfinite(l).all() for l in res["client_losses"])
-    with pytest.raises(NotImplementedError, match="item A5b"):
-        port_run.run(dataclasses.replace(_ps_cfg(TrainConfig), ckpt_dir="/nonexistent"),
-                     device=CPU)
+
+    from mpit_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    cfg = _ps_cfg(TrainConfig, model="mlp", ckpt_dir=str(tmp_path))
+    first = port_run.run(cfg, device=CPU)
+    again = port_run.run(dataclasses.replace(cfg, resume=True), device=CPU)
+    assert (first["center_restored"], again["center_restored"]) == (False, True)
+    for r in (first, again):
+        assert r["last_checkpoint"] == 16 and r["dead_clients"] == []
+        assert r["server_counts"][0]["push_easgd"] == 2 * (16 // 4)
+    meta = json.load(open(tmp_path / "ckpt_00000016.json"))
+    assert meta["kind"] == "ps_center" and meta["step"] == 16
+    template = MLP(device=CPU).init(torch.Generator().manual_seed(0))
+    center, step = restore_checkpoint(str(tmp_path), template)
+    assert step == 16
+    assert not torch.equal(center["Dense_0"]["kernel"], template["Dense_0"]["kernel"])
 
 
 # ------------------------------------------------------------------ C4
