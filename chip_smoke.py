@@ -96,23 +96,43 @@ non-zero before the result lines:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
 17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
-18. resume-easgd — ``mnist-easgd`` (W = 8, cosine, clip_norm 1.0) two
+18. seq    — ``run()`` with ``ptb-transformer-large`` at its own algo,
+             seq-sync, full width, W = 8, 64 steps each: (dp, sp) = (8, 1)
+             with ring attention, (2, 4) ring, (2, 4) Ulysses; tokens/s, ms
+             per step, the peak device memory of a training step, eval
+             accuracy and loss, three ring steps under the profiler (busy
+             share, top kernels, host time); every loss finite, the last 8
+             below the first 8, no kernel of the port launched (the attention is PyTorch
+             operations, as the reference's is jnp). Then one f32 step of a
+             narrow 2-layer LM (T = 64, D = 16) at (8, 1), (2, 4) ring and (2,
+             4) Ulysses: each within the reference's mesh invariance of (8, 1)
+             on the card (loss 1e-5, params 5e-5) and within 1e-4 of itself
+             on the CPU.
+19. remat  — ``--remat`` against the same run without it: 16 steps of
+             ``ptb-transformer-large --algo sync --attn-impl flash``, 16 of the
+             preset's seq-sync, 8 of ``resnet50-sync``; ms per step and the
+             peak device memory of a training step for each, losses within
+             1e-5 relative (and whether they are equal bit for bit); the flash
+             launches of the remat run (counts set to 0 just before): the sm90
+             forward twice a step per layer (recomputed in the backward) plus
+             the eval forwards, dQ and dK/dV once.
+20. resume-easgd — ``mnist-easgd`` (W = 8, cosine, clip_norm 1.0) two
              epochs straight, checkpointing each epoch, and resumed from a
              copy of the straight run's first-epoch checkpoint (a preempted
              job: the cosine spans the whole run): the final checkpoint
              files are byte-equal, and the resumed leg launches the elastic
              kernel once per round (counts set to 0 just before).
-19. resume-lm — the same for the transformer at full width (clip_norm 1.0,
+21. resume-lm — the same for the transformer at full width (clip_norm 1.0,
              warmup-cosine, 2 epochs of 16 steps): byte-equal final files
              (about 607 MB each, in a temporary directory), the sm90 flash
              launches of the resumed leg, the checkpoint's size and its save
              and restore times.
-20. ps-resume — ``mnist-ps`` with ``ckpt_dir``, then resumed: the second run
+22. ps-resume — ``mnist-ps`` with ``ckpt_dir``, then resumed: the second run
              restores the servers' center chunks, both keep the reference's
              counts, and the ``ps_center`` checkpoint loads.
-21. profile-dir — one ``mnist-easgd`` epoch with ``profile_dir``: the Chrome
+23. profile-dir — one ``mnist-easgd`` epoch with ``profile_dir``: the Chrome
              trace holds the card's kernels, the elastic kernel once a round.
-22. dist   — ``python -m mpit_tpu_torch.launch --jax-distributed
+24. dist   — ``python -m mpit_tpu_torch.launch --jax-distributed
              mpit_tpu_torch/examples/multihost_sync.py --algo sync`` with one
              rank on the card (NCCL) and two on the CPU (gloo): exit 0, the
              world's worker count, equal losses on every rank, a bit-exact
@@ -1193,23 +1213,33 @@ def lm_path(flash: dict) -> dict:
     return launches
 
 
-def profile_lm(steps: int = 3) -> None:
-    """Where a transformer step's time goes: ``torch.profiler`` over a few
-    sync steps built as ``run()`` builds them, after two warm-up steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def built_step(cfg):
+    """(trainer, state, x, y): ``cfg``'s trainer and state built as ``run()``
+    builds them, and one global batch of its data on the card, laid out as
+    the trainer's step takes it."""
     from mpit_tpu_torch.comm.topology import topology
-    from mpit_tpu_torch.run import _ptb_windows, build_model, build_optimizer, build_trainer
+    from mpit_tpu_torch.run import (
+        _load_dataset, _world_for, build_model, build_optimizer, build_trainer,
+    )
 
-    cfg = lm_config()
-    topo = topology()
-    x_tr, y_tr, _, _, meta = _ptb_windows(dataclasses.replace(cfg, train_size=8))
+    topo = _world_for(cfg, topology())
+    gb = cfg.global_batch
+    x_tr, y_tr, _, _, meta = _load_dataset(dataclasses.replace(cfg, train_size=gb))
     trainer = build_trainer(cfg, build_model(cfg, topo.device, meta),
                             build_optimizer(cfg, 64), topo)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
-    x = torch.as_tensor(x_tr[: cfg.global_batch]).to(topo.device)
-    y = torch.as_tensor(y_tr[: cfg.global_batch]).to(topo.device)
+    x, y = trainer._shard(x_tr[:gb], y_tr[:gb])
+    return trainer, state, *(torch.as_tensor(a).to(topo.device) for a in (x, y))
+
+
+def profile_lm(steps: int = 3, cfg=None, name: str = "lm-profile") -> None:
+    """Where a transformer step's time goes: ``torch.profiler`` over a few
+    steps of ``cfg`` (default the ``lm`` phase's sync flash LM) built as
+    ``run()`` builds them, after two warm-up steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, state, x, y = built_step(cfg or lm_config())
     for _ in range(2):
         state, _ = trainer._step(state, x, y)
     torch.cuda.synchronize()
@@ -1222,28 +1252,223 @@ def profile_lm(steps: int = 3) -> None:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
-        phase("lm-profile", "device busy time: not measured (no device events)")
+        phase(name, "device busy time: not measured (no device events)")
         return
-    phase("lm-profile", f"{steps} steps under the profiler: wall {wall_ms:.3f} ms, "
+    phase(name, f"{steps} steps under the profiler: wall {wall_ms:.3f} ms, "
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     flash_ms = sum(e.self_device_time_total for e in ranked if "flash_" in e.key) / 1e3
     sm90_ms = sum(e.self_device_time_total for e in ranked if "_wgmma_" in e.key) / 1e3
-    phase("lm-profile", f"flash kernels: {flash_ms / steps:.4f} ms/step of device time, "
+    phase(name, f"flash kernels: {flash_ms / steps:.4f} ms/step of device time, "
           f"{100 * flash_ms / busy_ms:.1f}% of the busy time; of it the sm90 family "
           f"(wgmma forward, dQ, dK/dV) {sm90_ms / steps:.4f} ms/step, the CUDA-core "
           f"family {(flash_ms - sm90_ms) / steps:.4f} ms/step")
     for e in ranked[:12]:
-        phase("lm-profile", f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
+        phase(name, f"  {e.self_device_time_total / 1e3 / steps:9.4f} ms/step "
               f"{e.count // steps:4d} calls/step  {e.key[:90]}")
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
-    phase("lm-profile", f"host: {host_ms / steps:.3f} ms/step of operator time "
+    phase(name, f"host: {host_ms / steps:.3f} ms/step of operator time "
           f"(self CPU, under the profiler); the largest:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
-        phase("lm-profile", f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
+        phase(name, f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:80]}")
+
+
+# the reference's mesh invariance of seq-sync steps (tests/test_seq_parallel.py:62-79)
+SEQ_LOSS_TOL, SEQ_PARAM_TOL = 1e-5, 5e-5
+# the seq phase's runs of ptb-transformer-large at its own algo: (name, flags)
+SEQ_RUNS = (("ring, sp 1", dict(sp=1)), ("ring, sp 4", dict(sp=4)),
+            ("ulysses, sp 4", dict(sp=4, seq_impl="ulysses")))
+# a remat run's losses against the same run without remat, relative
+REMAT_TOL = 1e-5
+
+
+def seq_vs_cpu() -> None:
+    """One f32 seq-sync step of a narrow 2-layer LM (T = 64, D = 16) at
+    (8, 1), and at (2, 4) with ring and Ulysses attention, on the card and
+    on the CPU: each agrees with sp = 1 on the card within the reference's
+    mesh invariance, and with itself on the CPU within UNIT_TOL."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models import TransformerLM
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import SeqParallelTrainer
+    from mpit_tpu_torch.utils.params import tree_leaves, tree_map
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 97, (WORKERS, 64)).astype(np.int32)
+    y = np.roll(x, -1, axis=1)
+    params = None
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for impl, shape in (("ring", (8, 1)), ("ring", (2, 4)), ("ulysses", (2, 4))):
+            model = TransformerLM(97, num_layers=2, d_model=64, num_heads=4, max_len=64,
+                                  compute_dtype=torch.float32, seq_axis="sp",
+                                  seq_impl=impl, device=dev)
+            if params is None:
+                params = model.init(torch.Generator().manual_seed(0))
+            topo = Topology(WORKERS, torch.device(dev), axis_names=("dp", "sp"),
+                            mesh_shape=shape)
+            trainer = SeqParallelTrainer(model, SGD(0.1, momentum=0.9), topo)
+            state = trainer.init_state(params=tree_map(torch.clone, params))
+            state, m = trainer.step(state, x, y)
+            out[dev, impl, shape] = (float(m["loss"]),
+                                     [t.cpu() for t in tree_leaves(state.params)])
+
+    def err(a, b):
+        return (abs(out[a][0] - out[b][0]),
+                max((p - q).abs().max().item() for p, q in zip(out[a][1], out[b][1])))
+
+    one = ("cuda", "ring", (8, 1))
+    for key in out:
+        if key[0] == "cuda" and key != one:
+            loss_err, param_err = err(key, one)
+            if loss_err > SEQ_LOSS_TOL or param_err > SEQ_PARAM_TOL:
+                raise AssertionError(f"{key[1]} at {key[2]} differs from sp = 1 on the "
+                                     f"card: loss {loss_err}, params {param_err}")
+            phase("seq", f"f32 2-layer LM, one step, {key[1]} at (dp, sp) = {key[2]} vs "
+                  f"(8, 1) on the card: |loss err| {loss_err:.3g} (tolerance "
+                  f"{SEQ_LOSS_TOL}), max |param err| {param_err:.3g} ({SEQ_PARAM_TOL})")
+        if key[0] == "cuda":
+            loss_err, param_err = err(key, ("cpu", *key[1:]))
+            if loss_err > UNIT_TOL or param_err > UNIT_TOL:
+                raise AssertionError(f"{key[1]} at {key[2]}: card differs from CPU: "
+                                     f"loss {loss_err}, params {param_err}")
+            phase("seq", f"  {key[1]} at {key[2]}, card vs CPU: |loss err| "
+                  f"{loss_err:.3g}, max |param err| {param_err:.3g} (tolerance {UNIT_TOL})")
+
+
+def train_peak(cfg, steps: int = 2) -> tuple[float, float]:
+    """(peak MiB of device memory, ms per step) of ``steps`` training steps
+    built as ``run()`` builds them, after one warm-up step, without the
+    eval (whose logits would set the peak). The peak counts what the
+    training allocates (params, optimizer state, batch, activations) above
+    what was allocated before it."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, state, x, y = built_step(cfg)
+    state, _ = trainer._step(state, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = trainer._step(state, x, y)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    return (torch.cuda.max_memory_allocated() - base) / 2**20, ms
+
+
+def seq_path(card_line: str) -> None:
+    """``ptb-transformer-large`` with its own algo (seq-sync) at full
+    width, W = 8: (8, 1) ring, then (2, 4) ring and Ulysses, 64 steps
+    each; then the narrow card-vs-CPU and sp-invariance step."""
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    base = dataclasses.replace(TrainConfig().apply_preset("ptb-transformer-large"),
+                               epochs=1, train_size=LM_TRAIN_WINDOWS)
+    phase("seq", f"preset ptb-transformer-large, algo {base.algo}: layers {base.layers}, "
+          f"d_model {base.d_model}, heads {base.heads}, T {base.seq_len}, global batch "
+          f"{base.global_batch}, {base.optimizer} lr {base.lr} {base.lr_schedule}, "
+          f"train_size {base.train_size} windows, W = {WORKERS}; {card_line}")
+    runs = {}
+    for name, over in SEQ_RUNS:
+        cfg = dataclasses.replace(base, **over)
+        # warm-up; at fewer windows the synthetic corpus's validation split
+        # holds fewer than dp windows of T = 512, which no eval batch fills
+        run(dataclasses.replace(cfg, train_size=16 * cfg.global_batch))
+        for k in fa.launches:
+            fa.launches[k] = 0
+        res = run(cfg)
+        if any(fa.launches.values()):
+            raise AssertionError(f"seq-sync launched {fa.launches}: its attention is "
+                                 "ring or Ulysses (torch operations), no kernel")
+        losses, steps = res["round_losses"], res["trained_units"]
+        if steps != LM_TRAIN_WINDOWS // cfg.global_batch or not finite(losses):
+            raise AssertionError(f"{name}: {steps} steps, losses {losses}")
+        first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
+        if not last < first:
+            raise AssertionError(f"{name}: loss did not fall: first 8 {first}, last 8 {last}")
+        if not (finite([res["eval_loss"]]) and 0.0 <= res["accuracy"] <= 1.0):
+            raise AssertionError(f"{name}: eval {res['accuracy']}, {res['eval_loss']}")
+        peak, _ = train_peak(cfg)
+        if over.get("seq_impl", "ring") == "ring":
+            profile_lm(cfg=cfg, name="seq")
+        phase("seq", f"{name}: mesh (dp, sp) = ({res['workers']}, {cfg.sp}), {steps} "
+              f"steps, {res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+              f"{1e3 * res['wall_s'] / steps:.3f} ms/step; peak device memory of a "
+              f"training step {peak:.1f} MiB; losses first 8 {first:.4f}, last 8 "
+              f"{last:.4f}; eval accuracy {res['accuracy']:.4f}, eval loss "
+              f"{res['eval_loss']:.4f} (per token)")
+        runs[name] = losses
+    one = runs[SEQ_RUNS[0][0]]
+    for name, losses in list(runs.items())[1:]:
+        phase("seq", f"{name} against {SEQ_RUNS[0][0]}: max |loss difference| over "
+              f"{len(one)} bf16 steps {max(abs(a - b) for a, b in zip(losses, one)):.3g}")
+    seq_vs_cpu()
+
+
+def remat_path(card_line: str) -> dict:
+    """``--remat`` against the same run without it: ptb-transformer-large
+    sync flash (16 steps) and seq-sync (16 steps), resnet50-sync (8 steps).
+    Returns the remat flash run's launches per flash kernel."""
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import _ptb_windows, run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    lm = dataclasses.replace(TrainConfig().apply_preset("ptb-transformer-large"),
+                             epochs=1, train_size=16 * 8)
+    pairs = (("sync flash", dataclasses.replace(lm, algo="sync", attn_impl="flash")),
+             ("seq-sync", lm),
+             ("resnet50-sync", TrainConfig().apply_preset("resnet50-sync")))
+    flash = None
+    phase("remat", card_line)
+    for name, cfg in pairs:
+        out = {}
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            for k in fa.launches:
+                fa.launches[k] = 0
+            res = run(c)
+            launches = dict(fa.launches)
+            peak, peak_ms = train_peak(c)
+            out[remat] = res
+            phase("remat", f"{name}, remat {remat}: {res['trained_units']} steps, "
+                  f"{1e3 * res['wall_s'] / res['trained_units']:.3f} ms/step in the run; "
+                  f"a training step alone {peak_ms:.3f} ms, peak device memory "
+                  f"{peak:.1f} MiB")
+            if name == "sync flash" and remat:
+                flash = launches
+        a, b = out[False]["round_losses"], out[True]["round_losses"]
+        if not finite(a + b) or len(a) != len(b):
+            raise AssertionError(f"{name}: losses {a} and {b}")
+        rel = max(abs(p - q) / abs(p) for p, q in zip(a, b))
+        if rel > REMAT_TOL:
+            raise AssertionError(f"{name}: remat losses differ by {rel} relative")
+        phase("remat", f"{name}: losses with and without remat "
+              f"{'equal bit for bit' if a == b else 'differ'}, max relative "
+              f"difference {rel:.3g} (tolerance {REMAT_TOL}) over {len(a)} steps")
+    lm_steps = lm.train_size // lm.global_batch
+    x_va = _ptb_windows(lm)[2]
+    batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
+    eval_chunks = (len(x_va) // batch) * -(-batch // 64)
+    want = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_forward_sm90": 2 * LM_LAYERS * lm_steps + LM_LAYERS * eval_chunks,
+            "flash_dq_sm90": LM_LAYERS * lm_steps, "flash_dkv_sm90": LM_LAYERS * lm_steps}
+    if flash != want:
+        raise AssertionError(f"remat flash launches {flash} != {want}")
+    phase("remat", f"sync flash with remat: flash launches {json.dumps(flash)} = the "
+          f"forward twice a step (recomputed in the backward) x {LM_LAYERS} layers x "
+          f"{lm_steps} steps + {LM_LAYERS} x {eval_chunks} eval forwards")
+    return flash
 
 
 # BASELINE's other four configs (phases vgg, resnet, lstm, alexnet): the
@@ -1766,6 +1991,11 @@ def main() -> int:
         path = lm_launches if name.endswith("_sm90") else step_launches
         flash[name]["launches"] = path[name]
     timed("lm-profile", profile_lm)
+    timed("seq", seq_path, card_line)
+    remat = timed("remat", remat_path, card_line)
+    for name in flash:
+        if name.endswith("_sm90"):
+            flash[name]["launches"] += remat[name]
     kernel["launches"] += timed("resume-easgd", resume_easgd)["launches"]
     resumed = timed("resume-lm", resume_lm, card_line)
     for name in flash:

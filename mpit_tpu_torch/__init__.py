@@ -5,25 +5,29 @@ The JAX package ``mpit_tpu`` is the reference; this package imports only
 reference's module names, so each module's counterpart is found by name:
 
 - ``comm``      — topology (W workers stacked on one device, in one or
-  several processes) and the collectives over the worker dim.
+  several processes, on a 1-D or a (dp, sp) mesh) and the collectives over
+  the worker dim, ``ppermute_ring`` among them.
 - ``goptim``    — EASGD / EAMSGD / Downpour math.
 - ``optim``     — SGD, Adam and AdamW, global-norm clipping and the
   learning-rate schedules as ``optax`` computes them, in optax's state
   layout.
 - ``ops``       — hand-written CUDA kernels (the fused elastic update; flash
-  attention forward, dQ and dK/dV), each beside its plain PyTorch version.
+  attention forward, dQ and dK/dV), each beside its plain PyTorch version;
+  ring and Ulysses attention over a stacked sequence ring.
 - ``models``    — LeNet, the MLP, VGG-small, ResNet-50, AlexNet, the LSTM
   and transformer LMs (``get_model``), with flax-keyed parameter trees;
   ``convert`` carries weights between the two packages.
-- ``parallel``  — the EASGD, Downpour and sync data-parallel trainers, and
-  the host-async parameter server.
+- ``parallel``  — the EASGD, Downpour, sync data-parallel and
+  sequence-parallel (seq-sync) trainers, and the host-async parameter
+  server.
 - ``data``      — MNIST, CIFAR-10, ImageNet-like images and PTB or their
   synthetic stand-ins, batches, prefetch.
 - ``utils``     — parameter trees, config, metrics, checkpoints in the
   reference's file format, profiler traces, completion barrier.
 - ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
-  (or any BASELINE preset), or ``--preset ptb-transformer-large --algo
-  sync --attn-impl flash``.
+  (or any BASELINE preset), ``--preset ptb-transformer-large`` (seq-sync;
+  ``--sp 4``, ``--seq-impl ulysses``, ``--remat``), or ``--preset
+  ptb-transformer-large --algo sync --attn-impl flash``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

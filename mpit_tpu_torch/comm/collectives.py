@@ -13,8 +13,7 @@ across the processes. All functions take a tree (dict, list, tuple or
 tensor), as the reference's pytree-aware collectives do.
 
 The quantized exchange (``allreduce(quant=...)``, ``quantized_allreduce``,
-``quantized_psum_scatter``) is ROADMAP.md item A6, ``ppermute_ring`` item
-A9; both raise naming their item.
+``quantized_psum_scatter``) is ROADMAP.md item A6 and raises naming it.
 """
 
 from __future__ import annotations
@@ -192,5 +191,29 @@ def quantized_psum_scatter(*args, **kwargs):
     raise _not_ported("quantized_psum_scatter", "item A6")
 
 
-def ppermute_ring(*args, **kwargs):
-    raise _not_ported("ppermute_ring", "item A9")
+def ppermute_ring(tree: Any, shift: int = 1, axis_name: Optional[str] = None) -> Any:
+    """Ring neighbour exchange over the mesh axis ``axis_name`` (default
+    the worker axis): worker ``i`` on that axis sends to ``(i + shift) %
+    n``, its place on the other axes kept; bit for bit, returned stacked.
+    On one process that is ``torch.roll`` over the stacked dim (per axis of
+    the mesh); across processes the world's stack is gathered, rolled, and
+    this process keeps its own workers' slice."""
+    topo = _current_topology()
+    names, shape = topo.axis_names, topo.mesh_shape
+    axis = names[0] if axis_name is None else axis_name
+    if axis not in names:
+        raise ValueError(f"unknown mesh axis {axis_name!r}; have {names}")
+    dim = names.index(axis)
+    mine = topo.local_slice(topo.num_workers)
+
+    def leaf(a):
+        if a.shape[WORKER_DIM] != topo.local_workers:
+            raise ValueError(
+                f"leaf of shape {tuple(a.shape)} does not stack this "
+                f"process's {topo.local_workers} workers on dim {WORKER_DIM}"
+            )
+        g = _gather(a)
+        g = torch.roll(g.reshape(*shape, *g.shape[1:]), shift, dims=dim)
+        return g.reshape(topo.num_workers, *g.shape[len(shape):])[mine]
+
+    return tree_map(leaf, tree)

@@ -21,6 +21,13 @@ processes.
 Two identities, as in the reference: ``process_rank()``/``process_count()``
 name the host process, ``rank()``/``size()`` the workers.
 
+A world has a mesh shape over named axes, as the reference's mesh has:
+``("dp",)`` with ``(W,)`` by default, or ``("dp", "sp")`` with ``(dp, sp)``
+for sequence parallelism (``init(axis_names=..., mesh_shape=...)``). The
+stacked dim holds the workers in the mesh's row-major order, worker
+``d·sp + r`` at batch group ``d`` and sequence block ``r``. The sp ring
+lies inside one process's stacked workers; dp may span processes.
+
 Devices: an entry point runs on the card unless the caller passes
 ``device="cpu"``. Without CUDA, asking for the default device raises; the
 port never drops silently to the CPU.
@@ -34,14 +41,17 @@ constant, equal in both packages (``tests/test_torch_ps.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import threading
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
 # the stacked tensors' worker dim: what psum/pmean reduce over
 WORKER_DIM = 0
+# the first mesh axis, the workers' (the reference's default mesh axis)
+WORKER_AXIS = "dp"
 # workers per card when the caller names none: the reference's 8-device
 # test mesh, so the default run has the reference's W and α = 0.9/W
 DEFAULT_WORKERS = 8
@@ -76,6 +86,9 @@ class Topology:
     device: torch.device
     process_index: int = 0
     process_count: int = 1
+    axis_names: tuple = (WORKER_AXIS,)
+    # the world's mesh over ``axis_names`` (default ``(num_workers, 1, ...)``)
+    mesh_shape: Optional[tuple] = None
 
     def __post_init__(self):
         if self.num_workers % self.process_count:
@@ -83,6 +96,26 @@ class Topology:
                 f"{self.num_workers} workers do not split evenly over "
                 f"{self.process_count} processes"
             )
+        names = tuple(self.axis_names)
+        shape = (tuple(int(n) for n in self.mesh_shape)
+                 if self.mesh_shape is not None
+                 else (self.num_workers,) + (1,) * (len(names) - 1))
+        if len(shape) != len(names):
+            raise ValueError(f"mesh_shape {shape} does not match axes {names}")
+        if math.prod(shape) != self.num_workers:
+            raise ValueError(
+                f"mesh_shape {shape} does not cover {self.num_workers} workers"
+            )
+        inner = math.prod(shape[1:])
+        if self.local_workers % inner:
+            raise ValueError(
+                f"mesh_shape {shape}: the {names[1:]} extent {inner} must "
+                f"divide each process's {self.local_workers} stacked "
+                "workers (the sequence ring lies inside one process; only "
+                f"{names[0]!r} spans processes)"
+            )
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "mesh_shape", shape)
 
     @property
     def platform(self) -> str:
@@ -153,24 +186,29 @@ def _init_distributed(device: torch.device) -> torch.device:
 def init(
     num_workers: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
+    axis_names: Sequence[str] = (WORKER_AXIS,),
+    mesh_shape: Optional[Sequence[int]] = None,
 ) -> Topology:
     """Initialize the world. ``num_workers`` is the stacked W of this
-    process (default 8); in a process world the topology counts every
-    process's. Idempotent: a repeated call returns the existing topology
-    unless :func:`finalize` ran in between; explicit arguments on an
-    existing world raise, as in the reference."""
+    process (default 8, or the mesh's share of it when ``mesh_shape`` is
+    given); in a process world the topology counts every process's.
+    ``axis_names`` and ``mesh_shape`` are the reference's: the world's
+    mesh, e.g. ``axis_names=("dp", "sp"), mesh_shape=(2, 4)``.
+    Idempotent: a repeated call returns the existing topology unless
+    :func:`finalize` ran in between; explicit arguments on an existing
+    world raise, as in the reference."""
     global _topology, _distributed_initialized
     with _lock:
         if _topology is not None:
-            if num_workers is not None or device is not None:
+            explicit = (num_workers is not None or device is not None
+                        or tuple(axis_names) != (WORKER_AXIS,)
+                        or mesh_shape is not None)
+            if explicit:
                 raise RuntimeError(
                     "mpit_tpu_torch.init() called with explicit arguments "
                     "but a topology already exists; call finalize() first"
                 )
             return _topology
-        w = DEFAULT_WORKERS if num_workers is None else int(num_workers)
-        if w < 1:
-            raise ValueError(f"num_workers={num_workers} must be >= 1")
         dev = resolve_device(device)
         index, count = 0, 1
         if _should_init_distributed():
@@ -180,8 +218,18 @@ def init(
                 dev = _init_distributed(dev)
                 _distributed_initialized = True
             index, count = dist.get_rank(), dist.get_world_size()
+        if num_workers is not None:
+            w = int(num_workers)
+        elif mesh_shape is not None:
+            w = math.prod(mesh_shape) // count
+        else:
+            w = DEFAULT_WORKERS
+        if w < 1:
+            raise ValueError(f"num_workers={num_workers} must be >= 1")
         _topology = Topology(num_workers=w * count, device=dev,
-                             process_index=index, process_count=count)
+                             process_index=index, process_count=count,
+                             axis_names=tuple(axis_names),
+                             mesh_shape=mesh_shape)
         return _topology
 
 

@@ -13,7 +13,7 @@ _REGISTRY = {"lenet": LeNet, "mlp": MLP, "transformer": TransformerLM}
 # (conv | space_to_depth — mpit_tpu_torch/ops/stem.py)
 STEM_MODELS = ("resnet50", "resnet", "alexnet")
 
-# registry names whose model takes a remat= flag (not ported yet: it raises)
+# registry names whose model takes a remat= flag
 REMAT_MODELS = ("resnet50", "resnet", "transformer")
 
 

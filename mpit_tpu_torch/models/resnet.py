@@ -9,7 +9,9 @@ BatchNorm, bias-free convs, NCHW inside an NHWC interface, activations in
 max-pool, whose -inf pad splits (0, 1) on an even size as ``lax`` splits
 it; a stride-2 ``"SAME"`` 3×3 conv does the same with zeros. The global
 mean over H and W sums in float32 and returns ``compute_dtype``, as
-``jnp.mean`` of a bf16 array does.
+``jnp.mean`` of a bf16 array does. ``remat`` recomputes each Bottleneck's
+activations on the backward pass (``layers.rematerialized``); the
+parameter names stay the same.
 """
 
 from __future__ import annotations
@@ -22,9 +24,8 @@ from torch import nn
 
 from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
-    Conv, Dense, GroupNorm, Model, max_pool, nchw, reset_children,
+    Conv, Dense, GroupNorm, Model, max_pool, nchw, rematerialized, reset_children,
 )
-from mpit_tpu_torch.models.transformer import _not_ported
 from mpit_tpu_torch.ops.stem import add_stem, reset_stem, stem_conv
 
 
@@ -71,11 +72,10 @@ class ResNet50(Model):
         device=None,
     ):
         super().__init__()
-        if remat:
-            raise _not_ported("remat", "item A9")
         device = resolve_device(device)
         dt = self.compute_dtype = compute_dtype
         self.stem = stem
+        self.remat = remat
         add_stem(self, in_shape[-1], 64, 7, 2, 3, stem, dt, device)
         self.GroupNorm_0 = GroupNorm(64, dt, device)
         self.blocks = []
@@ -99,6 +99,7 @@ class ResNet50(Model):
         x = stem_conv(self, nchw(x, dt), 2, 3, self.stem, dt)
         x = max_pool(F.relu(self.GroupNorm_0(x)), 3, 2, "SAME")
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = rematerialized(block, x) if self.remat else block(x)
         x = x.float().mean((2, 3)).to(dt)
         return self.Dense_0(x).float()

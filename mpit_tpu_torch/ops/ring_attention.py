@@ -1,9 +1,21 @@
-"""Dense attention over the full sequence; counterpart of
-``mpit_tpu/ops/ring_attention.py``'s ``dense_attention``.
+"""Ring attention over a stacked sequence ring, and dense attention;
+counterpart of ``mpit_tpu/ops/ring_attention.py``.
 
-It is the transformer's ``attn_impl="xla"`` path and the plain reference
-the flash kernels are held against. Ring attention itself (the
-sequence-parallel schedule) is not ported yet (ROADMAP A9).
+The reference shards the sequence over a mesh axis: device ``r`` holds
+the contiguous block of global positions ``[r·T_l, (r+1)·T_l)``, and K/V
+blocks rotate around the ring with ``lax.ppermute``, each device folding
+every visiting block into its queries' online-softmax accumulator. On one
+card the ring is stacked, as the port's workers are: the ``sp`` blocks lie
+on dim 0 of ``(sp, B, T_l, H, D)`` tensors, and a rotation is
+``torch.roll`` over that dim (the ring lies inside one process; see
+``comm/topology.py``). The fold order, the f32 accumulators and the
+``-inf`` guards are the reference's, so the result is exact attention, not
+an approximation: only the order of the sums differs from
+:func:`dense_attention`.
+
+The reference's ring is jnp, not Pallas, so here it stays PyTorch
+operations. :func:`dense_attention` is also the transformer's
+``attn_impl="xla"`` path and the plain reference of the flash kernels.
 """
 
 from __future__ import annotations
@@ -26,3 +38,87 @@ def dense_attention(q, k, v, causal: bool = False):
         s = torch.where(mask, s, float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _online_block(m, l, acc, q, k, v, mask, scale):
+    """Fold one K/V block into the accumulator (``_online_block`` of the
+    reference). Scores ``(sp, B, H, Tq, Tk)``; ``m``, ``l`` ``(sp, B, H,
+    Tq)`` and ``acc`` ``(sp, B, H, Tq, D)``, all f32. A masked position
+    never contributes (exp(-inf) = 0), and a row with nothing unmasked so
+    far keeps l = 0."""
+    s = torch.einsum("sbqhd,sbkhd->sbhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask, s, float("-inf"))
+    m_new = torch.maximum(m, s.amax(-1))
+    # a -inf max (nothing unmasked yet) would make the exps below nan;
+    # every term it touches is exp(-inf - 0) = 0 anyway
+    safe_m = torch.where(torch.isneginf(m_new), 0.0, m_new)
+    p = torch.exp(s - safe_m[..., None])
+    correction = torch.where(torch.isneginf(m), 0.0, torch.exp(m - safe_m))
+    l_new = l * correction + p.sum(-1)
+    acc_new = acc * correction[..., None] + torch.einsum(
+        "sbhqk,sbkhd->sbhqd", p, v.float())
+    return m_new, l_new, acc_new
+
+
+def ring_attention(q, k, v, causal: bool = False):
+    """Exact attention over a stacked sequence ring: ``q``, ``k``, ``v``
+    are ``(sp, B, T_l, H, D)``, block ``r`` the global positions ``[r·T_l,
+    (r+1)·T_l)``. Returns the blocks of ``softmax(QKᵀ/√D)V``, same shape
+    and dtype as ``q``. ``causal`` masks by global positions. At step
+    ``i`` block ``r`` folds the K/V block that started at ``r − i``, as
+    the reference's ring does."""
+    if q.dim() != 5:
+        raise ValueError(f"expected (sp, B, T, H, D) inputs, got {tuple(q.shape)}")
+    sp, b, t_q, h, d = q.shape
+    t_k = k.shape[2]
+    dev = q.device
+    scale = 1.0 / (d ** 0.5)
+    m = torch.full((sp, b, h, t_q), float("-inf"), device=dev)
+    l = torch.zeros((sp, b, h, t_q), device=dev)
+    acc = torch.zeros((sp, b, h, t_q, d), device=dev)
+    ranks = torch.arange(sp, device=dev)
+    q_pos = ranks[:, None] * t_q + torch.arange(t_q, device=dev)
+    for i in range(sp):
+        mask = None
+        if causal:
+            src = (ranks - i) % sp
+            k_pos = src[:, None] * t_k + torch.arange(t_k, device=dev)
+            # (sp, 1, 1, Tq, Tk): per block, over batch and heads
+            mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None, None]
+        m, l, acc = _online_block(m, l, acc, q, k, v, mask, scale)
+        if i + 1 < sp:
+            k, v = torch.roll(k, 1, 0), torch.roll(v, 1, 0)
+    # causal rows always see >= 1 key (their own), so l > 0; the guard
+    # keeps a fully masked row finite instead of 0/0
+    out = acc / torch.clamp(l, min=torch.finfo(torch.float32).tiny)[..., None]
+    return out.permute(0, 1, 3, 2, 4).to(q.dtype)
+
+
+def to_blocks(a: torch.Tensor, sp: int) -> torch.Tensor:
+    """``(B, T, ...)`` → the stacked ring ``(sp, B, T/sp, ...)``: block
+    ``r`` holds positions ``[r·T/sp, (r+1)·T/sp)``."""
+    b, t = a.shape[:2]
+    if t % sp:
+        raise ValueError(f"sequence length {t} not divisible by sp={sp}")
+    return a.reshape(b, sp, t // sp, *a.shape[2:]).transpose(0, 1)
+
+
+def from_blocks(a: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_blocks`."""
+    sp, b, t_l = a.shape[:3]
+    return a.transpose(0, 1).reshape(b, sp * t_l, *a.shape[3:])
+
+
+def make_ring_attention(sp: int, causal: bool = False):
+    """Ring attention over global ``(B, T, H, D)`` tensors cut into ``sp``
+    stacked blocks (the reference's ``make_ring_attention`` over a mesh):
+    a callable returning the global result."""
+
+    def ring(q, k, v):
+        if q.dim() != 4:
+            raise ValueError(f"expected (B, T, H, D) inputs, got {tuple(q.shape)}")
+        blocks = (to_blocks(a, sp) for a in (q, k, v))
+        return from_blocks(ring_attention(*blocks, causal=causal))
+
+    return ring

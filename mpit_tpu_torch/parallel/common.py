@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from mpit_tpu_torch.data.prefetch import prefetch_to_device
-from mpit_tpu_torch.utils.params import tree_map
+from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -69,16 +69,53 @@ def check_accum_steps(accum) -> int:
     return int(accum)
 
 
-def accumulated_value_and_grad(loss_fn: Callable, accum: int) -> Callable:
+def autograd_value_and_grad(loss_fn: Callable) -> Callable:
+    """(params, x, y) -> (grads, loss) by ``torch.autograd.grad`` over
+    fresh leaf tensors; the loss comes back detached. The route for models
+    with remat: ``torch.func``'s transforms refuse the saved-tensor hooks
+    of a non-reentrant checkpoint (and an ``autograd.Function`` without
+    ``setup_context``, which the reentrant form is)."""
+
+    def value_and_grad(params, x, y):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), x, y)
+        grads = torch.autograd.grad(loss, leaves)
+        return tree_unflatten(params, list(grads)), loss.detach()
+
+    return value_and_grad
+
+
+def worker_value_and_grad(loss_fn: Callable, remat: bool = False) -> Callable:
+    """(stacked params, x, y) -> (stacked grads, per-worker losses) for the
+    W workers on dim 0: ``vmap`` of ``grad_and_value``, or with ``remat``
+    (which ``torch.func`` refuses) :func:`autograd_value_and_grad` worker by
+    worker, stacked."""
+    if not remat:
+        return torch.func.vmap(torch.func.grad_and_value(loss_fn))
+    vg = autograd_value_and_grad(loss_fn)
+
+    def stacked(params, x, y):
+        outs = [vg(tree_map(lambda a: a[i], params), x[i], y[i])
+                for i in range(x.shape[0])]
+        grads = tree_map(lambda *g: torch.stack(g), *(g for g, _ in outs))
+        return grads, torch.stack([loss for _, loss in outs])
+
+    return stacked
+
+
+def accumulated_value_and_grad(loss_fn: Callable, accum: int,
+                               remat: bool = False) -> Callable:
     """(params, x, y) -> (grads, loss), processing the batch as ``accum``
     sequential equal slices whose losses and gradients average: the
     full-batch mean for equal slices (no model here carries batch
     statistics), at 1/accum of the peak activation memory. The slices cut
     the batch as given; for the global batch of W equal worker shards the
     mean is the same as the reference's per-worker slicing. ``accum=1`` is
-    one ``grad_and_value``."""
+    one ``grad_and_value``, or with ``remat`` one
+    :func:`autograd_value_and_grad`."""
     accum = check_accum_steps(accum)
-    vg = torch.func.grad_and_value(loss_fn)
+    vg = (autograd_value_and_grad(loss_fn) if remat
+          else torch.func.grad_and_value(loss_fn))
     if accum == 1:
         return vg
 
@@ -327,11 +364,13 @@ def batched_count_eval(eval_fn, params, x, y, batch: int, group: int):
 EVAL_ROWS = 64
 
 
-def build_count_loss_eval(model, device) -> Callable:
+def build_count_loss_eval(model, device, split: Optional[Callable] = None) -> Callable:
     """(params, x, y) -> (correct-count sum, loss sum) over a batch, as the
     reference's sharded eval sums them over the workers: correct argmax
     predictions and summed cross-entropy over every label (every token for
-    an LM). The batch runs :data:`EVAL_ROWS` examples at a time."""
+    an LM). The batch runs :data:`EVAL_ROWS` examples at a time, each slice
+    of inputs and labels laid out by ``split`` first when given (the
+    sequence blocks of ``parallel/seq.py``)."""
 
     @torch.no_grad()
     def eval_fn(params, x, y):
@@ -339,6 +378,8 @@ def build_count_loss_eval(model, device) -> Callable:
         correct = torch.zeros((), dtype=torch.int64, device=device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for xs, ys in zip(x.split(EVAL_ROWS), y.split(EVAL_ROWS)):
+            if split is not None:
+                xs, ys = split(xs), split(ys)
             logits = model.apply(params, xs)
             correct += (logits.argmax(-1) == ys).sum()
             loss_sum += cross_entropy_sum(logits, ys)

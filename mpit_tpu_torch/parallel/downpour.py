@@ -79,7 +79,8 @@ class DownpourTrainer(common.RoundTrainer):
         self.loss_fn = (
             loss_fn if loss_fn is not None else common.default_loss_fn(model.apply)
         )
-        self._grad = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))
+        self._grad = common.worker_value_and_grad(
+            self.loss_fn, getattr(model, "remat", False))
         self._log_tag = "downpour"
 
     def init_state(

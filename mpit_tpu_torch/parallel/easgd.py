@@ -81,7 +81,8 @@ class EASGDTrainer(common.RoundTrainer):
             loss_fn if loss_fn is not None else common.default_loss_fn(model.apply)
         )
         # all W workers' (grads, loss) in one batched call
-        self._grad = torch.func.vmap(torch.func.grad_and_value(self.loss_fn))
+        self._grad = common.worker_value_and_grad(
+            self.loss_fn, getattr(model, "remat", False))
         self._log_tag = "easgd"
 
     def init_state(

@@ -48,8 +48,6 @@ from mpit_tpu_torch.transport import RecvTimeout
 from mpit_tpu_torch.utils.params import (
     FlatParamSpec,
     flatten_params,
-    tree_leaves,
-    tree_unflatten,
     unflatten_params,
 )
 from mpit_tpu_torch.utils.profiling import force_completion
@@ -86,12 +84,12 @@ def make_local_step(model, optimizer, loss_fn: Optional[Callable] = None):
                 )
             return fn(params, x, y)
 
+    value_and_grad = common.autograd_value_and_grad(loss_fn)
+
     def local_step(params, opt_state, x, y):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        loss = loss_fn(tree_unflatten(params, leaves), x, y)
-        grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+        grads, loss = value_and_grad(params, x, y)
         params, opt_state = optimizer.update(params, grads, opt_state)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return local_step
 

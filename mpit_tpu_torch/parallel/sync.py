@@ -12,7 +12,8 @@ the optimizer update. The batch must still divide by W and the per-worker
 shard by ``accum_steps``, as in the reference. In a world of several
 processes each takes its own workers' rows of the global batch, and the
 gradient and loss are averaged across the processes (one all-reduce of
-the flat gradient) before the update.
+the flat gradient) before the update. A model with ``remat`` takes its
+gradient through ``torch.autograd.grad`` (``common.autograd_value_and_grad``).
 
 The bucketed and quantized exchange (``quant``/``bucket_bytes``, the
 ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs) is not ported yet.
@@ -79,7 +80,8 @@ class DataParallelTrainer:
         self.topo = topo if topo is not None else _current_topology()
         self.accum_steps = common.check_accum_steps(accum_steps)
         self._vg = common.accumulated_value_and_grad(
-            common.default_loss_fn(model.apply), self.accum_steps
+            common.default_loss_fn(model.apply), self.accum_steps,
+            remat=getattr(model, "remat", False),
         )
         self._eval = common.build_count_loss_eval(model, self.topo.device)
 

@@ -7,8 +7,11 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   reference's aliases) on any dataset whose shapes fit (``mnist``,
   ``cifar10``, ``imagenet``, ``ptb``, each with its synthetic stand-in);
 - ``easgd``/``eamsgd`` and ``downpour`` (τ-round trainers over W stacked
-  workers) and ``sync`` (data-parallel), each with SGD, Adam or AdamW under
-  a constant, cosine or warmup-cosine schedule, and ``clip_norm``;
+  workers), ``sync`` (data-parallel) and ``seq-sync`` (sequence-parallel
+  sync over a ``(W/sp, sp)`` world, ring or Ulysses attention by
+  ``seq_impl``), each with SGD, Adam or AdamW under a constant, cosine or
+  warmup-cosine schedule, and ``clip_norm``; ``remat`` on the transformer
+  and ResNet-50;
 - ``ps-easgd``/``ps-eamsgd``/``ps-downpour``: the host-async parameter
   server, servers and clients as threads over the message plane
   ``transport`` names (``auto``: the C++ broker where it builds;
@@ -30,19 +33,23 @@ with the reference's wording, as the reference does.
     python -m mpit_tpu_torch.run --preset resnet50-sync
     python -m mpit_tpu_torch.run --preset ptb-lstm-easgd
     python -m mpit_tpu_torch.run --preset alexnet-downpour
-    python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large --sp 4 --seq-impl ulysses
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash --remat
     python -m mpit_tpu_torch.run --preset mnist-ps
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 1
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 2 --resume
 
 run on the card, with W = 8 workers stacked on it (easgd, downpour) or
-sharing its global batch (sync) unless the topology was initialized
-otherwise, or with ``clients`` client threads and ``servers`` server
-threads (ps-*), and print the results dict as one JSON line.
+sharing its global batch (sync; seq-sync as ``(W/sp, sp)``) unless the
+topology was initialized otherwise, or with ``clients`` client threads and
+``servers`` server threads (ps-*), and print the results dict as one JSON
+line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -54,7 +61,9 @@ import torch
 from mpit_tpu_torch.models import REMAT_MODELS
 from mpit_tpu_torch.utils.config import TrainConfig
 
-_ALGOS = ("easgd", "downpour", "sync", "ps-easgd", "ps-downpour")
+_ALGOS = ("easgd", "downpour", "sync", "seq-sync", "ps-easgd", "ps-downpour")
+# the per-step (no τ-round) algos the port has
+SYNC_ALGOS = ("sync", "seq-sync")
 
 
 def _not_ported(what: str, item: str):
@@ -71,8 +80,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise ValueError(
             f"unknown optimizer {cfg.optimizer!r}; have: sgd, adam, adamw"
         )
-    if cfg.remat and cfg.model.lower() in REMAT_MODELS:
-        raise _not_ported("remat", "item A9")
     if cfg.exchange_dtype not in ("none", "bf16"):
         raise ValueError(
             f"unknown exchange_dtype {cfg.exchange_dtype!r}; have: none, bf16"
@@ -173,6 +180,11 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
             num_heads=cfg.heads,
             d_ff=cfg.d_ff,
             max_len=max(cfg.seq_len, 32),
+            # seq-sync runs the model over the stacked blocks of the "sp"
+            # axis (ring or Ulysses attention)
+            seq_axis="sp" if algo == "seq-sync" else None,
+            seq_impl=cfg.seq_impl,
+            remat=cfg.remat,
             attn_impl=cfg.attn_impl,
             device=device,
         )
@@ -228,7 +240,7 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     """The trainer for ``cfg.algo`` (the kernels on by default for CUDA
     tensors)."""
     from mpit_tpu_torch.parallel import (
-        DataParallelTrainer, DownpourTrainer, EASGDTrainer,
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer, SeqParallelTrainer,
     )
 
     _check_supported(cfg)
@@ -249,6 +261,8 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
         )
     if algo == "sync":
         return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
+    if algo == "seq-sync":
+        return SeqParallelTrainer(model, opt, topo)
     if algo == "downpour":
         return DownpourTrainer(model, opt, topo, tau=cfg.tau,
                                staleness=cfg.staleness)
@@ -256,6 +270,19 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     return EASGDTrainer(
         model, opt, topo, alpha=cfg.alpha, tau=cfg.tau, exchange_dtype=xdtype
     )
+
+
+def _world_for(cfg: TrainConfig, topo):
+    """The world ``cfg`` needs over ``topo``'s stacked workers
+    (``mpit_tpu/run.py:324-360``): seq-sync a 2-D ``(W/sp, sp)`` mesh over
+    ``("dp", "sp")``, everything else the 1-D worker mesh."""
+    n = topo.num_workers
+    if cfg.resolved_algo() != "seq-sync":
+        return dataclasses.replace(topo, axis_names=("dp",), mesh_shape=(n,))
+    if n % cfg.sp:
+        raise ValueError(f"sp={cfg.sp} does not divide the {n} available workers")
+    return dataclasses.replace(topo, axis_names=("dp", "sp"),
+                               mesh_shape=(n // cfg.sp, cfg.sp))
 
 
 def _check_resume_layout(cfg: TrainConfig) -> None:
@@ -326,9 +353,10 @@ def run(cfg: TrainConfig, device=None) -> dict:
     else:
         w = topology().local_workers if is_initialized() else DEFAULT_WORKERS
         topo = Topology(num_workers=w, device=resolve_device(device))
+    topo = _world_for(cfg, topo)
     x_tr, y_tr, x_te, y_te, meta = _load_dataset(cfg)
     x_tr = cast_input_dtype(x_tr, cfg.input_dtype)
-    is_sync = cfg.resolved_algo() == "sync"
+    is_sync = cfg.resolved_algo() in SYNC_ALGOS
     tau = 1 if is_sync else cfg.tau
 
     model = build_model(cfg, topo.device, meta)
@@ -340,14 +368,16 @@ def run(cfg: TrainConfig, device=None) -> dict:
         total_updates = cfg.epochs * max(len(x_tr) // max(cfg.global_batch, 1), 1)
     opt = build_optimizer(cfg, total_updates)
     log = MetricsLogger(path=cfg.metrics_path, tag=cfg.algo, echo=False)
-    results: dict = {"config": cfg.to_json(), "workers": topo.num_workers,
+    # the worker axis's extent, as the reference counts it (dp on seq-sync)
+    workers = topo.mesh_shape[0]
+    results: dict = {"config": cfg.to_json(), "workers": workers,
                      "platform": topo.platform}
     if cfg.algo.startswith("ps-"):
         return _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log,
                              results, topo.device)
 
     trainer = build_trainer(cfg, model, opt, topo)
-    gb = max(cfg.global_batch // topo.num_workers, 1) * topo.num_workers
+    gb = max(cfg.global_batch // workers, 1) * workers
     gen = torch.Generator().manual_seed(cfg.seed)
     state = trainer.init_state(gen)
 
@@ -408,8 +438,9 @@ def run(cfg: TrainConfig, device=None) -> dict:
         results["eval_loss"] = eval_loss
     else:
         acc = trainer.evaluate(state, x_te, y_te)
-    if cfg.dataset == "ptb":
-        acc = acc / cfg.seq_len  # eval counts correct *tokens* per window
+    if cfg.dataset == "ptb" and cfg.resolved_algo() != "seq-sync":
+        # eval counts correct *tokens* per window; seq-sync's per token
+        acc = acc / cfg.seq_len
     results.update(
         accuracy=acc,
         final_loss=float(metrics["loss"]) if metrics is not None else None,
@@ -537,8 +568,9 @@ def main(argv=None) -> None:
         description="mpit_tpu_torch training on one CUDA card (e.g. "
         "--preset mnist-easgd --epochs 1, --preset cifar-vgg-sync, --preset "
         "resnet50-sync, --preset ptb-lstm-easgd, --preset alexnet-downpour, "
-        "--preset ptb-transformer-large --algo sync --attn-impl flash, or "
-        "--preset mnist-ps)",
+        "--preset ptb-transformer-large (--sp 4, --seq-impl ulysses, "
+        "--remat), --preset ptb-transformer-large --algo sync --attn-impl "
+        "flash, or --preset mnist-ps)",
     )
     print(json.dumps(run(cfg), default=repr))
 

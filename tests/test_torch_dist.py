@@ -193,8 +193,13 @@ def test_barriers_rank_and_the_unported_exchange(topo8, port8):
         port.bcast(torch.zeros(8, 2), root=8)
     with pytest.raises(NotImplementedError, match="item A6"):
         port.allreduce(torch.zeros(8, 2), quant="int8")
-    with pytest.raises(NotImplementedError, match="item A9"):
-        port.ppermute_ring(torch.zeros(8, 2))
+    # ppermute_ring: worker i's row lands at i + shift, as under shard_map
+    x = np.arange(16, dtype=np.float32).reshape(8, 2)
+    for shift in (1, -1, 3):
+        want = np.asarray(jax.jit(jax.shard_map(
+            lambda s: ref.ppermute_ring(s, shift=shift), mesh=topo8.mesh,
+            in_specs=P("dp"), out_specs=P("dp"), check_vma=False))(x))
+        assert np.array_equal(port.ppermute_ring(torch.from_numpy(x), shift).numpy(), want)
 
 
 _ACROSS = """
@@ -212,7 +217,8 @@ tree = {{k: torch.from_numpy(v[mine]) for k, v in full.items()}}
 out = {{name: {{k: v.tolist() for k, v in fn(tree).items()}} for name, fn in (
     ("sum", c.psum), ("avg", c.pmean), ("max", c.pmax), ("min", c.pmin),
     ("prod", lambda t: c.allreduce(t, c.PROD)), ("bcast", lambda t: c.bcast(t, 3)),
-    ("allgather", c.allgather), ("reduce_scatter", c.reduce_scatter))}}
+    ("allgather", c.allgather), ("reduce_scatter", c.reduce_scatter),
+    ("ppermute", lambda t: c.ppermute_ring(t, 3)))}}
 out["barrier"] = int(c.device_barrier())
 c.barrier()
 json.dump(out, open(sys.argv[2] + f".rank{{topo.process_index}}.json", "w"))
@@ -223,8 +229,8 @@ m.finalize()
 def test_collectives_across_two_gloo_processes(tmp_path):
     """The same collectives with the 4 workers split 2 + 2 over two gloo
     processes: each process's results equal one process's of all 4
-    (``reduce_scatter`` its own workers' shards), bit for bit where the
-    values are moved or picked."""
+    (``reduce_scatter`` and ``ppermute_ring`` its own workers' rows), bit
+    for bit where the values are moved or picked."""
     script = tmp_path / "across.py"
     script.write_text(_ACROSS.format(repo=REPO))
     r = _launch(2, [str(script), "2", str(tmp_path / "two")])
@@ -236,13 +242,13 @@ def test_collectives_across_two_gloo_processes(tmp_path):
         two = json.load(open(tmp_path / f"two.rank{rank}.json"))
         assert two["barrier"] == one["barrier"] == 4
         for name in ("sum", "avg", "max", "min", "prod", "bcast", "allgather",
-                     "reduce_scatter"):
+                     "reduce_scatter", "ppermute"):
             for k in ("a", "b"):
                 want = np.array(one[name][k])
-                if name == "reduce_scatter":
+                if name in ("reduce_scatter", "ppermute"):
                     want = want[2 * rank:2 * rank + 2]
                 got = np.array(two[name][k])
-                if name in ("max", "min", "bcast", "allgather"):
+                if name in ("max", "min", "bcast", "allgather", "ppermute"):
                     assert np.array_equal(got, want)
                 else:
                     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -248,8 +248,11 @@ def test_registry_names_aliases_and_refusals():
         models.get_model("nope")
     with pytest.raises(ValueError, match="unknown stem"):
         models.get_model("resnet50", stem="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="item A9"):
-        models.get_model("resnet50", remat=True, device="cpu")
+    # remat keeps the parameter tree (flax keeps it with explicit names)
+    kw = dict(stage_sizes=(1, 1), in_shape=(32, 32, 3), device="cpu")
+    rem = models.get_model("resnet50", remat=True, **kw)
+    assert rem.remat and list(dict(rem.named_parameters())) == list(
+        dict(models.get_model("resnet50", **kw).named_parameters()))
     with pytest.raises(NotImplementedError, match="item A10"):
         models.get_model("lstm", decode=True, device="cpu")
 

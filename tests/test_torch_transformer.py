@@ -176,8 +176,8 @@ def test_apply_takes_trees_of_any_depth():
 
 
 @pytest.mark.parametrize("kwargs,err", [
-    (dict(seq_axis="sp"), NotImplementedError),
-    (dict(remat=True), NotImplementedError),
+    (dict(seq_impl="allgather"), ValueError),
+    (dict(seq_axis="sp", seq_impl="Ring"), ValueError),
     (dict(moe_experts=4), NotImplementedError),
     (dict(decode=True), NotImplementedError),
     (dict(attn_impl="ring"), ValueError),
