@@ -89,6 +89,18 @@ non-zero before the result lines:
              per unit, elastic launches = rounds on the LSTM (counts set to
              0 just before), and a loss whose last quarter is below its first
              (ResNet and AlexNet in a longer leg: 1024 × 3 epochs, 2048 × 2).
+15b. dp-quant — the bucketed and quantized sync-DP exchange (after the
+             four BASELINE phases): the quant torch face on the card against
+             the numpy face, bit for bit, on random and edge inputs; the
+             reference's ``bench_dp`` leg (f32 LeNet, W = 8, 128 per worker,
+             SGD 0.05 with momentum 0.9, 64 KiB buckets, 3 warm-up and 60
+             timed steps) fused, raw bucketed, int8 and bf16: samples/s,
+             buckets, wire bytes a step (the counts the CPU tests pin), losses
+             finite and falling; one f32 int8 bucketed step, card vs CPU; then
+             ``resnet50-sync`` through ``run()`` under ``MPIT_DP_QUANT=int8``:
+             three profiled steps (busy share, top kernels), samples/s, ms per
+             step, peak memory of a training step, buckets and wire bytes, and
+             its losses beside the fused run's (the first equal).
 16. lm     — ``run()`` with ``ptb-transformer-large --algo sync --attn-impl
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
@@ -96,6 +108,13 @@ non-zero before the result lines:
              the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
 17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
+17b. zero  — ``ptb-transformer-large --algo zero-sync --attn-impl flash`` at
+             full width, cut as ``lm`` is (64 steps): tokens/s, ms per step,
+             peak memory of a training step, the losses against the ``lm``
+             phase's sync run (within ZERO_TOL, and whether equal bit for
+             bit), the sm90 flash launches (the ``lm`` phase's counts); then
+             16 steps under ``MPIT_DP_QUANT=int8`` (each worker's own
+             gradient, the quantized scatter), its launches counted alike.
 18. seq    — ``run()`` with ``ptb-transformer-large`` at its own algo,
              seq-sync, full width, W = 8, 64 steps each: (dp, sp) = (8, 1)
              with ring attention, (2, 4) ring, (2, 4) Ulysses; tokens/s, ms
@@ -134,9 +153,10 @@ non-zero before the result lines:
              trace holds the card's kernels, the elastic kernel once a round.
 24. dist   — ``python -m mpit_tpu_torch.launch --jax-distributed
              mpit_tpu_torch/examples/multihost_sync.py --algo sync`` with one
-             rank on the card (NCCL) and two on the CPU (gloo): exit 0, the
-             world's worker count, equal losses on every rank, a bit-exact
-             checkpoint round trip.
+             rank on the card (NCCL) and two on the CPU (gloo), and ``--algo
+             zero`` with one rank on the card: exit 0, the world's worker
+             count, equal losses on every rank, a bit-exact checkpoint round
+             trip.
 
 Each phase's seconds follow its lines. Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
@@ -1162,9 +1182,9 @@ def lm_config():
     )
 
 
-def lm_path(flash: dict) -> dict:
+def lm_path(flash: dict) -> tuple[dict, list]:
     """The transformer main path through ``run()``; returns the launches
-    per flash kernel."""
+    per flash kernel and the run's losses."""
     from mpit_tpu_torch.ops import flash_attention as fa
     from mpit_tpu_torch.run import _ptb_windows, run
 
@@ -1210,7 +1230,13 @@ def lm_path(flash: dict) -> dict:
           f"{LM_LAYERS} layers (+ {LM_LAYERS} x {eval_chunks} eval forwards); "
           f"step {step_ms:.3f} ms, of which the flash kernels (CUDA-event "
           f"times x {LM_LAYERS}) {attn_ms:.3f} ms ({100 * attn_ms / step_ms:.1f}%)")
-    return launches
+    return launches, losses
+
+
+def sync_step(trainer):
+    """A sync trainer's step on device tensors: the bucketed exchange's
+    when a knob engaged it, else the fused one."""
+    return trainer._bucketed_step if getattr(trainer, "bucketed", False) else trainer._step
 
 
 def built_step(cfg):
@@ -1354,11 +1380,12 @@ def train_peak(cfg, steps: int = 2) -> tuple[float, float]:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     trainer, state, x, y = built_step(cfg)
-    state, _ = trainer._step(state, x, y)
+    step = sync_step(trainer)
+    state, _ = step(state, x, y)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, m = trainer._step(state, x, y)
+        state, m = step(state, x, y)
     float(m["loss"])
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0) / steps
@@ -1469,6 +1496,227 @@ def remat_path(card_line: str) -> dict:
           f"forward twice a step (recomputed in the backward) x {LM_LAYERS} layers x "
           f"{lm_steps} steps + {LM_LAYERS} x {eval_chunks} eval forwards")
     return flash
+
+
+# --------------------------------------------------------------- A6 phases
+
+# the reference's bench_dp leg (bench.py:763): f32 LeNet, W = 8, 128 per
+# worker, SGD 0.05 with momentum 0.9, 64 KiB buckets, 3 warm-up steps
+DP_PER_WORKER, DP_BUCKET_BYTES, DP_WARM, DP_STEPS = 128, 64 << 10, 3, 60
+# wire bytes a step of LeNet's plan at 64 KiB buckets, W = 8, as the CPU
+# tests pin them against the reference's plan
+# (tests/test_torch_quant_collectives.py, tests/test_torch_sync.py)
+DP_WIRE_BYTES = {"off": 6_861_952, "int8": 1_715_680, "bf16": 3_430_976}
+# the zero phase against the lm phase's sync run, per step, relative: one
+# card's ZeRO takes the same global-batch gradient and updates a flat
+# vector by the same elementwise AdamW
+ZERO_TOL = 1e-5
+
+
+def quant_face_vs_numpy() -> int:
+    """The quant torch face on the card against the numpy face, bit for
+    bit: random rows of many magnitudes with edge values dropped in, and
+    rows of edge values (NaN, ±Inf, -0, subnormals, f32's largest,
+    3.39617752923046e+38, where bf16 rounding carries into +inf, an all-zero
+    row, an empty set of rows). Returns the cases checked."""
+    import numpy as np
+
+    from mpit_tpu_torch import quant
+
+    f32 = np.finfo(np.float32)
+    edges = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, 0.5, 2.5, -2.5, 127.5,
+                      f32.max, -f32.max, 3.39617752923046e+38, f32.tiny, 1e-40, -3e-42,
+                      1e-45], np.float32)
+    rng = np.random.default_rng(0)
+    cases = [np.tile(edges, (3, 1)), np.zeros((2, 7), np.float32),
+             np.zeros((3, 0), np.float32), np.full((2, 5), np.nan, np.float32),
+             (rng.standard_normal((5, 17)) * 1e-39).astype(np.float32)]
+    for _ in range(24):
+        a = (rng.standard_normal((int(rng.integers(1, 9)), int(rng.integers(1, 4096))))
+             * np.float32(10.0) ** rng.integers(-30, 30)).astype(np.float32)
+        for _ in range(int(rng.integers(0, 6))):
+            a[rng.integers(0, a.shape[0]), rng.integers(0, a.shape[1])] = edges[
+                rng.integers(len(edges))]
+        cases.append(a)
+
+    def same(t, a) -> bool:
+        a = np.asarray(a)  # tobytes() is C order, whatever the strides
+        got = t.cpu().numpy()
+        return got.dtype == a.dtype and got.shape == a.shape and got.tobytes() == a.tobytes()
+
+    with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+        for a in cases:
+            t = torch.from_numpy(a).cuda()
+            for mode in ("bf16", "int8"):
+                codes, scales = quant.quantize_rows(a, mode)
+                tc, ts = quant.quantize_rows_torch(t, mode)
+                q = quant.quantize(a, mode)
+                wc, ws = quant.quantize_torch(t, mode)
+                ok = (same(tc, codes) and same(ts, scales)
+                      and same(quant.dequantize_rows_torch(tc, ts, mode),
+                               quant.dequantize_rows(codes, scales, mode))
+                      and same(wc, q.data) and same(ws, np.float32(q.scale))
+                      and same(quant.dequantize_torch(wc, ws, mode), quant.dequantize(q)))
+                if not ok:
+                    raise AssertionError(f"dp-quant: the {mode} torch face on the card "
+                                         f"differs from the numpy face on {a!r}")
+    return len(cases)
+
+
+def dp_leg(mode: str, x, y) -> dict:
+    """The bench_dp leg of ``mode`` (``fused`` or a bucketed quant mode) on
+    the staged batch: warm-up, then DP_STEPS timed steps."""
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.models import LeNet
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import DataParallelTrainer
+
+    kw = {} if mode == "fused" else dict(quant=mode, bucket_bytes=DP_BUCKET_BYTES)
+    topo = topology()
+    trainer = DataParallelTrainer(LeNet(compute_dtype=torch.float32, device=topo.device),
+                                  SGD(0.05, 0.9), topo, **kw)
+    state = trainer.init_state(torch.Generator().manual_seed(0))
+    losses = []
+    for _ in range(DP_WARM):
+        state, m = trainer.step(state, x, y)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        state, m = trainer.step(state, x, y)
+        losses.append(m["loss"])
+    losses = [float(v) for v in losses]  # proves completion
+    wall = time.perf_counter() - t0
+    return {"samples_per_sec": DP_STEPS * len(x) / wall, "ms_per_step": 1e3 * wall / DP_STEPS,
+            "buckets": len(trainer._plan.buckets) if trainer.bucketed else None,
+            "wire_bytes_per_step": trainer.wire_bytes_per_step(), "losses": losses}
+
+
+def dp_quant_path(card_line: str) -> None:
+    """The bucketed and quantized sync-DP exchange on the card: the quant
+    torch face against the numpy face bit for bit; the reference's bench_dp
+    leg fused, raw, int8 and bf16; one f32 int8 step, card vs CPU; then
+    ``resnet50-sync`` through ``run()`` at full width under
+    ``MPIT_DP_QUANT=int8`` against the fused run."""
+    import numpy as np
+
+    from mpit_tpu_torch.data import load_mnist
+    from mpit_tpu_torch.models import get_model
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import DataParallelTrainer
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    phase("dp-quant", f"quant torch face on the card = numpy face, bit for bit, bf16 "
+          f"and int8, rows and whole arrays: {quant_face_vs_numpy()} inputs")
+    gb = DP_PER_WORKER * WORKERS
+    x_tr, y_tr, *_ = load_mnist(synthetic_train=max(2048, gb))
+    idx = np.random.default_rng(0).integers(0, len(x_tr), gb)
+    x, y = (torch.as_tensor(a[idx]).cuda() for a in (x_tr, y_tr))
+    legs = {}
+    for mode in ("fused", "off", "int8", "bf16"):
+        leg = legs[mode] = dp_leg(mode, x, y)
+        losses = leg.pop("losses")
+        if not finite(losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"dp-quant: {mode} losses {losses}")
+        if mode != "fused" and leg["wire_bytes_per_step"] != DP_WIRE_BYTES[mode]:
+            raise AssertionError(f"dp-quant: {mode} wire bytes {leg['wire_bytes_per_step']}"
+                                 f" != {DP_WIRE_BYTES[mode]}")
+        phase("dp-quant", f"bench_dp leg {mode}: {json.dumps(leg)}; loss {losses[0]:.4f} "
+              f"-> {losses[-1]:.4f} over {len(losses)} steps; {card_line}")
+    phase("dp-quant", f"int8 vs raw bucketed: {legs['int8']['samples_per_sec'] / legs['off']['samples_per_sec']:.3f}x "
+          f"samples/s for {legs['off']['wire_bytes_per_step'] / legs['int8']['wire_bytes_per_step']:.2f}x fewer "
+          f"wire bytes; raw bucketed vs fused {legs['off']['samples_per_sec'] / legs['fused']['samples_per_sec']:.3f}x")
+
+    rng = np.random.default_rng(1)
+    xs = rng.uniform(0, 1, (WORKERS * 4, 28, 28, 1)).astype(np.float32)
+    ys = rng.integers(0, 10, WORKERS * 4).astype(np.int32)
+    unit_vs_cpu("dp-quant", lambda dev: get_model("lenet", compute_dtype=torch.float32,
+                                                  device=dev),
+                lambda m, t: DataParallelTrainer(m, SGD(0.05, 0.9), t, quant="int8",
+                                                 bucket_bytes=DP_BUCKET_BYTES), xs, ys)
+
+    cfg = TrainConfig().apply_preset("resnet50-sync")
+    fused = run(cfg)
+    os.environ["MPIT_DP_QUANT"] = "int8"
+    try:
+        profile_units("dp-quant", cfg)
+        peak, peak_ms = train_peak(cfg)
+        trainer, state = built_step(cfg)[:2]
+        trainer._ensure_buckets(state.params)
+        res = run(cfg)
+    finally:
+        del os.environ["MPIT_DP_QUANT"]
+    a, b = fused["round_losses"], res["round_losses"]
+    if not finite(a + b) or len(a) != 8 or len(b) != 8:
+        raise AssertionError(f"dp-quant: resnet50-sync losses fused {a}, int8 {b}")
+    # the first loss is taken before any update: equal up to the sums' order
+    if abs(a[0] - b[0]) > 1e-3 * abs(a[0]):
+        raise AssertionError(f"dp-quant: first losses differ: fused {a[0]}, int8 {b[0]}")
+    steps = res["trained_units"]
+    phase("dp-quant", f"resnet50-sync, MPIT_DP_QUANT=int8, {steps} steps: "
+          f"{res['samples_per_sec']:.1f} samples/s, {1e3 * res['wall_s'] / steps:.3f} ms/step "
+          f"(fused {1e3 * fused['wall_s'] / fused['trained_units']:.3f}); a training step "
+          f"alone {peak_ms:.3f} ms, peak device memory {peak:.1f} MiB; {len(trainer._plan.buckets)} "
+          f"buckets, {trainer._plan.wire_bytes_per_step()} wire bytes a step per worker; "
+          f"losses int8 {[round(v, 4) for v in b]}, fused {[round(v, 4) for v in a]}; "
+          f"{card_line}")
+
+
+def zero_path(card_line: str, sync_losses: list) -> dict:
+    """``ptb-transformer-large --algo zero-sync --attn-impl flash`` at full
+    width, cut as the lm phase is: tokens/s, ms per step, peak memory, the
+    losses against the lm phase's sync run, the sm90 flash launches; then
+    16 steps under ``MPIT_DP_QUANT=int8`` (each worker's own gradient,
+    quantized scatter). Returns the flash launches of both runs."""
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.run import _ptb_windows, run
+
+    base = dataclasses.replace(lm_config(), algo="zero-sync")
+    x_va = _ptb_windows(base)[2]
+    batch = (min(1024, len(x_va)) // WORKERS) * WORKERS
+    eval_chunks = (len(x_va) // batch) * -(-batch // 64)
+    total = {k: 0 for k in fa.launches}
+    for quant, windows in (("off", LM_TRAIN_WINDOWS), ("int8", 16 * 8)):
+        cfg = dataclasses.replace(base, train_size=windows)
+        os.environ["MPIT_DP_QUANT"] = quant
+        try:
+            peak, peak_ms = train_peak(cfg)
+            for k in fa.launches:
+                fa.launches[k] = 0
+            res = run(cfg)
+            launches = dict(fa.launches)
+        finally:
+            del os.environ["MPIT_DP_QUANT"]
+        steps, losses = res["trained_units"], res["round_losses"]
+        want = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
+                "flash_forward_sm90": LM_LAYERS * (steps + eval_chunks),
+                "flash_dq_sm90": LM_LAYERS * steps, "flash_dkv_sm90": LM_LAYERS * steps}
+        if launches != want:
+            raise AssertionError(f"zero: quant {quant}: flash launches {launches} != {want}")
+        if not finite(losses):
+            raise AssertionError(f"zero: quant {quant}: non-finite loss {losses}")
+        first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
+        if quant == "off":
+            if not last < first:
+                raise AssertionError(f"zero: loss did not fall: {first} -> {last}")
+            rel = max(abs(p - q) / abs(q) for p, q in zip(losses, sync_losses, strict=True))
+            if rel > ZERO_TOL:
+                raise AssertionError(f"zero: losses differ from sync's by {rel} relative")
+            agree = (f"losses {'equal bit for bit to' if losses == sync_losses else 'differ from'}"
+                     f" the lm phase's sync run, max relative difference {rel:.3g} "
+                     f"(tolerance {ZERO_TOL})")
+        else:
+            agree = f"losses first 8 {first:.4f}, last 8 {last:.4f}"
+        for k in total:
+            total[k] += launches[k]
+        phase("zero", f"zero-sync, quant {quant}, {steps} steps: "
+              f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+              f"{1e3 * res['wall_s'] / steps:.3f} ms/step in the run; a training step "
+              f"alone {peak_ms:.3f} ms, peak device memory {peak:.1f} MiB; {agree}; "
+              f"eval loss {res['eval_loss']:.4f}; flash launches {json.dumps(launches)}; "
+              f"{card_line}")
+    return total
 
 
 # BASELINE's other four configs (phases vgg, resnet, lstm, alexnet): the
@@ -1590,7 +1838,7 @@ def profile_units(name: str, cfg, units: int = 3) -> None:
         classes = 1000 if cfg.dataset == "imagenet" else 10
         x = torch.rand((*lead, *_image_shape(cfg)), generator=gen, device="cuda")
         y = torch.randint(0, classes, lead, generator=gen, device="cuda")
-    unit = trainer._step if sync else trainer._round
+    unit = sync_step(trainer) if sync else trainer._round
     for _ in range(2):
         state, _ = unit(state, x, y)
     torch.cuda.synchronize()
@@ -1613,6 +1861,12 @@ def profile_units(name: str, cfg, units: int = 3) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         phase(name, f"  {e.self_device_time_total / 1e3 / units:9.4f} ms/{what} "
               f"{e.count // units:5d} calls/{what}  {e.key[:90]}")
+    # cuDNN's weight-gradient kernels: grouped ones run where a vmap batches
+    # convs over per-worker weights or per-worker inputs
+    wgrad = [e for e in kernels if "wgrad" in e.key.lower()]
+    phase(name, f"cuDNN wgrad kernels: {sum(e.count for e in wgrad) // units} calls/{what}, "
+          f"{sum(e.self_device_time_total for e in wgrad) / 1e3 / units:.4f} ms/{what}; "
+          + "; ".join(sorted({e.key[:70] for e in wgrad})[:4]))
 
 
 def baseline_path(name: str, card_line: str) -> int:
@@ -1908,9 +2162,11 @@ DIST_TIMEOUT_S = 300
 
 def dist_phase() -> None:
     """The process world through the launcher: one rank on the card (NCCL)
-    and two ranks on the CPU (gloo) of ``multihost_sync.py --algo sync``;
-    each exits 0 with the reference's worker count, and the two ranks'
-    losses are equal. One card cannot run NCCL across ranks."""
+    of ``multihost_sync.py --algo sync`` and ``--algo zero`` (ZeRO-1, Adam),
+    and two ranks on the CPU (gloo) of ``--algo sync``; each exits 0 with
+    the reference's worker count, the ranks' losses are equal and the
+    checkpoint round trip is bit-exact. One card cannot run NCCL across
+    ranks."""
     import tempfile
 
     script = os.path.join("mpit_tpu_torch", "examples", "multihost_sync.py")
@@ -1918,13 +2174,14 @@ def dist_phase() -> None:
            if not k.startswith(("MPIT_", "JAX_COORDINATOR", "CUDA_VISIBLE"))}
     env["CUDA_VISIBLE_DEVICES"] = os.environ["CUDA_VISIBLE_DEVICES"]
     with tempfile.TemporaryDirectory(prefix="dist-") as tmp:
-        for n, extra, backend in ((1, [], "nccl"), (2, ["--device", "cpu"], "gloo")):
-            out = os.path.join(tmp, f"n{n}")
+        for n, extra, backend, algo in ((1, [], "nccl", "sync"), (1, [], "nccl", "zero"),
+                                        (2, ["--device", "cpu"], "gloo", "sync")):
+            out = os.path.join(tmp, f"n{n}-{algo}")
             t0 = time.perf_counter()
             r = subprocess.run(
                 [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n),
-                 "--jax-distributed", script, "--algo", "sync", "--steps", "40",
-                 "--ckpt-dir", os.path.join(tmp, f"ck{n}"), "--out", out, *extra],
+                 "--jax-distributed", script, "--algo", algo, "--steps", "40",
+                 "--ckpt-dir", os.path.join(tmp, f"ck{n}-{algo}"), "--out", out, *extra],
                 cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
                 capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
             wall = time.perf_counter() - t0
@@ -1944,7 +2201,7 @@ def dist_phase() -> None:
             if f"device={device}" not in r.stdout:
                 raise AssertionError(f"dist: -n {n} did not run on {device}:\n{r.stdout}")
             phase("dist", f"launch -n {n} --jax-distributed multihost_sync.py --algo "
-                  f"sync ({backend}, {device}): exit 0 in {wall:.3f} s; num_workers "
+                  f"{algo} ({backend}, {device}): exit 0 in {wall:.3f} s; num_workers "
                   f"{ranks[0]['num_workers']}; loss {ranks[0]['first_loss']:.4f} -> "
                   f"{ranks[0]['last_loss']:.4f} on every rank; checkpoint round trip "
                   f"bit-exact on every rank")
@@ -1984,13 +2241,18 @@ def main() -> int:
     timed("ps-proc", ps_proc, card_line)
     for name in BASELINE:
         kernel["launches"] += timed(name, baseline_path, name, card_line)
-    lm_launches = timed("lm", lm_path, flash)
+    timed("dp-quant", dp_quant_path, card_line)
+    lm_launches, lm_losses = timed("lm", lm_path, flash)
     for name in flash:
         # the bf16 LM runs the sm90 kernels; the CUDA-core ones run on the
         # f32 path, whose launches the step phase counted
         path = lm_launches if name.endswith("_sm90") else step_launches
         flash[name]["launches"] = path[name]
     timed("lm-profile", profile_lm)
+    zero = timed("zero", zero_path, card_line, lm_losses)
+    for name in flash:
+        if name.endswith("_sm90"):
+            flash[name]["launches"] += zero[name]
     timed("seq", seq_path, card_line)
     remat = timed("remat", remat_path, card_line)
     for name in flash:

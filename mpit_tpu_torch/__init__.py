@@ -6,7 +6,10 @@ reference's module names, so each module's counterpart is found by name:
 
 - ``comm``      — topology (W workers stacked on one device, in one or
   several processes, on a 1-D or a (dp, sp) mesh) and the collectives over
-  the worker dim, ``ppermute_ring`` among them.
+  the worker dim, ``ppermute_ring`` and the quantized allreduce and
+  reduce-scatter among them.
+- ``quant``     — the int8/bf16 quantization kernels: a numpy face (the PS
+  wire) and a torch face (the collectives), bit for bit alike.
 - ``goptim``    — EASGD / EAMSGD / Downpour math.
 - ``optim``     — SGD, Adam and AdamW, global-norm clipping and the
   learning-rate schedules as ``optax`` computes them, in optax's state
@@ -17,7 +20,8 @@ reference's module names, so each module's counterpart is found by name:
 - ``models``    — LeNet, the MLP, VGG-small, ResNet-50, AlexNet, the LSTM
   and transformer LMs (``get_model``), with flax-keyed parameter trees;
   ``convert`` carries weights between the two packages.
-- ``parallel``  — the EASGD, Downpour, sync data-parallel and
+- ``parallel``  — the EASGD, Downpour, sync data-parallel (fused, or the
+  bucketed and quantized exchange), ZeRO-1 (zero-sync) and
   sequence-parallel (seq-sync) trainers, and the host-async parameter
   server.
 - ``data``      — MNIST, CIFAR-10, ImageNet-like images and PTB or their
@@ -27,7 +31,8 @@ reference's module names, so each module's counterpart is found by name:
 - ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
   (or any BASELINE preset), ``--preset ptb-transformer-large`` (seq-sync;
   ``--sp 4``, ``--seq-impl ulysses``, ``--remat``), or ``--preset
-  ptb-transformer-large --algo sync --attn-impl flash``.
+  ptb-transformer-large --algo sync|zero-sync --attn-impl flash``; sync
+  DP's exchange takes ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

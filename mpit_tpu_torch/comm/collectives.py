@@ -13,7 +13,16 @@ across the processes. All functions take a tree (dict, list, tuple or
 tensor), as the reference's pytree-aware collectives do.
 
 The quantized exchange (``allreduce(quant=...)``, ``quantized_allreduce``,
-``quantized_psum_scatter``) is ROADMAP.md item A6 and raises naming it.
+``quantized_psum_scatter``) is the reference's two-hop scheme: each worker's
+flat leaf cut into W destination rows, each row quantized against its own
+scale (``quant.quantize_rows_torch``), an all-to-all of the codes (on the
+stacked dim a transpose of ``(W_src, W_dst, chunk)``; across processes one
+``all_to_all_single``), an f32 sum of the dequantized rows in source order,
+one re-quantization of each reduced chunk and an all-gather of its codes.
+They take the world's W from the stacked dim and the process count, so a
+trainer's own ``Topology`` needs no global one.
+bf16 codes cross processes as bytes: neither gloo nor NCCL carries
+``uint16``.
 """
 
 from __future__ import annotations
@@ -22,9 +31,10 @@ from typing import Any, Optional
 
 import torch
 
+from mpit_tpu_torch import quant as _quant
 from mpit_tpu_torch.comm.topology import WORKER_DIM, current_process, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
-from mpit_tpu_torch.utils.params import tree_map
+from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
 # Reduction ops, mirroring mpiT.SUM/PROD/MAX/MIN (AVG is SUM / W)
 SUM = "sum"
@@ -32,12 +42,6 @@ PROD = "prod"
 MAX = "max"
 MIN = "min"
 AVG = "avg"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mpit_tpu_torch yet (ROADMAP.md, {item})"
-    )
 
 
 def _across(t: torch.Tensor, op: str) -> torch.Tensor:
@@ -85,9 +89,17 @@ def pmin(tree: Any) -> Any:
 
 def allreduce(tree: Any, op: str = SUM, quant: Optional[str] = None) -> Any:
     """``mpiT.Allreduce`` over the workers: SUM, AVG, MAX, MIN or PROD
-    (exact for any sign)."""
+    (exact for any sign).
+
+    ``quant="bf16"|"int8"`` runs the quantized scheme
+    (:func:`quantized_allreduce`) instead: SUM/AVG only, and lossy per
+    call (one rounding a hop, not fed back at this level). A caller that
+    reduces one stream repeatedly holds the residuals and calls
+    :func:`quantized_allreduce` itself, as ``parallel/sync.py`` does."""
     if quant not in (None, "off"):
-        raise _not_ported(f"allreduce(quant={quant!r})", "item A6")
+        if op not in (SUM, AVG):
+            raise ValueError(f"quantized allreduce supports SUM/AVG, not {op!r}")
+        return quantized_allreduce(tree, mode=quant, mean=(op == AVG))[0]
     if op == AVG:
         return pmean(tree)
     if op not in (SUM, PROD, MAX, MIN):
@@ -102,10 +114,103 @@ def _gather(a: torch.Tensor) -> torch.Tensor:
         return a
     import torch.distributed as dist
 
-    a = a.contiguous()
+    dtype = a.dtype
+    a = _on_wire(a.contiguous())
     parts = [torch.empty_like(a) for _ in range(current_process()[1])]
     dist.all_gather(parts, a)
-    return torch.cat(parts, WORKER_DIM)
+    return torch.cat(parts, WORKER_DIM).view(dtype)
+
+
+def _on_wire(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as gloo and NCCL carry it: uint16 (bf16 codes) as its bytes."""
+    return a.view(torch.int8) if a.dtype == torch.uint16 else a
+
+
+def _all_to_all(a: torch.Tensor) -> torch.Tensor:
+    """The reference's ``lax.all_to_all(split_axis=0, concat_axis=0)`` over
+    the world's workers: ``a`` is ``(W_local, W, ...)``, row ``j`` of each
+    source worker bound for worker ``j``; returns ``(W_local, W, ...)``,
+    each local worker's rows from every source worker in world order."""
+    if not in_process_group():
+        return a.transpose(0, 1).contiguous()
+    import torch.distributed as dist
+
+    procs = current_process()[1]
+    wl, tail = a.shape[0], a.shape[2:]
+    # (src, dst process, dst, ...) -> (dst process, dst, src, ...)
+    send = a.reshape(wl, procs, wl, *tail).permute(1, 2, 0, *range(3, a.dim() + 1))
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_on_wire(recv), _on_wire(send))
+    # (src process, dst, src, ...) -> (dst, src process, src, ...)
+    recv = recv.permute(1, 0, 2, *range(3, a.dim() + 1))
+    return recv.reshape(wl, procs * wl, *tail)
+
+
+def _fold_sum(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over ``dim`` as a left fold in index order: the order in
+    which the reference's reduction sums its rows on XLA:CPU, so the
+    residuals that depend on the sum agree to the bit."""
+    parts = a.unbind(dim)
+    acc = parts[0]
+    for part in parts[1:]:
+        acc = acc + part
+    return acc
+
+
+def _check_mode(mode: str, what: str) -> None:
+    if mode not in ("bf16", "int8"):
+        raise ValueError(f"quantized {what} mode {mode!r}: expected 'bf16' or 'int8'")
+
+
+def _quantized_hop1(c: torch.Tensor, mode: str):
+    """First hop of the quantized exchange on ``c`` (W_local, W·chunk):
+    each worker's W destination rows quantized against their own scales
+    and exchanged. Returns (the f32 rows each local worker received, (W_local,
+    W, chunk), and what each sent, dequantized, (W_local, W·chunk))."""
+    wl, n = c.shape
+    w = wl * current_process()[1]
+    codes, scales = _quant.quantize_rows_torch(c.reshape(wl * w, n // w), mode)
+    sent = _quant.dequantize_rows_torch(codes, scales, mode).reshape(wl, n)
+    codes_x = _all_to_all(codes.reshape(wl, w, -1))
+    scales_x = (_all_to_all(scales.reshape(wl, w, 1)) if mode == "int8"
+                else scales.reshape(wl, w, 1))  # bf16 is scale-free
+    return _quant.dequantize_rows_torch(codes_x, scales_x, mode), sent
+
+
+def quantized_rows_allreduce(c: torch.Tensor, mode: str, mean: bool = False,
+                             r2: Optional[torch.Tensor] = None):
+    """The quantized allreduce of the stacked rows ``c`` (W_local, n_pad),
+    ``n_pad`` divisible by W: both hops, every worker's chunk reduced in f32
+    and re-quantized once. Returns ``(reduced (n_pad,), sent (W_local,
+    n_pad), new_r2 (W_local, chunk))``: what the receivers summed of each
+    worker's row, dequantized (so the caller's level-1 residual is ``c -
+    sent``), and the level-2 residual of each worker's owned chunk (``r2``
+    compensates the re-quantization before it, as in the reference's
+    ``_quant_allreduce_leaf``)."""
+    w = c.shape[0] * current_process()[1]
+    contrib, sent = _quantized_hop1(c, mode)
+    red = _fold_sum(contrib, 1)
+    if mean:
+        red = red / w
+    if r2 is not None:
+        red = red + r2
+    rcodes, rscale = _quant.quantize_rows_torch(red, mode)
+    new_r2 = red - _quant.dequantize_rows_torch(rcodes, rscale, mode)
+    g_codes = _gather(rcodes)
+    g_scales = _gather(rscale) if mode == "int8" else None
+    out = _quant.dequantize_rows_torch(g_codes, g_scales, mode).reshape(-1)
+    return out, sent, new_r2
+
+
+def raw_rows_allreduce(rows: torch.Tensor) -> torch.Tensor:
+    """The mean of the stacked rows (W_local, n_pad) over the world's
+    workers by the same two hops at f32 width (reduce-scatter by
+    all-to-all, f32 sum, all-gather): the raw bucketed exchange."""
+    wl, n = rows.shape
+    w = wl * current_process()[1]
+    red = _fold_sum(_all_to_all(rows.reshape(wl, w, n // w)), 1) / w
+    return _gather(red).reshape(-1)
 
 
 def allgather(tree: Any, tiled: bool = False) -> Any:
@@ -183,12 +288,55 @@ def barrier(name: str = "mpit_barrier") -> None:
         dist.barrier()
 
 
-def quantized_allreduce(*args, **kwargs):
-    raise _not_ported("quantized_allreduce", "item A6")
+def quantized_allreduce(tree: Any, mode: str = "int8", mean: bool = False,
+                        residual: Any = None, residual2: Any = None) -> tuple:
+    """Quantized SUM (or mean) allreduce over the workers, with two-level
+    error feedback; ``mpit_tpu/comm/collectives.py:178``.
+
+    Leaves are stacked ``(W_local, ...)``. Returns ``(reduced, new_residual,
+    new_residual2)``: the reduced tree once (every worker holds it alike;
+    each leaf in its own dtype), the level-1 residuals stacked like
+    ``tree`` (each worker's contribution ``c = x + residual`` less what the
+    receivers summed of it) and the level-2 residuals stacked ``(W_local,
+    ceil(n/W))`` per leaf (the re-quantization error of each worker's owned
+    chunk, compensated into the next call). With ``None`` residuals the new
+    ones are still returned."""
+    _check_mode(mode, "allreduce")
+    leaves = tree_leaves(tree)
+    res = tree_leaves(residual) if residual is not None else [None] * len(leaves)
+    res2 = tree_leaves(residual2) if residual2 is not None else [None] * len(leaves)
+    out, new_res, new_res2 = [], [], []
+    for x, r, r2 in zip(leaves, res, res2):
+        c = x.to(torch.float32)
+        if r is not None:
+            c = c + r.to(torch.float32)
+        wl, shape = c.shape[0], c.shape[1:]
+        flat = c.reshape(wl, -1)
+        n = flat.shape[1]
+        flat = torch.nn.functional.pad(flat, (0, -n % (wl * current_process()[1])))
+        reduced, sent, nr2 = quantized_rows_allreduce(flat, mode, mean, r2)
+        out.append(reduced[:n].reshape(shape).to(x.dtype))
+        new_res.append(c - sent[:, :n].reshape(c.shape))
+        new_res2.append(nr2)
+    return (tree_unflatten(tree, out), tree_unflatten(tree, new_res),
+            tree_unflatten(tree, new_res2))
 
 
-def quantized_psum_scatter(*args, **kwargs):
-    raise _not_ported("quantized_psum_scatter", "item A6")
+def quantized_psum_scatter(flat: torch.Tensor, mode: str = "int8") -> torch.Tensor:
+    """Quantized ``psum_scatter(tiled=True)`` of the stacked flat vectors
+    ``flat`` (W_local, n), ``n`` divisible by W: the first hop of
+    :func:`quantized_allreduce` alone; worker ``k`` keeps the f32 sum of
+    every worker's quantized chunk ``k``, returned stacked ``(W_local,
+    n/W)``. Stateless (no error feedback), as the reference's ZeRO scatter
+    is. ``mode="off"`` is the raw reduce-scatter."""
+    if mode in (None, "off"):
+        return reduce_scatter(flat)
+    _check_mode(mode, "psum_scatter")
+    w = flat.shape[0] * current_process()[1]
+    if flat.shape[1] % w:
+        raise ValueError(f"flat size {flat.shape[1]} does not split over {w} workers")
+    contrib, _ = _quantized_hop1(flat.to(torch.float32), mode)
+    return _fold_sum(contrib, 1)
 
 
 def ppermute_ring(tree: Any, shift: int = 1, axis_name: Optional[str] = None) -> Any:

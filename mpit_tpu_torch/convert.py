@@ -69,6 +69,25 @@ def leaf_to_flax(t: torch.Tensor) -> np.ndarray:
     return _c_order(a)
 
 
+def flax_flat(t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    """``t`` flattened behind its first ``lead`` dims, its elements in the
+    flax layout's order (a conv kernel, 4-D behind the lead, read as HWIO):
+    a flat vector that means what the reference's ``ravel_pytree`` means,
+    so its chunks, blocks and checkpoint bytes are the reference's."""
+    if t.dim() - lead == 4:
+        t = t.permute(*range(lead), lead + 2, lead + 3, lead + 1, lead)
+    return t.reshape(*t.shape[:lead], -1)
+
+
+def from_flax_flat(flat: torch.Tensor, shape) -> torch.Tensor:
+    """The inverse of :func:`flax_flat` for one leaf of the port's
+    ``shape``, C-contiguous."""
+    if len(shape) == 4:
+        o, i, kh, kw = shape
+        return flat.reshape(kh, kw, i, o).permute(3, 2, 0, 1).contiguous()
+    return flat.reshape(shape)
+
+
 def to_flax(params: Any) -> Any:
     """The port's tree -> the flax layout as numpy arrays."""
     return tree_map(leaf_to_flax, params)

@@ -7,13 +7,18 @@ counterpart of ``examples/multihost_sync.py``.
 Each rank joins the process group the launcher wires (gloo between CPU
 processes, NCCL between cards: one card per rank), stacks its
 ``--local-devices`` workers, and the trainers' collectives (the sync
-step's gradient mean, EASGD's diff sum, Downpour's update mean) reduce
-the local workers first, then cross the processes. The world has
+step's gradient mean or its bucketed exchange under ``MPIT_DP_QUANT``,
+ZeRO's reduce-scatter and all-gather, EASGD's diff sum, Downpour's update
+mean) reduce the local workers first, then cross the processes. ``--algo
+zero`` runs ZeRO-1 with Adam: each rank holds its workers' share of the
+optimizer state. The world has
 ``--local-devices`` × N workers, as the reference's mesh spans its
 processes. Every rank feeds the same global batch stream and takes its
 own workers' rows. With ``--ckpt-dir`` the run ends with a checkpoint that
 every rank gathers, rank 0 writes and every rank restores; ``--out``
-writes ``<out>.rank<i>.json`` with the reference's keys.
+writes ``<out>.rank<i>.json`` with the reference's keys; the round
+trip is bit-exact when every leaf of the restored state (params and
+optimizer state, gathered) equals the trained one's.
 """
 
 import argparse
@@ -48,16 +53,11 @@ def main():
     import mpit_tpu_torch
     from mpit_tpu_torch.data import load_mnist
     from mpit_tpu_torch.models import MLP
-    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.optim import SGD, Adam
     from mpit_tpu_torch.parallel import (
-        DataParallelTrainer, DownpourTrainer, EASGDTrainer,
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer, ZeroDataParallelTrainer,
     )
 
-    if ns.algo == "zero":
-        raise NotImplementedError(
-            "--algo zero (ZeRO-1 sharded optimizer state) is not ported to "
-            "mpit_tpu_torch yet (ROADMAP.md, item A6)"
-        )
     topo = mpit_tpu_torch.init(num_workers=ns.local_devices, device=ns.device)
     w = topo.num_workers
     print(
@@ -72,6 +72,8 @@ def main():
     model = MLP(hidden=(64,), compute_dtype=torch.float32, device=topo.device)
     if ns.algo == "sync":
         trainer = DataParallelTrainer(model, SGD(0.2), topo)
+    elif ns.algo == "zero":
+        trainer = ZeroDataParallelTrainer(model, Adam(1e-3), topo)
     elif ns.algo == "easgd":
         trainer = EASGDTrainer(model, SGD(0.2, momentum=0.9), topo, tau=4)
     else:
@@ -82,7 +84,7 @@ def main():
     first = last = None
     for step in range(ns.steps):
         idx = np.random.default_rng(step).integers(0, len(x), tau * gb)
-        if ns.algo == "sync":
+        if ns.algo in ("sync", "zero"):
             state, m = trainer.step(state, x[idx], y[idx])
         else:  # one whole τ-round per step
             state, m = trainer.step(
@@ -98,19 +100,18 @@ def main():
     ckpt_roundtrip = None
     if ns.ckpt_dir:
         from mpit_tpu_torch.utils.checkpoint import (
-            restore_checkpoint, save_checkpoint,
+            restore_checkpoint, save_checkpoint, state_to_host,
         )
         from mpit_tpu_torch.utils.params import tree_leaves
 
-        # the gather of the stacked workers runs on EVERY process; only
-        # process 0 writes
+        # the gather of the stacked workers (and of ZeRO's optimizer
+        # shares) runs on EVERY process; only process 0 writes
         save_checkpoint(ns.ckpt_dir, state, step=ns.steps)
         restored, step = restore_checkpoint(ns.ckpt_dir, state)
         assert step == ns.steps
-        params = getattr(state, "worker_params", None) or state.params
-        back = getattr(restored, "worker_params", None) or restored.params
-        ckpt_roundtrip = all(torch.equal(a, b) for a, b in
-                             zip(tree_leaves(params), tree_leaves(back)))
+        # the whole state as the checkpoint holds it (collective: gathers)
+        want, got = (tree_leaves(state_to_host(s)) for s in (state, restored))
+        ckpt_roundtrip = all(np.array_equal(a, b) for a, b in zip(want, got, strict=True))
         print(f"[rank {topo.process_index}] checkpoint roundtrip "
               f"bit-exact={ckpt_roundtrip}", flush=True)
     if ns.out:

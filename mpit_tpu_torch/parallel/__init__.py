@@ -1,6 +1,7 @@
 """Trainers of the port: EASGD / EAMSGD and Downpour over stacked workers,
-sync DP, sequence-parallel sync over a (dp, sp) world, and the host-async
-parameter server (servers and clients as threads)."""
+sync DP (fused, or the bucketed and quantized exchange), ZeRO-1 sync DP,
+sequence-parallel sync over a (dp, sp) world, and the host-async parameter
+server (servers and clients as threads)."""
 
 from mpit_tpu_torch.parallel.downpour import DownpourState, DownpourTrainer  # noqa: F401
 from mpit_tpu_torch.parallel.easgd import EASGDState, EASGDTrainer  # noqa: F401
@@ -9,3 +10,4 @@ from mpit_tpu_torch.parallel.pserver import PServer  # noqa: F401
 from mpit_tpu_torch.parallel.ps_trainer import AsyncPSTrainer  # noqa: F401
 from mpit_tpu_torch.parallel.seq import SeqParallelTrainer  # noqa: F401
 from mpit_tpu_torch.parallel.sync import DataParallelTrainer  # noqa: F401
+from mpit_tpu_torch.parallel.zero import ZeroDataParallelTrainer  # noqa: F401

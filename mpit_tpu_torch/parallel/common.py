@@ -103,6 +103,74 @@ def worker_value_and_grad(loss_fn: Callable, remat: bool = False) -> Callable:
     return stacked
 
 
+def per_worker_value_and_grad(loss_fn: Callable, accum: int = 1,
+                              remat: bool = False) -> Callable:
+    """(params, x, y) -> (stacked grads, per-worker losses) for params
+    shared by the W workers and their batches stacked on dim 0 of ``x``
+    and ``y``: each worker's own (accumulated) mean-loss gradient, as the
+    reference's ``shard_map`` computes it before any exchange. ``vmap``
+    with the params unbatched, so they are not copied W times; with
+    ``remat`` (which ``torch.func`` refuses) worker by worker through
+    :func:`autograd_value_and_grad`, stacked."""
+    vg = accumulated_value_and_grad(loss_fn, accum, remat=remat)
+    if not remat:
+        return torch.func.vmap(vg, in_dims=(None, 0, 0))
+
+    def stacked(params, x, y):
+        outs = [vg(params, x[i], y[i]) for i in range(x.shape[0])]
+        grads = tree_map(lambda *g: torch.stack(g), *(g for g, _ in outs))
+        return grads, torch.stack([loss for _, loss in outs])
+
+    return stacked
+
+
+def assert_elementwise_optimizer(optimizer, context: str) -> None:
+    """Reject an optimizer whose update of one leaf depends on other
+    leaves (``mpit_tpu/parallel/common.py:55``): ZeRO updates each chunk of
+    the flat vector on its own, so a global-norm clip chained in would
+    clip every chunk by its own norm, with no error. The probe is the
+    reference's: gradient trees differing only in leaf ``b`` (scaled, then
+    NaN) must leave leaf ``a``'s update bit for bit alike. An optimizer the
+    probe cannot run passes."""
+    probe = {"a": torch.full((2,), 1e8), "b": torch.full((2,), 1e8)}
+    try:
+        st = optimizer.init(probe)
+        u1, _ = optimizer.update(probe, dict(probe), st)
+        u2, _ = optimizer.update(probe, {"a": probe["a"], "b": probe["b"] * 3.0}, st)
+        u3, _ = optimizer.update(probe, {"a": probe["a"],
+                                         "b": torch.full((2,), float("nan"))}, st)
+    except Exception:
+        return
+    if not (torch.equal(u1["a"], u2["a"]) and torch.equal(u1["a"], u3["a"])):
+        raise ValueError(
+            f"{context} requires an ELEMENTWISE optimizer: this one's "
+            "update for a leaf depends on other leaves' gradients "
+            "(global-norm clipping?), which silently differs when each "
+            "chunk of the flat vector is updated on its own. Pass "
+            "clip_norm= to the trainer instead."
+        )
+
+
+def check_clip_norm(clip_norm):
+    """The clip_norm guard of the ZeRO trainer."""
+    if clip_norm is not None and clip_norm <= 0:
+        raise ValueError(f"clip_norm={clip_norm} must be > 0")
+    return clip_norm
+
+
+def clip_by_global_norm_in_mesh(chunks: torch.Tensor, max_norm: float):
+    """Global-norm clipping of a flat gradient held as stacked chunks
+    ``(W_local, chunk)`` (``mpit_tpu/parallel/common.py:119``): each
+    worker's chunk sum of squares, summed over the workers (and across
+    processes) as the reference's ``psum`` sums them, is the norm of the
+    whole vector; the scale is ``max_norm / norm`` above ``max_norm``.
+    Returns ``(clipped chunks, norm)``."""
+    sq = world_sum(chunks.to(torch.float32).square().sum(1))
+    norm = sq.sqrt()
+    scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
+    return (chunks * scale).to(chunks.dtype), norm
+
+
 def accumulated_value_and_grad(loss_fn: Callable, accum: int,
                                remat: bool = False) -> Callable:
     """(params, x, y) -> (grads, loss), processing the batch as ``accum``
@@ -152,6 +220,23 @@ def check_global_batch(global_batch: int, num_workers: int) -> int:
 
 def accuracy(logits: np.ndarray, labels: np.ndarray) -> float:
     return float((np.argmax(logits, -1) == labels).mean())
+
+
+def world_sum(per_worker: torch.Tensor) -> torch.Tensor:
+    """The sum of this process's per-worker values (on dim 0), in worker
+    order, then across the world's processes: what every worker of the
+    reference's ``psum`` gets."""
+    from mpit_tpu_torch.comm.collectives import _fold_sum
+    from mpit_tpu_torch.comm.topology import in_process_group
+
+    total = _fold_sum(per_worker, 0)
+    if not in_process_group():
+        return total
+    import torch.distributed as dist
+
+    total = total.clone()
+    dist.all_reduce(total)
+    return total
 
 
 def world_mean(loss: torch.Tensor, topo) -> torch.Tensor:

@@ -71,6 +71,7 @@ class SeqParallelTrainer(DataParallelTrainer):
                 f"with seq_axis={self.seq_axis!r})"
             )
         self.accum_steps = 1
+        self.bucketed = False  # the reference's seq trainer has no exchange knobs
         # the mean cross-entropy over every token of every block
         self.loss_fn = (loss_fn if loss_fn is not None
                         else common.default_loss_fn(model.apply))

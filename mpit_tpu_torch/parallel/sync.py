@@ -16,31 +16,109 @@ the flat gradient) before the update. A model with ``remat`` takes its
 gradient through ``torch.autograd.grad`` (``common.autograd_value_and_grad``).
 
 The bucketed and quantized exchange (``quant``/``bucket_bytes``, the
-``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs) is not ported yet.
+``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs; ``mpit_tpu/parallel/
+sync.py:541``): when either engages it, each worker takes its own gradient
+(``common.per_worker_value_and_grad``), the flat gradient (in the
+reference's element order, ``convert.flax_flat``) is cut into buckets of
+whole leaves in flatten order, and each bucket crosses two hops,
+reduce-scatter by all-to-all then all-gather, at f32 width or as int8 or
+bf16 codes (``comm.collectives.quantized_rows_allreduce``) with two-level
+error feedback: ``_residual`` on each worker's contribution, ``_residual2``
+on its owned reduced chunk. They are trainer attributes, not part of the
+checkpoint, as in the reference. The replicated update then runs on the
+gathered mean. With both knobs off the step is the fused one above,
+unchanged.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
+from mpit_tpu_torch import quant as _quant
+from mpit_tpu_torch.analysis import runtime as _runtime
+from mpit_tpu_torch.comm.collectives import quantized_rows_allreduce, raw_rows_allreduce
 from mpit_tpu_torch.comm.topology import Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
+from mpit_tpu_torch.convert import flax_flat, from_flax_flat
 from mpit_tpu_torch.parallel import common
-from mpit_tpu_torch.utils.params import tree_map
+from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
+
+# bucket size when bucketing is engaged without an explicit size: big
+# enough that a hop's dispatch amortizes, small enough that a ResNet-scale
+# gradient still splits into several buckets
+DEFAULT_DP_BUCKET_BYTES = 4 << 20
 
 
-def _check_exchange(quant, bucket_bytes) -> None:
-    env_quant = os.environ.get("MPIT_DP_QUANT") or "off"
-    env_bucket = os.environ.get("MPIT_DP_BUCKET_BYTES") or None
-    if (quant or env_quant) != "off" or (bucket_bytes or env_bucket) is not None:
-        raise NotImplementedError(
-            "the bucketed/quantized sync-DP exchange (quant, bucket_bytes, "
-            "MPIT_DP_QUANT, MPIT_DP_BUCKET_BYTES) is not ported to "
-            "mpit_tpu_torch yet (ROADMAP.md, item A6)"
-        )
+def dp_quant_from_env(env=None) -> str:
+    """``MPIT_DP_QUANT`` (off|bf16|int8; default off): the sync-DP
+    gradient exchange's quantization mode."""
+    env = os.environ if env is None else env
+    mode = env.get("MPIT_DP_QUANT") or "off"
+    if mode not in _quant.QUANT_MODES:
+        raise ValueError(f"MPIT_DP_QUANT={mode!r}: expected one of {_quant.QUANT_MODES}")
+    return mode
+
+
+def dp_bucket_bytes_from_env(env=None) -> Optional[int]:
+    """``MPIT_DP_BUCKET_BYTES`` (positive int, f32 bytes per bucket): set,
+    it engages the bucketed exchange even unquantized. None when unset."""
+    env = os.environ if env is None else env
+    raw = env.get("MPIT_DP_BUCKET_BYTES")
+    if raw is None or raw == "":
+        return None
+    b = int(raw)
+    if b < 1:
+        raise ValueError(f"MPIT_DP_BUCKET_BYTES={b} must be >= 1")
+    return b
+
+
+class _Bucket:
+    """One gradient bucket: leaves ``[lo, hi)`` as one flat f32 vector of
+    ``n`` elements, padded to ``n_pad`` (divisible by W; each worker owns
+    a ``chunk``-element row of the reduce-scatter)."""
+
+    __slots__ = ("lo", "hi", "n", "n_pad", "chunk", "hop_bytes")
+
+    def __init__(self, lo: int, hi: int, n: int, w: int, mode: str):
+        self.lo, self.hi, self.n = lo, hi, n
+        self.n_pad = n + (-n % w)
+        self.chunk = self.n_pad // w
+        # per-worker bytes of ONE hop: the padded bucket at wire width,
+        # plus W block scales for int8
+        self.hop_bytes = self.n_pad * _quant.MODE_ITEMSIZE[mode] + (
+            4 * w if mode == "int8" else 0)
+
+
+class _BucketPlan:
+    """Leaf layout and bucket partition of one parameter tree: buckets are
+    runs of flatten-order leaves closed once their f32 bytes reach the
+    target; a leaf is never split (one larger than the target is a bucket
+    of its own)."""
+
+    def __init__(self, params, w: int, bucket_bytes: int, mode: str):
+        leaves = tree_leaves(params)
+        self.template = params
+        self.shapes = [tuple(leaf.shape) for leaf in leaves]
+        self.dtypes = [leaf.dtype for leaf in leaves]
+        self.sizes = [math.prod(sh) for sh in self.shapes]
+        self.buckets: List[_Bucket] = []
+        lo, acc = 0, 0
+        for i, sz in enumerate(self.sizes):
+            acc += sz * 4
+            if acc >= bucket_bytes:
+                self.buckets.append(_Bucket(lo, i + 1, sum(self.sizes[lo:i + 1]), w, mode))
+                lo, acc = i + 1, 0
+        if lo < len(self.sizes):
+            self.buckets.append(_Bucket(lo, len(self.sizes), sum(self.sizes[lo:]), w, mode))
+
+    def wire_bytes_per_step(self) -> int:
+        """Per-worker bytes the exchange puts on the wire each step (two
+        hops per bucket)."""
+        return sum(2 * b.hop_bytes for b in self.buckets)
 
 
 def _mean_across_processes(tree: Any, processes: int) -> Any:
@@ -63,6 +141,9 @@ class DataParallelTrainer:
       optimizer: ``optim.SGD``/``Adam``/``AdamW`` (``init``/``update``).
       topo: the topology (default: the current one); W sets the batch check.
       accum_steps: gradient accumulation slices per step (exact math).
+      quant, bucket_bytes: the bucketed exchange (default: the
+        ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs); see the module
+        docstring. With both off the step is the fused one.
     """
 
     def __init__(
@@ -74,15 +155,32 @@ class DataParallelTrainer:
         quant: Optional[str] = None,
         bucket_bytes: Optional[int] = None,
     ):
-        _check_exchange(quant, bucket_bytes)
         self.model = model
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         self.accum_steps = common.check_accum_steps(accum_steps)
-        self._vg = common.accumulated_value_and_grad(
-            common.default_loss_fn(model.apply), self.accum_steps,
-            remat=getattr(model, "remat", False),
-        )
+        self.quant = dp_quant_from_env() if quant is None else quant
+        if self.quant not in _quant.QUANT_MODES:
+            raise ValueError(f"quant={self.quant!r}: expected one of {_quant.QUANT_MODES}")
+        bb = bucket_bytes if bucket_bytes is not None else dp_bucket_bytes_from_env()
+        self.bucketed = self.quant != "off" or bb is not None
+        self.bucket_bytes = int(bb) if bb is not None else DEFAULT_DP_BUCKET_BYTES
+        if self.bucket_bytes < 1:
+            raise ValueError(f"bucket_bytes={self.bucket_bytes} must be >= 1")
+        if self.bucketed and any(k.startswith("MPIT_OBS_") for k in os.environ):
+            raise NotImplementedError(
+                "observability of the bucketed exchange (an MPIT_OBS_* knob) is "
+                "not ported to mpit_tpu_torch yet (ROADMAP.md, item A12)")
+        loss_fn = common.default_loss_fn(model.apply)
+        remat = getattr(model, "remat", False)
+        self._vg = common.accumulated_value_and_grad(loss_fn, self.accum_steps,
+                                                     remat=remat)
+        # the bucketed path's: each worker's own gradient
+        self._worker_vg = common.per_worker_value_and_grad(loss_fn, self.accum_steps,
+                                                           remat=remat)
+        self._plan: Optional[_BucketPlan] = None
+        self._residual: Optional[list] = None
+        self._residual2: Optional[list] = None
         self._eval = common.build_count_loss_eval(model, self.topo.device)
 
     def init_state(
@@ -116,14 +214,72 @@ class DataParallelTrainer:
         params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
         return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
 
+    # -- the bucketed exchange ---------------------------------------------
+
+    def wire_bytes_per_step(self) -> Optional[int]:
+        """Per-worker exchange bytes a step (None until the first bucketed
+        step has built the plan, and on the fused path)."""
+        return self._plan.wire_bytes_per_step() if self._plan is not None else None
+
+    def _ensure_buckets(self, params) -> None:
+        if self._plan is not None:
+            return
+        w, wl = self.topo.num_workers, self.topo.local_workers
+        self._plan = plan = _BucketPlan(params, w, self.bucket_bytes, self.quant)
+        if self.quant != "off":
+            dev = self.topo.device
+            self._residual = [torch.zeros(wl, b.n_pad, device=dev) for b in plan.buckets]
+            self._residual2 = [torch.zeros(wl, b.chunk, device=dev) for b in plan.buckets]
+
+    def _bucketed_step(self, state: common.TrainState, x: torch.Tensor, y: torch.Tensor):
+        """One step of the bucketed exchange on device tensors (this
+        process's rows); returns the new state and ``{"loss", "param_norm",
+        "update_norm"}`` as device scalars."""
+        self._ensure_buckets(state.params)
+        plan, wl = self._plan, self.topo.local_workers
+        grads, losses = self._worker_vg(
+            state.params, x.reshape(wl, -1, *x.shape[1:]), y.reshape(wl, -1, *y.shape[1:]))
+        loss = common.world_sum(losses) / self.topo.num_workers
+        leaves = tree_leaves(grads)
+        flats, res_sq = [], []
+        for k, b in enumerate(plan.buckets):
+            row = torch.cat([flax_flat(leaves[i], 1).to(torch.float32)
+                             for i in range(b.lo, b.hi)], 1)
+            row = torch.nn.functional.pad(row, (0, b.n_pad - b.n))
+            if self.quant == "off":
+                flat = raw_rows_allreduce(row)
+            else:
+                c = row + self._residual[k]
+                flat, sent, self._residual2[k] = quantized_rows_allreduce(
+                    c, self.quant, mean=True, r2=self._residual2[k])
+                self._residual[k] = c - sent
+                res_sq.append(self._residual[k].square().sum())
+            flats.append(flat[:b.n])
+        flat_all = torch.cat(flats)
+        mean = [from_flax_flat(part, shape).to(dtype) for part, shape, dtype in zip(
+            torch.split(flat_all, plan.sizes), plan.shapes, plan.dtypes)]
+        params, opt_state = self.optimizer.update(
+            state.params, tree_unflatten(plan.template, mean), state.opt_state)
+        old, new = tree_leaves(state.params), tree_leaves(params)
+        pn = torch.stack([p.to(torch.float32).square().sum() for p in new]).sum().sqrt()
+        un = torch.stack([(p.to(torch.float32) - q.to(torch.float32)).square().sum()
+                          for p, q in zip(new, old)]).sum().sqrt()
+        checker = _runtime.active_checker()
+        if res_sq and checker is not None and getattr(checker, "numerics", False):
+            # the numerics sanitizer (RT104) reads the EF residual norm
+            _runtime.note_residual_norm(
+                "sync-dp.elastic", float(torch.stack(res_sq).sum().sqrt()))
+        return (common.TrainState(params, opt_state, state.step + 1),
+                {"loss": loss, "param_norm": pn, "update_norm": un})
+
     def step(self, state, x_global, y_global):
         """One sync-DP step on a global batch (leading dim divisible by W,
         per-worker shard divisible by accum_steps)."""
         self._check(x_global)
         x, y = self._shard(x_global, y_global)
         dev = self.topo.device
-        return self._step(state, torch.as_tensor(x).to(dev),
-                          torch.as_tensor(y).to(dev))
+        step_fn = self._bucketed_step if self.bucketed else self._step
+        return step_fn(state, torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
 
     def evaluate(self, state, x, y, batch: int = 1024):
         """Full-dataset eval over the reference's batches; returns
@@ -139,7 +295,8 @@ class DataParallelTrainer:
         """Epoch loop over a :class:`Batches` (``start_epoch``/``skip_steps``
         re-enter its schedule on resume); returns (state, last_metrics)."""
         return common.synced_fit_loop(
-            self._step, batches, state, device=self.topo.device, check=self._check,
+            self._bucketed_step if self.bucketed else self._step, batches, state,
+            device=self.topo.device, check=self._check,
             shard=self._shard, epochs=epochs, start_epoch=start_epoch, skip_steps=skip_steps,
             on_step=on_step, prefetch=prefetch,
         )

@@ -15,9 +15,12 @@ Codes and scales are bit for bit the reference's
   give code 0, ±Inf saturates to ±127, and an empty or all-zero chunk
   gets scale 1.
 
-The reference's jnp face (the quantized collective exchange) becomes a
-torch face with ROADMAP.md item A6; it is not here yet. This module
-imports numpy only.
+The reference's jnp face (``mpit_tpu/quant.py:185-272``, the quantized
+collective exchange) is the torch face here: :func:`quantize_torch`,
+:func:`dequantize_torch`, :func:`quantize_rows_torch` and
+:func:`dequantize_rows_torch` give the numpy face's codes and scales bit
+for bit on the CPU and on the card. This module imports numpy at module
+scope and torch inside the torch face.
 """
 
 from __future__ import annotations
@@ -170,3 +173,113 @@ def dequantize_rows(codes: np.ndarray, scales, mode: str) -> np.ndarray:
         data = np.asarray(codes, dtype=np.int8)
         return data.astype(np.float32) * np.asarray(scales, np.float32)
     raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+# -- device (torch) face ---------------------------------------------------
+#
+# The torch twins return (codes, scales) pairs, as the reference's jnp face
+# does: the collective path needs one scale per destination row of the
+# reduce-scatter, which a scalar-field QuantArray cannot carry. Three rules
+# keep them bit-equal to the numpy face on any device:
+#
+# - bf16 rounds on the float32 bit pattern in int64 (torch has no uint32
+#   add or shift); the 32-bit wrap of numpy's uint32 add is a mask;
+# - int8 divides ``a / scale`` in f32 by a tensor on the input's device
+#   (PyTorch turns a division by a CPU scalar on CUDA into a multiply by
+#   the reciprocal, which rounds differently), and clamps to ±127 before
+#   the cast (a float out of int8's range casts to garbage on CUDA);
+# - ``torch.round`` rounds half to even, as ``np.rint`` does. A NaN code
+#   (a NaN input, or 0 / 0 where a scale underflows) becomes 0.
+
+
+def _bf16_codes(a):
+    """uint16 round-to-nearest-even high halves of f32 ``a``."""
+    import torch
+
+    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = (((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFFFFFF) >> 16)
+    # to int16's range first, so the narrowing cast is exact everywhere
+    return (hi - ((hi >> 15) << 16)).to(torch.int16).view(torch.uint16)
+
+
+def _bf16_values(codes):
+    """f32 values of uint16 high halves (the low halves zero)."""
+    import torch
+
+    hi = codes.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    u = hi << 16
+    return (u - ((u >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def _int8_codes(a, scale):
+    import torch
+
+    q = torch.round(a / scale).clamp_(-127, 127)
+    return torch.nan_to_num_(q, nan=0.0).to(torch.int8)
+
+
+def _int8_scale(amax):
+    import torch
+
+    return torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                       torch.ones_like(amax))
+
+
+def quantize_torch(x, mode: str):
+    """Torch twin of :func:`quantize` (``quantize_jnp``): ``(codes,
+    scale)`` for one tensor with ONE scale, a 0-d f32 tensor on its device
+    (1.0 for bf16). Codes and scale are the numpy face's bit for bit."""
+    import torch
+
+    a = torch.as_tensor(x).to(torch.float32)
+    if mode == "bf16":
+        return _bf16_codes(a), torch.ones((), dtype=torch.float32, device=a.device)
+    if mode == "int8":
+        finite = torch.where(torch.isfinite(a), a.abs(), torch.zeros_like(a))
+        amax = (finite.amax() if a.numel()
+                else torch.zeros((), dtype=torch.float32, device=a.device))
+        scale = _int8_scale(amax)
+        return _int8_codes(a, scale), scale
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def dequantize_torch(codes, scale, mode: str):
+    """float32 reconstruction of a torch ``(codes, scale)`` pair."""
+    import torch
+
+    if mode == "bf16":
+        return _bf16_values(codes)
+    if mode == "int8":
+        return codes.to(torch.float32) * torch.as_tensor(
+            scale, dtype=torch.float32, device=codes.device)
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def quantize_rows_torch(x, mode: str):
+    """Torch twin of :func:`quantize_rows` (``quantize_rows_jnp``): each
+    row of a 2-D tensor gets its own absmax scale. Returns ``(codes (B,
+    n), scales (B, 1))``; bf16 scales are ones (carried for shape
+    uniformity, never sent)."""
+    import torch
+
+    a = torch.as_tensor(x).to(torch.float32)
+    if a.dim() != 2:
+        raise ValueError(f"quantize_rows wants a 2-D array, got {tuple(a.shape)}")
+    ones = torch.ones((a.shape[0], 1), dtype=torch.float32, device=a.device)
+    if mode == "bf16":
+        return _bf16_codes(a), ones
+    if mode == "int8":
+        if a.numel():
+            finite = torch.where(torch.isfinite(a), a.abs(), torch.zeros_like(a))
+            amax = finite.amax(dim=1, keepdim=True)
+        else:
+            amax = torch.zeros_like(ones)
+        scales = _int8_scale(amax)
+        return _int8_codes(a, scales), scales
+    raise ValueError(f"unknown quantization mode {mode!r}")
+
+
+def dequantize_rows_torch(codes, scales, mode: str):
+    """float32 reconstruction of a blockwise pair (scales broadcast over
+    rows; ignored for bf16)."""
+    return dequantize_torch(codes, scales, mode)

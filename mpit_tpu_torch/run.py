@@ -7,7 +7,9 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   reference's aliases) on any dataset whose shapes fit (``mnist``,
   ``cifar10``, ``imagenet``, ``ptb``, each with its synthetic stand-in);
 - ``easgd``/``eamsgd`` and ``downpour`` (τ-round trainers over W stacked
-  workers), ``sync`` (data-parallel) and ``seq-sync`` (sequence-parallel
+  workers), ``sync`` (data-parallel; the bucketed and quantized exchange
+  under ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES``), ``zero-sync`` (sync
+  with ZeRO-1 sharded optimizer state) and ``seq-sync`` (sequence-parallel
   sync over a ``(W/sp, sp)`` world, ring or Ulysses attention by
   ``seq_impl``), each with SGD, Adam or AdamW under a constant, cosine or
   warmup-cosine schedule, and ``clip_norm``; ``remat`` on the transformer
@@ -36,6 +38,8 @@ with the reference's wording, as the reference does.
     python -m mpit_tpu_torch.run --preset ptb-transformer-large
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --sp 4 --seq-impl ulysses
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash --remat
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo zero-sync --attn-impl flash
+    MPIT_DP_QUANT=int8 python -m mpit_tpu_torch.run --preset resnet50-sync
     python -m mpit_tpu_torch.run --preset mnist-ps
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 1
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 2 --resume
@@ -61,9 +65,10 @@ import torch
 from mpit_tpu_torch.models import REMAT_MODELS
 from mpit_tpu_torch.utils.config import TrainConfig
 
-_ALGOS = ("easgd", "downpour", "sync", "seq-sync", "ps-easgd", "ps-downpour")
+_ALGOS = ("easgd", "downpour", "sync", "zero-sync", "seq-sync", "ps-easgd",
+          "ps-downpour")
 # the per-step (no τ-round) algos the port has
-SYNC_ALGOS = ("sync", "seq-sync")
+SYNC_ALGOS = ("sync", "zero-sync", "seq-sync")
 
 
 def _not_ported(what: str, item: str):
@@ -75,7 +80,7 @@ def _not_ported(what: str, item: str):
 def _check_supported(cfg: TrainConfig) -> None:
     algo = cfg.resolved_algo()
     if algo not in _ALGOS:
-        raise _not_ported(f"algo={cfg.algo!r}", "items A6-A11")
+        raise _not_ported(f"algo={cfg.algo!r}", "item A11")
     if cfg.optimizer not in ("sgd", "adam", "adamw"):
         raise ValueError(
             f"unknown optimizer {cfg.optimizer!r}; have: sgd, adam, adamw"
@@ -208,7 +213,8 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
     decays over ``total_updates``. With ``clip_norm`` the clip is chained in
     front: under easgd, downpour and ps-* each worker clips its own local
     gradient (the reference's "async semantics"), under sync the reduced
-    one."""
+    one. zero-sync takes ``clip_norm`` in its trainer instead (its update
+    runs on chunks, where the chain is refused)."""
     from mpit_tpu_torch import optim
 
     _check_supported(cfg)
@@ -231,7 +237,7 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
         opt = optim.Adam(lr)
     else:
         opt = optim.AdamW(lr, weight_decay=cfg.weight_decay)
-    if cfg.clip_norm is not None:
+    if cfg.clip_norm is not None and cfg.resolved_algo() != "zero-sync":
         opt = optim.chain(optim.clip_by_global_norm(cfg.clip_norm), opt)
     return opt
 
@@ -241,6 +247,7 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     tensors)."""
     from mpit_tpu_torch.parallel import (
         DataParallelTrainer, DownpourTrainer, EASGDTrainer, SeqParallelTrainer,
+        ZeroDataParallelTrainer,
     )
 
     _check_supported(cfg)
@@ -261,6 +268,9 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
         )
     if algo == "sync":
         return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
+    if algo == "zero-sync":
+        return ZeroDataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum,
+                                       clip_norm=cfg.clip_norm)
     if algo == "seq-sync":
         return SeqParallelTrainer(model, opt, topo)
     if algo == "downpour":
@@ -307,9 +317,11 @@ def _check_resume_layout(cfg: TrainConfig) -> None:
     if saved.get("algo") != cfg.algo:
         return  # a restore across algos fails on the structure already
 
+    clip_chained = cfg.resolved_algo() != "zero-sync"  # its trainer clips
+
     def structure_of(opt, sched, clip):
         return {"optimizer": opt, "lr_is_schedule": sched != "constant",
-                "clip_chained": clip is not None}
+                **({"clip_chained": clip is not None} if clip_chained else {})}
 
     cur = structure_of(cfg.optimizer, cfg.lr_schedule, cfg.clip_norm)
     # metadata without a field: compare only what the checkpoint recorded
@@ -569,8 +581,8 @@ def main(argv=None) -> None:
         "--preset mnist-easgd --epochs 1, --preset cifar-vgg-sync, --preset "
         "resnet50-sync, --preset ptb-lstm-easgd, --preset alexnet-downpour, "
         "--preset ptb-transformer-large (--sp 4, --seq-impl ulysses, "
-        "--remat), --preset ptb-transformer-large --algo sync --attn-impl "
-        "flash, or --preset mnist-ps)",
+        "--remat), --preset ptb-transformer-large --algo sync|zero-sync "
+        "--attn-impl flash, or --preset mnist-ps)",
     )
     print(json.dumps(run(cfg), default=repr))
 

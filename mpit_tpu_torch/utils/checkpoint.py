@@ -375,6 +375,11 @@ _CKPT_RE = re.compile(r"^ckpt_(\d{8,})\.msgpack$")
 _WORKER_FIELDS = ("worker_params", "worker_opt")
 
 
+# the ``rows`` of a field cut across processes on dim 0 (``process_sharded``):
+# each tensor keeps this process's share, its own length's worth
+_PROCESS_SHARE = object()
+
+
 def _ckpt_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"ckpt_{step:08d}.msgpack")
 
@@ -410,18 +415,21 @@ def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False) -> Any
     reference's order: a dataclass's fields as declared, dict keys sorted,
     tuple entries in order.
     ``lead`` is the shape of a count (``(W,)`` inside a stacked worker
-    optimizer); ``gather`` gathers stacked tensors across processes."""
+    optimizer); ``gather`` gathers stacked tensors across processes, as it
+    does the fields a state names in ``process_sharded`` (ZeRO's optimizer
+    state, cut on dim 0 across processes)."""
     from mpit_tpu_torch.comm.topology import current_process
     from mpit_tpu_torch.convert import leaf_to_flax
 
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         fields = _fields(obj)
         stacked, w = _worker_fields(obj, fields)
+        cut = stacked + getattr(obj, "process_sharded", ())
         procs = current_process()[1]
         return {
             k: state_to_state_dict(
                 v, (w * procs,) if k in stacked else lead,
-                gather or (k in stacked and procs > 1),
+                gather or (k in cut and procs > 1),
             )
             for k, v in fields.items()
         }
@@ -467,10 +475,19 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) 
         keys_match(fields, sd, type(template).__name__)
         stacked, w = _worker_fields(template, fields)
         index, procs = current_process()
-        mine = slice(index * w, (index + 1) * w) if procs > 1 else None
+
+        def mine(k, v):
+            """This process's rows of a field cut across processes."""
+            if procs == 1:
+                return rows
+            if k in stacked:
+                return slice(index * w, (index + 1) * w)
+            if k in getattr(template, "process_sharded", ()):
+                return _PROCESS_SHARE
+            return rows
+
         return dataclasses.replace(template, **{
-            k: state_from_state_dict(v, sd[k], mine if k in stacked else rows)
-            for k, v in fields.items()
+            k: state_from_state_dict(v, sd[k], mine(k, v)) for k, v in fields.items()
         })
     if isinstance(template, (tuple, list)):
         keys_match([str(i) for i in range(len(template))], sd,
@@ -483,7 +500,10 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) 
                 for k, v in template.items()}
     if isinstance(template, torch.Tensor):
         a = leaf_from_flax(sd)
-        if rows is not None:
+        if rows is _PROCESS_SHARE:
+            n = template.shape[0]
+            a = a[current_process()[0] * n:][:n]
+        elif rows is not None:
             a = a[rows]
         if tuple(a.shape) != tuple(template.shape):
             raise ValueError(

@@ -35,9 +35,10 @@ TIMEOUT_S = 240
 TRAJ_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def _env():
+def _env(**extra):
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("MPIT_", "JAX_COORDINATOR"))}
+    env.update(extra)
     env["JAX_PLATFORMS"] = "cpu"
     # one intra-op thread a rank: the suite runs several test processes at
     # once, and oversubscribed small CPU ops run many times slower
@@ -45,28 +46,33 @@ def _env():
     return env
 
 
-def _launch(n, args, distributed=True):
+def _launch(n, args, distributed=True, **env):
     cmd = [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n)]
     if distributed:
         cmd.append("--jax-distributed")
-    return subprocess.run([*cmd, *args], cwd=REPO, env=_env(), capture_output=True,
+    return subprocess.run([*cmd, *args], cwd=REPO, env=_env(**env), capture_output=True,
                           text=True, timeout=TIMEOUT_S)
 
 
-@pytest.mark.parametrize("algo", ["sync", "easgd"])
+@pytest.mark.parametrize("algo", ["sync", "easgd", "zero", "sync-bf16"])
 def test_two_gloo_ranks_train_as_one_process_of_the_same_world(algo, tmp_path):
     """2 ranks × W = 2 over gloo: ``num_workers`` is 4 (the reference's
     arithmetic), both ranks report the same losses, which equal a
     1-process W = 4 run's within TRAJ_TOL; the checkpoint every rank
     gathers, rank 0 writes and every rank restores round-trips bit for
-    bit, and a 1-process W = 4 state restores from it."""
+    bit, and a 1-process W = 4 state restores from it. ``zero`` is ZeRO-1
+    with Adam (each rank holds half the optimizer state; the checkpoint
+    gathers it); ``sync-bf16`` the bucketed exchange under
+    ``MPIT_DP_QUANT=bf16``, whose codes cross the processes as bytes."""
     out, one = str(tmp_path / "two"), str(tmp_path / "one")
+    env = {"MPIT_DP_QUANT": "bf16"} if algo == "sync-bf16" else {}
+    algo = algo.removesuffix("-bf16")
     common = ["--algo", algo, "--steps", "8", "--device", "cpu"]
     r = _launch(2, [SCRIPT, *common, "--local-devices", "2",
-                    "--ckpt-dir", str(tmp_path / "ck"), "--out", out])
+                    "--ckpt-dir", str(tmp_path / "ck"), "--out", out], **env)
     assert r.returncode == 0, r.stdout + r.stderr
     r1 = _launch(1, [SCRIPT, *common, "--local-devices", "4", "--out", one],
-                 distributed=False)
+                 distributed=False, **env)
     assert r1.returncode == 0, r1.stdout + r1.stderr
     ranks = [json.load(open(f"{out}.rank{i}.json")) for i in range(2)]
     solo = json.load(open(f"{one}.rank0.json"))
@@ -81,20 +87,27 @@ def test_two_gloo_ranks_train_as_one_process_of_the_same_world(algo, tmp_path):
 
     from mpit_tpu_torch.comm.topology import Topology
     from mpit_tpu_torch.models import MLP
-    from mpit_tpu_torch.optim import SGD
-    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
+    from mpit_tpu_torch.optim import SGD, Adam
+    from mpit_tpu_torch.parallel import (
+        DataParallelTrainer, EASGDTrainer, ZeroDataParallelTrainer,
+    )
     from mpit_tpu_torch.utils.checkpoint import restore_checkpoint
 
     topo = Topology(4, torch.device("cpu"))
     model = MLP(hidden=(64,), compute_dtype=torch.float32, device="cpu")
-    trainer = (DataParallelTrainer(model, SGD(0.2), topo) if algo == "sync"
-               else EASGDTrainer(model, SGD(0.2, 0.9), topo, tau=4))
+    trainer = {"sync": lambda: DataParallelTrainer(model, SGD(0.2), topo),
+               "zero": lambda: ZeroDataParallelTrainer(model, Adam(1e-3), topo),
+               "easgd": lambda: EASGDTrainer(model, SGD(0.2, 0.9), topo, tau=4)}[algo]()
     state, step = restore_checkpoint(str(tmp_path / "ck"),
                                      trainer.init_state(torch.Generator().manual_seed(0)))
     assert step == 8
     if algo == "easgd":
         assert state.round == 8
         assert state.worker_params["Dense_0"]["kernel"].shape[0] == 4
+    if algo == "zero":
+        assert state.opt_state[0].count == 8
+        assert state.opt_state[0].mu.shape == (-(-sum(
+            t.numel() for t in jax.tree.leaves(state.params)) // 4) * 4,)
 
 
 def test_nccl_needs_a_card_per_rank():
@@ -191,8 +204,10 @@ def test_barriers_rank_and_the_unported_exchange(topo8, port8):
     assert (process_rank(), process_count()) == (0, 1)
     with pytest.raises(ValueError, match="out of range"):
         port.bcast(torch.zeros(8, 2), root=8)
-    with pytest.raises(NotImplementedError, match="item A6"):
-        port.allreduce(torch.zeros(8, 2), quant="int8")
+    # the quantized exchange, item A6, runs: int8 codes of rows with absmax
+    # 127 sum exactly, as under shard_map (tests/test_quant_collectives.py)
+    x = torch.tensor([[127.0, -3.0]] * 8)
+    assert torch.equal(port.allreduce(x, quant="int8"), x.sum(0))
     # ppermute_ring: worker i's row lands at i + shift, as under shard_map
     x = np.arange(16, dtype=np.float32).reshape(8, 2)
     for shift in (1, -1, 3):
@@ -218,7 +233,12 @@ out = {{name: {{k: v.tolist() for k, v in fn(tree).items()}} for name, fn in (
     ("sum", c.psum), ("avg", c.pmean), ("max", c.pmax), ("min", c.pmin),
     ("prod", lambda t: c.allreduce(t, c.PROD)), ("bcast", lambda t: c.bcast(t, 3)),
     ("allgather", c.allgather), ("reduce_scatter", c.reduce_scatter),
-    ("ppermute", lambda t: c.ppermute_ring(t, 3)))}}
+    ("ppermute", lambda t: c.ppermute_ring(t, 3)),
+    ("qsum_int8", lambda t: c.allreduce(t, c.SUM, quant="int8")),
+    ("qavg_bf16", lambda t: c.allreduce(t, c.AVG, quant="bf16")),
+    ("qres_int8", lambda t: c.quantized_allreduce(t, mode="int8", mean=True)[1]),
+    ("qscatter_int8", lambda t: {{k: c.quantized_psum_scatter(v.reshape(len(v), -1), "int8")
+                                  for k, v in t.items()}}))}}
 out["barrier"] = int(c.device_barrier())
 c.barrier()
 json.dump(out, open(sys.argv[2] + f".rank{{topo.process_index}}.json", "w"))
@@ -229,8 +249,11 @@ m.finalize()
 def test_collectives_across_two_gloo_processes(tmp_path):
     """The same collectives with the 4 workers split 2 + 2 over two gloo
     processes: each process's results equal one process's of all 4
-    (``reduce_scatter`` and ``ppermute_ring`` its own workers' rows), bit
-    for bit where the values are moved or picked."""
+    (``reduce_scatter``, ``ppermute_ring`` and the per-worker outputs of
+    the quantized exchange its own workers' rows), bit for bit where the
+    values are moved or picked, and for the quantized exchange, whose
+    all-to-all delivers each worker's rows in world order to the same
+    f32 sums (bf16 codes crossing as bytes)."""
     script = tmp_path / "across.py"
     script.write_text(_ACROSS.format(repo=REPO))
     r = _launch(2, [str(script), "2", str(tmp_path / "two")])
@@ -242,13 +265,14 @@ def test_collectives_across_two_gloo_processes(tmp_path):
         two = json.load(open(tmp_path / f"two.rank{rank}.json"))
         assert two["barrier"] == one["barrier"] == 4
         for name in ("sum", "avg", "max", "min", "prod", "bcast", "allgather",
-                     "reduce_scatter", "ppermute"):
+                     "reduce_scatter", "ppermute", "qsum_int8", "qavg_bf16",
+                     "qres_int8", "qscatter_int8"):
             for k in ("a", "b"):
                 want = np.array(one[name][k])
-                if name in ("reduce_scatter", "ppermute"):
+                if name in ("reduce_scatter", "ppermute", "qres_int8", "qscatter_int8"):
                     want = want[2 * rank:2 * rank + 2]
                 got = np.array(two[name][k])
-                if name in ("max", "min", "bcast", "allgather", "ppermute"):
+                if name in ("max", "min", "bcast", "allgather", "ppermute") or name[0] == "q":
                     assert np.array_equal(got, want)
                 else:
                     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -129,16 +129,24 @@ def test_run_trains_preset_on_cpu():
     dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(profile_dir="prof"),
 ])
 def test_run_refuses_what_is_not_ported(change, tmp_path):
-    """The algos of items A6-A11 raise naming the ROADMAP; the driver's
-    flags of item A5b (Adam, a schedule, checkpoints, a profiler trace),
-    which raised until A5b landed, now train under easgd."""
+    """moe-sync (item A11) raises naming the ROADMAP; zero-sync, which
+    raised until item A6 landed, trains the preset's LeNet by ZeRO-1 (8
+    steps of 64); run()'s flags of item A5b (Adam, a schedule,
+    checkpoints, a profiler trace), which raised until A5b landed, now
+    train under easgd."""
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
     cfg = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), **change)
-    if "algo" in change:
+    if change.get("algo") == "moe-sync":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             run(cfg, device="cpu")
+        return
+    if "algo" in change:
+        res = run(dataclasses.replace(cfg, train_size=512, global_batch=64, epochs=1),
+                  device="cpu")
+        assert res["trained_units"] == 8 and np.isfinite(res["round_losses"]).all()
+        assert res["round_losses"][-1] < res["round_losses"][0]
         return
     change = {k: str(tmp_path / v) if k.endswith("_dir") else v
               for k, v in change.items()}
