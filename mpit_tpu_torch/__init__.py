@@ -28,6 +28,11 @@ reference's module names, so each module's counterpart is found by name:
   synthetic stand-ins, batches, prefetch.
 - ``utils``     — parameter trees, config, metrics, checkpoints in the
   reference's file format, profiler traces, completion barrier.
+- ``obs``       — journals, live snapshots, the black box and the wire
+  telemetry of the PS and sync trainers (the ``MPIT_OBS_*`` knobs), read
+  by ``python -m mpit_tpu_torch.obs``; ``analysis.runtime`` holds the
+  runtime sanitizers (``MPIT_RT_RACE``, ``MPIT_RT_NUMERICS``), and
+  ``loadgen.slo`` the SLO reader.
 - ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
   (or any BASELINE preset), ``--preset ptb-transformer-large`` (seq-sync;
   ``--sp 4``, ``--seq-impl ulysses``, ``--remat``), or ``--preset

@@ -1,1 +1,3 @@
-"""Runtime sanitizers of the port: a stand-in until ROADMAP.md item A12."""
+"""Runtime sanitizers of the port (RT101-RT104): ``analysis/runtime.py``,
+a copy of ``mpit_tpu/analysis/runtime.py``. The static rules and trace
+conformance stay in the reference (``python -m mpit_tpu.analysis``)."""

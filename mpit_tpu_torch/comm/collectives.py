@@ -163,18 +163,59 @@ def _check_mode(mode: str, what: str) -> None:
         raise ValueError(f"quantized {what} mode {mode!r}: expected 'bf16' or 'int8'")
 
 
-def _quantized_hop1(c: torch.Tensor, mode: str):
-    """First hop of the quantized exchange on ``c`` (W_local, W·chunk):
-    each worker's W destination rows quantized against their own scales
-    and exchanged. Returns (the f32 rows each local worker received, (W_local,
-    W, chunk), and what each sent, dequantized, (W_local, W·chunk))."""
+def quantized_rows_encode(c: torch.Tensor, mode: str):
+    """Encode phase of the quantized exchange on ``c`` (W_local, W·chunk):
+    each worker's W destination rows quantized against their own scales.
+    Returns ``(codes (W_local, W, chunk), scales (W_local, W, 1), sent)``,
+    ``sent`` (W_local, W·chunk) what each worker sends, dequantized."""
     wl, n = c.shape
     w = wl * current_process()[1]
     codes, scales = _quant.quantize_rows_torch(c.reshape(wl * w, n // w), mode)
     sent = _quant.dequantize_rows_torch(codes, scales, mode).reshape(wl, n)
-    codes_x = _all_to_all(codes.reshape(wl, w, -1))
-    scales_x = (_all_to_all(scales.reshape(wl, w, 1)) if mode == "int8"
-                else scales.reshape(wl, w, 1))  # bf16 is scale-free
+    return codes.reshape(wl, w, -1), scales.reshape(wl, w, 1), sent
+
+
+def quantized_rows_hop1(codes: torch.Tensor, scales: torch.Tensor, mode: str):
+    """First hop: the encoded rows all-to-all (reduce-scatter), each local
+    worker receiving every worker's row bound for it (bf16 is scale-free:
+    its scales stay home)."""
+    return _all_to_all(codes), (_all_to_all(scales) if mode == "int8" else scales)
+
+
+def quantized_rows_reduce(codes_x: torch.Tensor, scales_x: torch.Tensor, mode: str,
+                          mean: bool = False, r2: Optional[torch.Tensor] = None):
+    """Reduce phase: each worker's received rows summed in f32 (divided by
+    W for ``mean``), ``r2`` added, and the chunk re-quantized once.
+    Returns ``(codes (W_local, chunk), scales (W_local, 1), new_r2)``,
+    ``new_r2`` the re-quantization error."""
+    w = codes_x.shape[0] * current_process()[1]
+    red = _fold_sum(_quant.dequantize_rows_torch(codes_x, scales_x, mode), 1)
+    if mean:
+        red = red / w
+    if r2 is not None:
+        red = red + r2
+    rcodes, rscale = _quant.quantize_rows_torch(red, mode)
+    return rcodes, rscale, red - _quant.dequantize_rows_torch(rcodes, rscale, mode)
+
+
+def quantized_rows_hop2(rcodes: torch.Tensor, rscale: torch.Tensor, mode: str):
+    """Second hop: every worker's re-quantized chunk all-gathered. Returns
+    the world's codes and scales (None for bf16) in worker order."""
+    return _gather(rcodes), (_gather(rscale) if mode == "int8" else None)
+
+
+def quantized_rows_decode(g_codes: torch.Tensor, g_scales, mode: str) -> torch.Tensor:
+    """The gathered chunks dequantized into the flat reduced vector."""
+    return _quant.dequantize_rows_torch(g_codes, g_scales, mode).reshape(-1)
+
+
+def _quantized_hop1(c: torch.Tensor, mode: str):
+    """First hop of the quantized exchange on ``c`` (W_local, W·chunk):
+    encode and exchange. Returns (the f32 rows each local worker received,
+    (W_local, W, chunk), and what each sent, dequantized, (W_local,
+    W·chunk))."""
+    codes, scales, sent = quantized_rows_encode(c, mode)
+    codes_x, scales_x = quantized_rows_hop1(codes, scales, mode)
     return _quant.dequantize_rows_torch(codes_x, scales_x, mode), sent
 
 
@@ -187,29 +228,31 @@ def quantized_rows_allreduce(c: torch.Tensor, mode: str, mean: bool = False,
     worker's row, dequantized (so the caller's level-1 residual is ``c -
     sent``), and the level-2 residual of each worker's owned chunk (``r2``
     compensates the re-quantization before it, as in the reference's
-    ``_quant_allreduce_leaf``)."""
-    w = c.shape[0] * current_process()[1]
-    contrib, sent = _quantized_hop1(c, mode)
-    red = _fold_sum(contrib, 1)
-    if mean:
-        red = red / w
-    if r2 is not None:
-        red = red + r2
-    rcodes, rscale = _quant.quantize_rows_torch(red, mode)
-    new_r2 = red - _quant.dequantize_rows_torch(rcodes, rscale, mode)
-    g_codes = _gather(rcodes)
-    g_scales = _gather(rscale) if mode == "int8" else None
-    out = _quant.dequantize_rows_torch(g_codes, g_scales, mode).reshape(-1)
+    ``_quant_allreduce_leaf``). The phases are the ``quantized_rows_*``
+    functions above, which a traced step times one by one."""
+    codes, scales, sent = quantized_rows_encode(c, mode)
+    codes_x, scales_x = quantized_rows_hop1(codes, scales, mode)
+    rcodes, rscale, new_r2 = quantized_rows_reduce(codes_x, scales_x, mode, mean, r2)
+    out = quantized_rows_decode(*quantized_rows_hop2(rcodes, rscale, mode), mode)
     return out, sent, new_r2
 
 
-def raw_rows_allreduce(rows: torch.Tensor) -> torch.Tensor:
-    """The mean of the stacked rows (W_local, n_pad) over the world's
-    workers by the same two hops at f32 width (reduce-scatter by
-    all-to-all, f32 sum, all-gather): the raw bucketed exchange."""
+def raw_rows_hop1(rows: torch.Tensor) -> torch.Tensor:
+    """First hop of the raw exchange: the stacked rows (W_local, n_pad)
+    all-to-all at f32 width, (W_local, W, n_pad/W)."""
     wl, n = rows.shape
     w = wl * current_process()[1]
-    red = _fold_sum(_all_to_all(rows.reshape(wl, w, n // w)), 1) / w
+    return _all_to_all(rows.reshape(wl, w, n // w))
+
+
+def raw_rows_reduce(xch: torch.Tensor) -> torch.Tensor:
+    """Reduce phase of the raw exchange: the mean of the received rows."""
+    return _fold_sum(xch, 1) / (xch.shape[0] * current_process()[1])
+
+
+def raw_rows_hop2(red: torch.Tensor) -> torch.Tensor:
+    """Second hop of the raw exchange: the reduced chunks all-gathered
+    into the flat mean."""
     return _gather(red).reshape(-1)
 
 

@@ -43,10 +43,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import threading
 from typing import Optional, Sequence, Union
 
 import torch
+
+from mpit_tpu_torch.analysis.runtime import make_lock
 
 # the stacked tensors' worker dim: what psum/pmean reduce over
 WORKER_DIM = 0
@@ -56,7 +57,7 @@ WORKER_AXIS = "dp"
 # test mesh, so the default run has the reference's W and α = 0.9/W
 DEFAULT_WORKERS = 8
 
-_lock = threading.Lock()
+_lock = make_lock("topology._lock")
 _topology: Optional["Topology"] = None
 _distributed_initialized = False
 

@@ -26,12 +26,17 @@ client 0 the sha256 of the center it fetched last. The protocol body is
 ``MPIT_CHAOS_*`` wraps each rank's socket in the fault injector;
 ``MPIT_ELASTIC_RESPAWN``, ``MPIT_ELASTIC_CKPT_DIR`` (a shard snapshot per
 server), ``MPIT_PS_SHARDS``, ``MPIT_CONNECT_RETRY_S``, ``MPIT_PS_TIMEOUT``
-and ``MPIT_PS_MAX_RETRIES`` act as in the reference. ``MPIT_OBS_*`` raises
-(ROADMAP.md item A12).
+and ``MPIT_PS_MAX_RETRIES`` act as in the reference. ``MPIT_OBS_*`` wraps
+the socket (outermost, over chaos) for journals, live snapshots and the
+black box, and with chaos each rank writes ``faults_rank<r>.jsonl`` beside
+its journal; ``python -m mpit_tpu_torch.obs`` reads the directory. Armed,
+each rank prints its telemetry summary (``rank <r>: telemetry {...}``) at
+teardown, the socket's receive-side phase split among it.
 """
 
 import argparse
 import hashlib
+import json
 import os
 import sys
 import time
@@ -64,12 +69,6 @@ def main():
         raise SystemExit(
             f"world of {world} with {num_servers} servers leaves no clients"
         )
-    obs_env = sorted(k for k in os.environ if k.startswith("MPIT_OBS_"))
-    if obs_env:
-        raise NotImplementedError(
-            f"observability ({' '.join(obs_env)}) is not ported to "
-            "mpit_tpu_torch yet (ROADMAP.md, item A12)"
-        )
     alpha = cfg.alpha if cfg.alpha is not None else 0.9 / num_clients
 
     import numpy as np
@@ -78,6 +77,8 @@ def main():
     from mpit_tpu_torch.comm.topology import resolve_device
     from mpit_tpu_torch.data import cast_input_dtype, load_mnist
     from mpit_tpu_torch.data.datasets import shard_for_worker
+    from mpit_tpu_torch.obs import box_for, wrap_from_env, write_fault_log
+    from mpit_tpu_torch.obs.telemetry import TelemetryTransport
     from mpit_tpu_torch.parallel import ps_roles
     from mpit_tpu_torch.parallel.pclient import PClient
     from mpit_tpu_torch.parallel.pserver import PServer, partition_bounds
@@ -116,6 +117,27 @@ def main():
     if chaos_cfg is not None:
         tp = ChaosTransport(tp, chaos_cfg)
         fault_log = tp.log
+    # observability opt-in: with any MPIT_OBS_* knob set the transport is
+    # wrapped for tracing/telemetry (MPIT_OBS_DIR=/tmp/run writes per-rank
+    # journals that `python -m mpit_tpu_torch.obs merge /tmp/run` turns
+    # into one Perfetto timeline); unset, this is the identity. Telemetry
+    # wraps OUTERMOST over chaos so its stream index stays in lockstep
+    # with the chaos schedule (the fault-overlay join key).
+    tp = wrap_from_env(tp)
+    if fault_log is not None:
+        # ride the chaos schedule along every black-box dump
+        box = box_for(tp)
+        if box is not None:
+            box.add_source(
+                "faults",
+                lambda: [
+                    {
+                        "ev": "fault", "kind": e.kind, "src": e.src,
+                        "dst": e.dst, "tag": e.tag, "n": e.n,
+                    }
+                    for e in fault_log.events()
+                ],
+            )
     server_ranks = list(range(num_servers))
     client_ranks = list(range(num_servers, world))
     bounds = partition_bounds(flat0.size, num_servers)
@@ -250,6 +272,19 @@ def main():
         client.stop()
     if fault_log is not None:
         print(f"rank {rank}: chaos faults {fault_log.counts()}")
+    if isinstance(tp, TelemetryTransport):
+        # the rank's wire counters, with the socket's receive-side split
+        # (rx_phase_s: transfer and deserialize per src:tag) beside the
+        # send-side one (phase_s per dst:tag)
+        print(f"rank {rank}: telemetry {json.dumps(tp.summary())}")
+    obs_dir = os.environ.get("MPIT_OBS_DIR")
+    if fault_log is not None and obs_dir:
+        # per-rank fault log for the merger's --faults overlay (a
+        # directory of faults_rank*.jsonl is accepted there)
+        write_fault_log(
+            fault_log.events(),
+            os.path.join(obs_dir, f"faults_rank{rank}.jsonl"),
+        )
     tp.close()
 
 

@@ -21,7 +21,10 @@ a rank that dies (crash OR the built-in seeded chaos killer,
 port (SocketTransport sets SO_REUSEADDR; peers reconnect inside their
 connect-retry window) — up to ``MPIT_ELASTIC_MAX_RESPAWNS`` times per
 rank, with ``MPIT_RESPAWN_GEN`` exported so the child knows its restart
-generation.
+generation. Every membership transition is journaled to
+``$MPIT_OBS_DIR/membership.jsonl`` so trace conformance can tell a
+preemption-severed journal from a real protocol violation, and each kill
+or exit asks the survivors' black boxes to dump.
 
 ``--jax-distributed`` (the reference's flag name, kept for its users)
 reserves one more port for the coordinator and exports ``MPIT_DISTRIBUTED=1``
@@ -31,15 +34,15 @@ then joins a ``torch.distributed`` group (NCCL on cards, gloo on the CPU;
 
     python -m mpit_tpu_torch.launch -n 2 --jax-distributed mpit_tpu_torch/examples/multihost_sync.py --device cpu
 
-Not ported yet, and refused before any rank starts: the observability
-plane — any ``MPIT_OBS_*`` knob, which in the reference also arms the
-membership journal and the black-box dumps around kills and exits
-(ROADMAP.md item A12).
+``MPIT_OBS_*`` knobs pass to every rank, whose script arms the obs plane
+(``obs.wrap_from_env``); the launcher says so once, with the command that
+watches the live snapshots.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 import signal
@@ -112,12 +115,38 @@ def main(argv=None) -> int:
             + " ".join(f"{k}={os.environ[k]}" for k in chaos_env),
             file=sys.stderr,
         )
+    # same loud-once courtesy for observability: tracing adds a small
+    # per-message envelope and journal writes, so a run with it armed
+    # should say so (docs/OBSERVABILITY.md)
     obs_env = sorted(k for k in os.environ if k.startswith("MPIT_OBS_"))
     if obs_env:
-        raise NotImplementedError(
-            f"observability ({' '.join(obs_env)}: journals, the membership "
-            "log and black-box dumps) is not ported to mpit_tpu_torch yet "
-            "(ROADMAP.md, item A12)"
+        print(
+            "[launch] OBS tracing/telemetry active in all ranks: "
+            + " ".join(f"{k}={os.environ[k]}" for k in obs_env),
+            file=sys.stderr,
+        )
+    # live telemetry gets one more line: unlike journals, it is useful
+    # WHILE the run is alive, so print the watch command
+    if (
+        os.environ.get("MPIT_OBS_LIVE", "0") not in ("", "0")
+        and os.environ.get("MPIT_OBS_DIR")
+    ):
+        print(
+            "[launch] LIVE telemetry: snapshots in "
+            f"{os.path.join(os.environ['MPIT_OBS_DIR'], 'live')} — watch "
+            f"with `python -m mpit_tpu_torch.obs live "
+            f"{os.environ['MPIT_OBS_DIR']}`",
+            file=sys.stderr,
+        )
+    # and hung-job forensics: each rank will dump all-thread stacks on a
+    # timer (stacks_rank<r>.txt next to the journal, stderr without a dir)
+    if os.environ.get("MPIT_OBS_FAULTHANDLER", "0") not in ("", "0"):
+        print(
+            "[launch] FAULTHANDLER armed in all ranks: periodic "
+            "all-thread stack dumps every "
+            f"{os.environ['MPIT_OBS_FAULTHANDLER']}"
+            " (1 = 300 s default interval)",
+            file=sys.stderr,
         )
 
     # one extra port for the process group's coordinator (rank 0 binds it)
@@ -147,6 +176,66 @@ def main(argv=None) -> int:
     respawn_delay = float(
         os.environ.get("MPIT_ELASTIC_RESPAWN_DELAY_S", "0") or 0
     )
+    obs_dir = os.environ.get("MPIT_OBS_DIR")
+    mem_path = (
+        os.path.join(obs_dir, "membership.jsonl")
+        if elastic and obs_dir else None
+    )
+    mem_lock = make_lock("launch.mem_lock")
+    t0 = time.monotonic()
+
+    def _member(kind: str, rank: int, gen: int, **extra) -> None:
+        """One membership transition in the run's obs directory — the
+        ground truth conformance uses to license journal gaps on
+        churned ranks (a SIGKILLed process cannot flush its tail).
+        ``t`` is run-relative (monotonic since launch); ``wt`` is the
+        wall clock, the join key ``obs postmortem`` uses to place a
+        kill/exit on the black-box dump timeline."""
+        if mem_path is None:
+            return
+        rec = {
+            "ev": "membership", "kind": kind, "rank": rank, "gen": gen,
+            "t": round(time.monotonic() - t0, 3),
+            "wt": round(time.time(), 3), **extra,
+        }
+        with mem_lock:
+            os.makedirs(os.path.dirname(mem_path), exist_ok=True)
+            with open(mem_path, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+
+    def _request_blackbox(kind: str, rank: int, gen: int) -> None:
+        """Freeze the incident window fleet-wide: ask every surviving
+        rank's flight recorder to dump (the dead rank can't — the
+        survivors' windows are what still show its final exchanges)."""
+        if obs_dir is None:
+            return
+        try:
+            from mpit_tpu_torch.obs.blackbox import request_dump
+
+            request_dump(
+                obs_dir, f"launch:{kind}", f"{kind}-rank{rank}-gen{gen}"
+            )
+        except Exception:
+            pass  # forensics must never take the supervisor down
+
+    def _archive_blackbox(rank: int, gen: int) -> None:
+        """Before respawning a rank, park its dump file under a
+        per-generation name so the next generation's dumps don't
+        interleave with the dead one's."""
+        if obs_dir is None:
+            return
+        path = os.path.join(obs_dir, "blackbox", f"rank_{rank}.jsonl")
+        try:
+            if os.path.exists(path):
+                os.replace(
+                    path,
+                    os.path.join(
+                        obs_dir, "blackbox", f"rank_{rank}.gen{gen}.jsonl"
+                    ),
+                )
+        except OSError:
+            pass
+
     procs: list[subprocess.Popen] = []
     streams: list[threading.Thread] = []
 
@@ -172,6 +261,7 @@ def main(argv=None) -> int:
         )
         t.start()
         streams.append(t)
+        _member("respawn" if gen else "spawn", rank, gen)
         return proc
 
     try:
@@ -222,6 +312,8 @@ def main(argv=None) -> int:
                         procs[r].kill()
                     except (ProcessLookupError, OSError):
                         continue
+                    _member("kill", r, gens[r], signal="SIGKILL")
+                    _request_blackbox("kill", r, gens[r])
 
         threading.Thread(
             target=_killer, daemon=True, name="mpit-elastic-killer"
@@ -258,10 +350,21 @@ def main(argv=None) -> int:
                     continue
                 if code == 0:
                     remaining.discard(r)
+                    _member("done", r, gens[r])
                     continue
                 if world_down:
                     remaining.discard(r)
                     continue
+                # a negative returncode is death-by-signal: name it, so
+                # the post-mortem can cite "exit by SIGKILL" not "-9"
+                cause = {"code": code}
+                if code < 0:
+                    try:
+                        cause["signal"] = signal.Signals(-code).name
+                    except ValueError:
+                        pass
+                _member("exit", r, gens[r], **cause)
+                _request_blackbox("exit", r, gens[r])
                 if budget[r] > 0:
                     # elastic: the rank died with budget left — respawn it
                     # in place (same rank/port, next generation) instead
@@ -271,6 +374,7 @@ def main(argv=None) -> int:
                     with procs_lock:
                         budget[r] -= 1
                         gens[r] += 1
+                    _archive_blackbox(r, gens[r] - 1)
                     if respawn_delay > 0:
                         pending[r] = time.monotonic() + respawn_delay
                         print(

@@ -119,8 +119,8 @@ def _record_dynamics(
 
     Every input is host numpy the exchange already materialized, so this
     adds no device sync. The caller invokes it only when the transport is
-    obs-wrapped, which no transport of the port is until ROADMAP.md item
-    A12: the obs-off cost is one attribute check per round.
+    obs-wrapped (the ``obs`` argument or ``MPIT_OBS_*`` knobs): the
+    obs-off cost is one attribute check per round.
 
     ``push_vec`` (downpour) is the pushed delta; for EASGD the push is
     the elastic move itself, so ``alpha`` is passed instead and
@@ -196,8 +196,8 @@ def client_train_loop(
     ``{"skipped_rounds", "exchange_failures", "repaired_chunks"}`` totals
     and with ``"rounds"`` and ``"exchange_s"``: the successful exchanges
     and their host seconds, which the reference publishes to its live
-    registry (``M_ROUNDS``, ``M_EXCHANGE_S``) and the port's stand-in
-    registry drops until ROADMAP.md item A12.
+    registry (``M_ROUNDS``, ``M_EXCHANGE_S``), as the port's does when
+    ``MPIT_OBS_LIVE`` arms it.
 
     ``join``: announce this client via the elastic-membership JOIN
     envelope for its initial pull instead of a plain fetch — required
@@ -211,15 +211,14 @@ def client_train_loop(
     Roofline instrumentation (docs/OBSERVABILITY.md): each τ-block of
     local steps runs inside a ``"compute"`` span that ends with
     :func:`force_completion` when the span is live (``ctx is not None``);
-    with obs off (always, until A12) the loop keeps the free-running
-    dispatch unchanged.
+    with obs off the loop keeps the free-running dispatch unchanged.
     """
     device = x.device
     rng = np.random.default_rng(seed)
     batch_idx = torch.as_tensor(
         rng.integers(0, len(x), (steps, batch_size))
     ).to(device)
-    # live-metrics hook: the no-op registry until A12; publishes below are
+    # live-metrics hook: NULL_REGISTRY unless obs.live is armed; publishes below are
     # unconditional, the disabled path is a no-op method call per round
     reg = live_registry(client.transport)
     with obs_span(client.transport, "initial_fetch"):

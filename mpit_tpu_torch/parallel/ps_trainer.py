@@ -17,9 +17,9 @@ one otherwise, ``"native"`` insists on the C++ one, ``"inproc"`` takes the
 Python one, and ``"socket"`` gives every rank a real TCP
 :class:`~mpit_tpu_torch.transport.SocketTransport` on loopback. Chaos
 fault injection (the ``chaos`` argument or ``MPIT_CHAOS_*`` knobs) wraps
-whichever was chosen. What the port does not have yet is the obs plane
-(ROADMAP.md item A12): asking for it raises ``NotImplementedError``
-naming the item; nothing is silently ignored.
+whichever was chosen, and the obs plane (the ``obs`` argument or
+``MPIT_OBS_*`` knobs) wraps outermost, over chaos, as in the reference:
+journals, live snapshots, the black box and the faulthandler.
 """
 
 from __future__ import annotations
@@ -34,6 +34,14 @@ import torch
 
 from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.data.datasets import shard_for_worker
+from mpit_tpu_torch.obs.core import (
+    ObsConfig,
+    arm_faulthandler,
+    disarm_faulthandler,
+    write_fault_log,
+)
+from mpit_tpu_torch.obs.core import config_from_env as obs_config_from_env
+from mpit_tpu_torch.obs.telemetry import wrap_obs_transports
 from mpit_tpu_torch.parallel import ps_roles
 from mpit_tpu_torch.parallel.pclient import PClient
 from mpit_tpu_torch.parallel.pserver import (
@@ -51,10 +59,18 @@ from mpit_tpu_torch.transport.chaos import (
 from mpit_tpu_torch.utils.params import flatten_params, tree_map, unflatten_params
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to mpit_tpu_torch yet (ROADMAP.md, {item})"
-    )
+def _chaos_counts(fault_log: FaultLog, rank: int) -> Callable[[], dict]:
+    """Live-snapshot collector: this rank's injected-fault counts by kind
+    (faults are attributed to the rank whose send the injector hit)."""
+
+    def counts() -> dict:
+        out: dict = {}
+        for e in fault_log.events():
+            if e.src == rank:
+                out[e.kind] = out.get(e.kind, 0) + 1
+        return out
+
+    return counts
 
 
 class AsyncPSTrainer:
@@ -83,8 +99,15 @@ class AsyncPSTrainer:
         every rank's transport in the seeded fault injector; None reads
         the ``MPIT_CHAOS_*`` knobs (no knob, no chaos). The fault log of
         the last ``train()`` is ``self.fault_log``.
-      obs: observability (item A12) — set, or any ``MPIT_OBS_*`` knob,
-        raises.
+      obs: an :class:`~mpit_tpu_torch.obs.core.ObsConfig`; None reads the
+        ``MPIT_OBS_*`` knobs (no knob, no wrapper at all). Armed, every
+        transport is wrapped in a
+        :class:`~mpit_tpu_torch.obs.telemetry.TelemetryTransport`
+        outermost, over chaos, so the per-stream index stays in step with
+        the fault schedule's: per-(peer, tag) counters land in
+        ``stats["telemetry"]``, per-rank journals under ``obs.dir`` feed
+        ``python -m mpit_tpu_torch.obs``, and with chaos the fault log is
+        written beside them as ``faults.jsonl``.
       max_exchange_failures: graceful degradation — a client's failed
         exchange (after PClient's own retries) skips the round on the
         stale center; this many CONSECUTIVE failures escalate to an
@@ -114,7 +137,7 @@ class AsyncPSTrainer:
         ckpt_every: Optional[int] = 100,
         resume: bool = True,
         chaos: Optional[ChaosConfig] = None,
-        obs=None,
+        obs: Optional[ObsConfig] = None,
         max_exchange_failures: Optional[int] = 3,
         fetch_timeout: float = 60.0,
         fetch_retries: int = 3,
@@ -130,7 +153,6 @@ class AsyncPSTrainer:
         self.transport_used: Optional[str] = None
         self.chaos = chaos
         self.obs = obs
-        self._refuse_unported()
         # failure detection (SURVEY.md §5 do-better): silence beyond this →
         # the client is declared dead instead of hanging the job forever
         if client_timeout is not None and client_timeout <= 0:
@@ -180,15 +202,6 @@ class AsyncPSTrainer:
         self.fault_log: Optional[FaultLog] = None
         # one local step shared by all client threads
         self._local_step = ps_roles.make_local_step(model, optimizer, loss_fn)
-
-    def _refuse_unported(self) -> None:
-        """Raise for obs, by argument or environment knob, before any
-        thread starts."""
-        if self.obs is not None or any(k.startswith("MPIT_OBS_") for k in os.environ):
-            raise _not_ported(
-                "observability (the obs argument or an MPIT_OBS_* knob)",
-                "item A12",
-            )
 
     def _make_broker(self, size: int):
         if self.transport_kind in ("auto", "native"):
@@ -254,7 +267,6 @@ class AsyncPSTrainer:
         of the reference's init), else from ``model.init(init_rng)``,
         ``init_rng`` defaulting to a generator seeded with ``seed``.
         """
-        self._refuse_unported()
         if init_params is None:
             gen = (
                 init_rng if init_rng is not None
@@ -277,6 +289,25 @@ class AsyncPSTrainer:
         self.fault_log = None
         if chaos_cfg is not None:
             transports, self.fault_log = wrap_transports(transports, chaos_cfg)
+        # observability wraps OUTERMOST over chaos: counters see every
+        # attempted send (faults included), latency includes injected
+        # delay, and the per-(dst, tag) stream index stays in lockstep
+        # with the chaos schedule's — the merger's fault-placement key
+        obs_cfg = self.obs if self.obs is not None else obs_config_from_env()
+        obs_transports: list = []
+        if obs_cfg is not None:
+            # hung-job forensics (MPIT_OBS_FAULTHANDLER): periodic all-thread
+            # stack dumps while the job runs, cancelled at clean teardown
+            arm_faulthandler(obs_cfg, "trainer")
+            transports = wrap_obs_transports(transports, obs_cfg)
+            obs_transports = transports
+            if obs_cfg.live and self.fault_log is not None:
+                # per-rank chaos fault counts ride the live snapshots: a
+                # pull collector sampled at export time
+                for t in obs_transports:
+                    t.obs_registry.add_collector(
+                        "chaos", _chaos_counts(self.fault_log, t.rank)
+                    )
         server_ranks = list(range(self.num_servers))
         client_ranks = list(
             range(self.num_servers, self.num_servers + self.num_clients)
@@ -492,6 +523,21 @@ class AsyncPSTrainer:
         }
         if self.fault_log is not None:
             stats["chaos_faults"] = self.fault_log.counts()
+        if obs_transports:
+            stats["telemetry"] = [t.summary() for t in obs_transports]
+            if obs_cfg.dir is not None and self.fault_log is not None:
+                write_fault_log(
+                    self.fault_log.events(),
+                    os.path.join(obs_cfg.dir, "faults.jsonl"),
+                )
+            for t in obs_transports:
+                # flush/close journals now — the broker dies with this
+                # call, and a merge may run immediately after train()
+                t.obs_tracer.close()
+                # stop live exporters too (final snapshot hits disk)
+                t.close_live()
+            if obs_cfg.faulthandler > 0:
+                disarm_faulthandler()
         # exact socket-level byte totals (socket mode only)
         if self.transport_kind == "socket":
             stats["wire_bytes"] = [

@@ -72,6 +72,7 @@ class SeqParallelTrainer(DataParallelTrainer):
             )
         self.accum_steps = 1
         self.bucketed = False  # the reference's seq trainer has no exchange knobs
+        self.obs, self._tracer = None, None  # ...and no obs journal
         # the mean cross-entropy over every token of every block
         self.loss_fn = (loss_fn if loss_fn is not None
                         else common.default_loss_fn(model.apply))

@@ -22,28 +22,51 @@ sync.py:541``): when either engages it, each worker takes its own gradient
 reference's element order, ``convert.flax_flat``) is cut into buckets of
 whole leaves in flatten order, and each bucket crosses two hops,
 reduce-scatter by all-to-all then all-gather, at f32 width or as int8 or
-bf16 codes (``comm.collectives.quantized_rows_allreduce``) with two-level
+bf16 codes (the phases ``comm.collectives.raw_rows_*`` and
+``quantized_rows_*``) with two-level
 error feedback: ``_residual`` on each worker's contribution, ``_residual2``
 on its owned reduced chunk. They are trainer attributes, not part of the
 checkpoint, as in the reference. The replicated update then runs on the
 gathered mean. With both knobs off the step is the fused one above,
 unchanged.
+
+Observability (``obs``, or the ``MPIT_OBS_*`` knobs with ``MPIT_OBS_DIR``
+set) journals the bucketed step as the reference does, into
+``<dir>/obs_rank0.jsonl``: a ``compute`` span around each phase on the
+device (the gradients, each bucket's encode and reduce, the update), a
+``send`` record with each hop's wall time and bytes, and one ``dynamics``
+record a step (``elastic`` the error-feedback residual norm, ``push_norm``
+the update's norm). An armed span ends only after the card has finished
+its work (a stream synchronize), so it measures device time, not dispatch;
+unarmed, the step adds no synchronization at all. The fused step, armed,
+is one ``compute`` span in :meth:`DataParallelTrainer.step`.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Any, List, Optional
 
 import torch
 
 from mpit_tpu_torch import quant as _quant
 from mpit_tpu_torch.analysis import runtime as _runtime
-from mpit_tpu_torch.comm.collectives import quantized_rows_allreduce, raw_rows_allreduce
+from mpit_tpu_torch.comm.collectives import (
+    quantized_rows_decode,
+    quantized_rows_encode,
+    quantized_rows_hop1,
+    quantized_rows_hop2,
+    quantized_rows_reduce,
+    raw_rows_hop1,
+    raw_rows_hop2,
+    raw_rows_reduce,
+)
 from mpit_tpu_torch.comm.topology import Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.convert import flax_flat, from_flax_flat
+from mpit_tpu_torch.obs import core as obs_core
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
@@ -144,6 +167,9 @@ class DataParallelTrainer:
       quant, bucket_bytes: the bucketed exchange (default: the
         ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs); see the module
         docstring. With both off the step is the fused one.
+      obs: an :class:`~mpit_tpu_torch.obs.core.ObsConfig` (default: the
+        ``MPIT_OBS_*`` knobs); with a ``dir`` it arms the step's journal.
+        Call :meth:`close_obs` to close the journal.
     """
 
     def __init__(
@@ -154,6 +180,7 @@ class DataParallelTrainer:
         accum_steps: int = 1,
         quant: Optional[str] = None,
         bucket_bytes: Optional[int] = None,
+        obs: Optional[obs_core.ObsConfig] = None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -167,10 +194,9 @@ class DataParallelTrainer:
         self.bucket_bytes = int(bb) if bb is not None else DEFAULT_DP_BUCKET_BYTES
         if self.bucket_bytes < 1:
             raise ValueError(f"bucket_bytes={self.bucket_bytes} must be >= 1")
-        if self.bucketed and any(k.startswith("MPIT_OBS_") for k in os.environ):
-            raise NotImplementedError(
-                "observability of the bucketed exchange (an MPIT_OBS_* knob) is "
-                "not ported to mpit_tpu_torch yet (ROADMAP.md, item A12)")
+        self.obs = obs if obs is not None else obs_core.config_from_env()
+        self._tracer: Optional[obs_core.Tracer] = None
+        self._round = 0
         loss_fn = common.default_loss_fn(model.apply)
         remat = getattr(model, "remat", False)
         self._vg = common.accumulated_value_and_grad(loss_fn, self.accum_steps,
@@ -214,6 +240,47 @@ class DataParallelTrainer:
         params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
         return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
 
+    # -- observability --------------------------------------------------------
+
+    def _armed_tracer(self) -> Optional[obs_core.Tracer]:
+        """Build the journal/tracer lazily so ``trainer.obs`` can be set
+        after warmup (the bench A/B pattern)."""
+        if self._tracer is None and self.obs is not None and self.obs.dir:
+            os.makedirs(self.obs.dir, exist_ok=True)
+            journal = obs_core.Journal(
+                os.path.join(self.obs.dir, "obs_rank0.jsonl"),
+                rank=0,
+                max_records=self.obs.max_records,
+            )
+            self._tracer = obs_core.Tracer(0, journal=journal)
+        return self._tracer
+
+    def close_obs(self) -> None:
+        """Flush and close the trainer's obs journal (idempotent)."""
+        if self._tracer is not None:
+            self._tracer.close()
+            self._tracer = None
+
+    def _settle(self) -> None:
+        """Wait for the card to finish what this thread queued: an armed
+        span or hop ends here, so it times device work, not dispatch."""
+        dev = self.topo.device
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+
+    def _timed_hop(self, hop, args, nbytes: int, tracer):
+        """Run one wire hop. Armed: wait for it and journal the wall wait
+        as a ``send`` (dur + bytes, the roofline's wire figure). Unarmed:
+        dispatch only, which is where the overlap comes from."""
+        if tracer is None:
+            return hop(*args)
+        t0 = time.perf_counter()
+        out = hop(*args)
+        self._settle()
+        tracer.journal.event(
+            "send", tracer.clock.tick(), dur=time.perf_counter() - t0, bytes=nbytes)
+        return out
+
     # -- the bucketed exchange ---------------------------------------------
 
     def wire_bytes_per_step(self) -> Optional[int]:
@@ -234,41 +301,88 @@ class DataParallelTrainer:
     def _bucketed_step(self, state: common.TrainState, x: torch.Tensor, y: torch.Tensor):
         """One step of the bucketed exchange on device tensors (this
         process's rows); returns the new state and ``{"loss", "param_norm",
-        "update_norm"}`` as device scalars."""
+        "update_norm"}`` as device scalars. Armed, each phase is journaled
+        as the reference's step journals it (see the module docstring)."""
         self._ensure_buckets(state.params)
-        plan, wl = self._plan, self.topo.local_workers
-        grads, losses = self._worker_vg(
-            state.params, x.reshape(wl, -1, *x.shape[1:]), y.reshape(wl, -1, *y.shape[1:]))
-        loss = common.world_sum(losses) / self.topo.num_workers
-        leaves = tree_leaves(grads)
-        flats, res_sq = [], []
+        plan, wl, mode = self._plan, self.topo.local_workers, self.quant
+        tracer = self._armed_tracer()
+        armed = tracer is not None
+
+        def _span():
+            return tracer.span("compute") if armed else obs_core.NULL_SPAN
+
+        def _settle():
+            if armed:
+                self._settle()
+
+        with _span():
+            grads, losses = self._worker_vg(
+                state.params, x.reshape(wl, -1, *x.shape[1:]),
+                y.reshape(wl, -1, *y.shape[1:]))
+            loss = common.world_sum(losses) / self.topo.num_workers
+            leaves = tree_leaves(grads)
+            rows = []
+            for b in plan.buckets:
+                row = torch.cat([flax_flat(leaves[i], 1).to(torch.float32)
+                                 for i in range(b.lo, b.hi)], 1)
+                rows.append(torch.nn.functional.pad(row, (0, b.n_pad - b.n)))
+            _settle()
+
+        gathered, res_sq = [], []
         for k, b in enumerate(plan.buckets):
-            row = torch.cat([flax_flat(leaves[i], 1).to(torch.float32)
-                             for i in range(b.lo, b.hi)], 1)
-            row = torch.nn.functional.pad(row, (0, b.n_pad - b.n))
-            if self.quant == "off":
-                flat = raw_rows_allreduce(row)
-            else:
-                c = row + self._residual[k]
-                flat, sent, self._residual2[k] = quantized_rows_allreduce(
-                    c, self.quant, mean=True, r2=self._residual2[k])
+            if mode == "off":
+                xch = self._timed_hop(raw_rows_hop1, (rows[k],), b.hop_bytes, tracer)
+                with _span():
+                    red = raw_rows_reduce(xch)
+                    _settle()
+                gathered.append(self._timed_hop(raw_rows_hop2, (red,), b.hop_bytes, tracer))
+                continue
+            with _span():
+                c = rows[k] + self._residual[k]
+                codes, scales, sent = quantized_rows_encode(c, mode)
                 self._residual[k] = c - sent
                 res_sq.append(self._residual[k].square().sum())
-            flats.append(flat[:b.n])
-        flat_all = torch.cat(flats)
-        mean = [from_flax_flat(part, shape).to(dtype) for part, shape, dtype in zip(
-            torch.split(flat_all, plan.sizes), plan.shapes, plan.dtypes)]
-        params, opt_state = self.optimizer.update(
-            state.params, tree_unflatten(plan.template, mean), state.opt_state)
-        old, new = tree_leaves(state.params), tree_leaves(params)
-        pn = torch.stack([p.to(torch.float32).square().sum() for p in new]).sum().sqrt()
-        un = torch.stack([(p.to(torch.float32) - q.to(torch.float32)).square().sum()
-                          for p, q in zip(new, old)]).sum().sqrt()
+                _settle()
+            cx, sx = self._timed_hop(quantized_rows_hop1, (codes, scales, mode),
+                                     b.hop_bytes, tracer)
+            with _span():
+                rcodes, rscale, self._residual2[k] = quantized_rows_reduce(
+                    cx, sx, mode, mean=True, r2=self._residual2[k])
+                _settle()
+            gathered.append(self._timed_hop(quantized_rows_hop2, (rcodes, rscale, mode),
+                                            b.hop_bytes, tracer))
+
+        with _span():
+            flats = [(g if mode == "off" else quantized_rows_decode(*g, mode))[:b.n]
+                     for g, b in zip(gathered, plan.buckets)]
+            flat_all = torch.cat(flats)
+            mean = [from_flax_flat(part, shape).to(dtype) for part, shape, dtype in zip(
+                torch.split(flat_all, plan.sizes), plan.shapes, plan.dtypes)]
+            # the optimizer's updates themselves, as the reference's
+            # update_norm measures them (not new - old params)
+            p = tree_leaves(state.params)
+            updates, opt_state = self.optimizer.transform(mean, state.opt_state, p, False)
+            params = tree_unflatten(state.params, torch._foreach_add(p, updates))
+            pn = torch.stack([q.to(torch.float32).square().sum()
+                              for q in tree_leaves(params)]).sum().sqrt()
+            un = torch.stack([u.to(torch.float32).square().sum()
+                              for u in updates]).sum().sqrt()
+            _settle()
+
         checker = _runtime.active_checker()
-        if res_sq and checker is not None and getattr(checker, "numerics", False):
-            # the numerics sanitizer (RT104) reads the EF residual norm
-            _runtime.note_residual_norm(
-                "sync-dp.elastic", float(torch.stack(res_sq).sum().sqrt()))
+        if armed or (checker is not None and getattr(checker, "numerics", False)):
+            elastic = (math.sqrt(sum(torch.stack(res_sq).double().tolist()))
+                       if res_sq else 0.0)
+            # RT104 sees the SAME value the dynamics plane journals as
+            # `elastic`: the sanitizer and the journal cannot disagree
+            _runtime.note_residual_norm("sync-dp.elastic", elastic)
+        if armed:
+            self._round += 1
+            pn_f, un_f = float(pn), float(un)
+            tracer.journal.event(
+                "dynamics", tracer.clock.tick(), round=self._round, algo="sync-dp",
+                elastic=elastic, push_norm=un_f, param_norm=pn_f, fetch_delta=0.0,
+                ratio=un_f / pn_f if pn_f > 0 else 0.0)
         return (common.TrainState(params, opt_state, state.step + 1),
                 {"loss": loss, "param_norm": pn, "update_norm": un})
 
@@ -278,8 +392,16 @@ class DataParallelTrainer:
         self._check(x_global)
         x, y = self._shard(x_global, y_global)
         dev = self.topo.device
-        step_fn = self._bucketed_step if self.bucketed else self._step
-        return step_fn(state, torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev))
+        x, y = torch.as_tensor(x).to(dev), torch.as_tensor(y).to(dev)
+        if self.bucketed:
+            return self._bucketed_step(state, x, y)
+        tracer = self._armed_tracer()
+        if tracer is None:
+            return self._step(state, x, y)
+        with tracer.span("compute"):
+            out = self._step(state, x, y)
+            self._settle()
+        return out
 
     def evaluate(self, state, x, y, batch: int = 1024):
         """Full-dataset eval over the reference's batches; returns

@@ -65,9 +65,9 @@ def _rt_numerics_checker():
 
     This module stays importable with only numpy, so it never imports the
     analysis package: ``sys.modules`` is peeked for an already-imported
-    ``mpit_tpu_torch.analysis.runtime``. Until ROADMAP.md item A12 that
-    module is a stand-in whose ``active_checker()`` is always None, so
-    this costs one dict lookup per quantize."""
+    ``mpit_tpu_torch.analysis.runtime`` — exactly the processes that armed
+    the checker (``MPIT_RT_NUMERICS=1`` or ``runtime.checking``) have
+    imported it. Unarmed, this costs one dict lookup per quantize."""
     rt = sys.modules.get("mpit_tpu_torch.analysis.runtime")
     if rt is None:
         return None

@@ -6,8 +6,7 @@ and ``mpit_tpu_torch/examples/ptest_proc.py`` of ``examples/ptest_proc.py``;
 the cases of ``tests/test_launch.py`` run here on the port (on the CPU).
 One world mixes the packages, started without a launcher: rank 0 is the
 reference's script under ``JAX_PLATFORMS=cpu``, ranks 1-2 the port's, and
-it trains with the reference's counts. What is not ported raises naming
-its ROADMAP.md item before any rank starts.
+it trains with the reference's counts. The obs knobs reach every rank.
 """
 
 import json
@@ -18,7 +17,6 @@ import sys
 
 import pytest
 
-from mpit_tpu_torch import launch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_SCRIPT = os.path.join(REPO, "mpit_tpu_torch", "examples", "ptest_proc.py")
@@ -97,11 +95,13 @@ def test_a_mixed_world_trains_with_the_reference_counts():
 
 
 @pytest.mark.parametrize("case", ["jax-distributed", "obs"])
-def test_unported_launch_planes_raise_naming_their_item(case, monkeypatch, tmp_path):
-    """The obs plane (item A12) raises naming its item before any rank
-    starts. ``--jax-distributed``, which raised until item A5b landed,
-    now wires a ``torch.distributed`` world: two gloo ranks of
-    ``multihost_sync.py`` train as one world of 2 × 1 workers."""
+def test_launch_planes_run_across_ranks(case, tmp_path):
+    """``--jax-distributed`` wires a ``torch.distributed`` world: two gloo
+    ranks of ``multihost_sync.py`` train as one world of 2 × 1 workers.
+    ``MPIT_OBS_DIR`` (with elastic supervision, which journals membership)
+    reaches every rank of a 2-rank PS world: each writes its journal and
+    its black-box close dump, the launcher writes ``membership.jsonl``, and
+    the port's CLI summarizes the run."""
     if case == "jax-distributed":
         out = str(tmp_path / "mh")
         r = subprocess.run(
@@ -115,8 +115,24 @@ def test_unported_launch_planes_raise_naming_their_item(case, monkeypatch, tmp_p
         assert [m["num_workers"] for m in ranks] == [2, 2]
         assert ranks[0]["last_loss"] == ranks[1]["last_loss"]
         return
-    argv = ["-n", "2", PORT_SCRIPT]
-    monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item A12"):
-        launch.main(argv)
-    assert not os.listdir(tmp_path)
+    obs = tmp_path / "obs"
+    env = dict(_env(), MPIT_OBS_DIR=str(obs), MPIT_ELASTIC_RESPAWN="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", "2", PORT_SCRIPT,
+         "--device", "cpu", *ARGS],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=TIMEOUT_S,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[launch] OBS tracing/telemetry active in all ranks" in r.stderr
+    assert sorted(p.name for p in obs.glob("obs_rank*.jsonl")) == [
+        "obs_rank0.jsonl", "obs_rank1.jsonl"]
+    members = [json.loads(line) for line in open(obs / "membership.jsonl")]
+    assert sorted((m["kind"], m["rank"]) for m in members) == [
+        ("done", 0), ("done", 1), ("spawn", 0), ("spawn", 1)]
+    assert sorted(p.name for p in (obs / "blackbox").glob("rank_*.jsonl")) == [
+        "rank_0.jsonl", "rank_1.jsonl"]
+    summ = subprocess.run([sys.executable, "-m", "mpit_tpu_torch.obs", "summary", str(obs)],
+                          cwd=REPO, env=_env(), capture_output=True, text=True,
+                          timeout=TIMEOUT_S)
+    assert summ.returncode == 0, summ.stdout + summ.stderr
+    assert [line.split(":")[0] for line in summ.stdout.splitlines()] == ["rank 0", "rank 1"]

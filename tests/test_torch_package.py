@@ -55,6 +55,8 @@ def test_importing_the_port_loads_no_jax():
         "mpit_tpu_torch.parallel, mpit_tpu_torch.convert, mpit_tpu_torch.quant, "
         "mpit_tpu_torch.transport, mpit_tpu_torch.parallel.ps_trainer, "
         "mpit_tpu_torch.obs.core, mpit_tpu_torch.obs.live, "
+        "mpit_tpu_torch.obs, mpit_tpu_torch.obs.telemetry, mpit_tpu_torch.obs.blackbox, "
+        "mpit_tpu_torch.obs.__main__, mpit_tpu_torch.loadgen, "
         "mpit_tpu_torch.analysis.runtime\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"

@@ -14,6 +14,7 @@ import importlib
 import os
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -706,22 +707,50 @@ def _threads():
     return {t.name for t in threading.enumerate()}
 
 
+def _threads_settle(before, timeout_s=5.0):
+    """The live threads once the run's own have ended (the black box's
+    watcher parks within its poll interval)."""
+    deadline = time.monotonic() + timeout_s
+    while _threads() != before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return _threads()
+
+
 @pytest.mark.parametrize("case", ["obs-env", "obs-arg"])
-def test_unported_planes_raise_naming_their_item(case, monkeypatch, tmp_path):
-    """The obs plane raises naming its ROADMAP.md item, before any thread
-    starts."""
+def test_the_obs_plane_journals_every_rank(case, monkeypatch, tmp_path):
+    """The obs plane, by environment knob (through ``run()``) or by the
+    trainer's ``obs`` argument, wraps every rank: each writes its journal
+    with wire, span and dynamics records, the stats carry the per-(peer,
+    tag) counters, and no thread of the run outlives it."""
+    from mpit_tpu_torch.obs import ObsConfig
+
     before = _threads()
-    cfg = _ps_cfg(TrainConfig)
     if case == "obs-env":
         monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
-        call = lambda: port_run.run(cfg, device=CPU)  # noqa: E731
+        res = port_run.run(_ps_cfg(TrainConfig), device=CPU)
+        assert res["server_counts"][0]["push_easgd"] == 2 * (16 // 4)
     else:
-        call = lambda: AsyncPSTrainer(MLP(device=CPU), SGD(0.1), device=CPU,  # noqa: E731
-                                      obs=object())
-    with pytest.raises(NotImplementedError, match="item A12"):
-        call()
-    assert _threads() == before
-    assert not os.listdir(tmp_path)
+        x, y, _, _ = mnist()
+        trainer = AsyncPSTrainer(MLP(device=CPU), SGD(0.1), transport="inproc",
+                                 tau=4, device=CPU, obs=ObsConfig(dir=str(tmp_path)))
+        _, stats = trainer.train(x[:512], y[:512], steps=8, batch_size=32)
+        tel = stats["telemetry"]
+        assert [t["rank"] for t in tel] == [0, 1, 2]
+        # each client fetched 3 times (the initial pull and 2 rounds) and
+        # pushed twice; the server answered every fetch
+        for c in (1, 2):
+            assert tel[c]["send"]["0:2"]["msgs"] == 2  # TAG_PUSH_EASGD
+            assert tel[c]["send"]["0:1"]["msgs"] == 3  # TAG_FETCH
+        assert sum(v["msgs"] for k, v in tel[0]["send"].items()) == 6
+    assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".jsonl")) == [
+        "obs_rank0.jsonl", "obs_rank1.jsonl", "obs_rank2.jsonl"]
+    for r in range(3):
+        evs = {json.loads(line)["ev"] for line in open(tmp_path / f"obs_rank{r}.jsonl")}
+        want = {"send", "recv"} | ({"push_stale", "param_version"} if r == 0
+                                   else {"span_b", "span_e", "dynamics"})
+        assert want <= evs, (r, evs)
+    assert sorted(os.listdir(tmp_path / "blackbox")) == [f"rank_{r}.jsonl" for r in range(3)]
+    assert _threads_settle(before) == before
 
 
 def test_run_refuses_ps_off_mnist_and_keeps_checkpoints_for_a5b(tmp_path):

@@ -7,6 +7,7 @@ mean gradient (see ``mpit_tpu_torch/parallel/sync.py``).
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -268,18 +269,50 @@ def test_both_knobs_off_is_the_fused_step(monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_bucketed_exchange_refuses_obs_and_bad_values(monkeypatch):
-    """Observability of the bucketed path is item A12 and raises naming it;
-    a bad mode or bucket size raises as in the reference."""
+def test_bucketed_exchange_refuses_bad_values():
+    """A bad mode or bucket size raises as in the reference."""
     model = TransformerLM(31, num_layers=1, d_model=32, num_heads=4, device="cpu")
     with pytest.raises(ValueError, match="quant"):
         DataParallelTrainer(model, optim.SGD(0.1), CPU8, quant="fp4")
     with pytest.raises(ValueError, match="bucket_bytes"):
         DataParallelTrainer(model, optim.SGD(0.1), CPU8, bucket_bytes=0)
-    monkeypatch.setenv("MPIT_OBS_DIR", "obs")
-    with pytest.raises(NotImplementedError, match="A12"):
-        DataParallelTrainer(model, optim.SGD(0.1), CPU8, quant="int8")
-    DataParallelTrainer(model, optim.SGD(0.1), CPU8)  # the fused path has no journal
+
+
+@pytest.mark.parametrize("quant", ["int8", "off"])
+def test_bucketed_step_with_an_obs_dir_writes_its_journal(quant, monkeypatch, tmp_path):
+    """``MPIT_OBS_DIR`` arms the bucketed step's journal: per step a
+    ``compute`` span around the gradients, each bucket's encode (quantized
+    only) and reduce, and the update, a ``send`` with each hop's bytes, and
+    one ``dynamics`` record; the step's results are those of the unarmed
+    trainer, bit for bit."""
+    x, y = _lm_data(2)
+    make = lambda: DataParallelTrainer(  # noqa: E731
+        TransformerLM(31, num_layers=1, d_model=32, num_heads=4, max_len=64,
+                      compute_dtype=torch.float32, device="cpu"),
+        optim.SGD(0.1), CPU8, quant=quant, bucket_bytes=4096)
+    plain = make()
+    params = plain.model.init(torch.Generator().manual_seed(0))
+    monkeypatch.setenv("MPIT_OBS_DIR", str(tmp_path))
+    traced = make()
+    s0, s1 = plain.init_state(params=params), traced.init_state(params=params)
+    for i in range(2):
+        s0, _ = plain.step(s0, x[i], y[i])
+        s1, _ = traced.step(s1, x[i], y[i])
+    traced.close_obs()
+    for a, b in zip(jax.tree.leaves(s0.params), jax.tree.leaves(s1.params)):
+        assert torch.equal(a, b)
+    recs = [json.loads(line) for line in open(tmp_path / "obs_rank0.jsonl")]
+    kinds = [(r["ev"], r.get("name")) for r in recs if r["ev"] != "span_e"]
+    nb = len(traced._plan.buckets)
+    per_bucket = ([("span_b", "compute")] if quant != "off" else []) + [
+        ("send", None), ("span_b", "compute"), ("send", None)]
+    step = [("span_b", "compute"), *per_bucket * nb, ("span_b", "compute"), ("dynamics", None)]
+    assert nb > 1 and kinds == step * 2
+    hops = [r["bytes"] for r in recs if r["ev"] == "send"]
+    assert hops == [b.hop_bytes for b in traced._plan.buckets for _ in (0, 1)] * 2
+    dyn = [r for r in recs if r["ev"] == "dynamics"]
+    assert [d["round"] for d in dyn] == [1, 2] and all(d["algo"] == "sync-dp" for d in dyn)
+    assert all((d["elastic"] > 0) == (quant != "off") for d in dyn)
 
 
 def test_resnet50_at_lr_01_rises_in_both_packages(topo8):
