@@ -183,6 +183,35 @@ non-zero before the result lines:
              zero`` with one rank on the card: exit 0, the world's worker
              count, equal losses on every rank, a bit-exact checkpoint round
              trip.
+25. serve  — ``ptb-transformer-large``'s model at full width (6 layers,
+             d_model 768, 12 heads, max_len 512, vocab 10,000, bf16, seeded
+             weights) served: 8 requests through ``Server(max_batch=8,
+             segment=16)`` against their solo ``generate_fast``, greedy and
+             at temperature 0.8, top_p 0.95 (the number bit-equal; every
+             divergence starts at a near-tie, ROADMAP C8); the f32 prefill
+             and first tick's logits, card vs CPU; the load run
+             (``LoadHarness`` over 64 requests at 50/s with obs on, read by
+             ``python -m mpit_tpu_torch.obs slo``: requests/s, generated
+             tokens/s, TTFT and TPOT p50/p99, peak memory against the KV
+             cache); one segment timed and profiled (ms and launches a tick,
+             busy share, top kernels).
+26. serve-spec — the same 8 requests through the speculative server with a
+             2-layer, d_model 256 draft, ``spec_k`` 4: tokens against the
+             greedy run's (or C8), acceptance, tokens per target read,
+             tokens/s.
+27. serve-rnn — ``RNNServer`` at ``ptb-lstm-easgd``'s widths over the load
+             schedule without the length cap: every result against its solo
+             ``generate_rnn`` (or C8); tokens/s.
+28. generate-flash — the fixed-buffer ``generate`` on the serving model
+             built with ``attn_impl="flash"``, 16 greedy tokens: 96 sm90
+             forward launches (counts set to 0 just before, read after; they
+             join the kernels line's row), the logits within the bf16 model
+             limit of the xla model's.
+29. conv-determinism — ROADMAP C7: cuDNN's flags back at PyTorch's
+             defaults, a tiny ``run()`` (which sets the deterministic
+             algorithms), then ``dp-quant``'s fused LeNet leg twice with no
+             override: the losses equal bit for bit; one leg with the
+             defaults for the cost.
 
 Each phase's seconds follow its lines. Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
@@ -2539,6 +2568,409 @@ def dist_phase() -> None:
                   f"bit-exact on every rank")
 
 
+SERVE_SEED = 13
+# where the serving phases run (the card; a rehearsal on the CPU patches it)
+SERVE_DEVICE = "cuda"
+SERVE_VOCAB = 10_000
+SERVE_MAX_LEN = 512
+SERVE_REQS = 8
+SERVE_NEW = 64
+SERVE_BATCH, SERVE_SEGMENT = 8, 16
+SERVE_SAMPLED = dict(temperature=0.8, top_p=0.95)
+SPEC_K = 4
+# the f32 logits of the serving model, card vs the port on the CPU: the
+# transformer tests' limit (tests/test_torch_transformer.py:30)
+SERVE_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# the load run's schedule: 64 requests at 50 a second, prompts mostly short,
+# a tenth long, 16-63 new tokens each
+SERVE_LOAD = dict(requests=64, rate=50, prompt_buckets=((8, 64, 0.5), (64, 256, 0.4),
+                                                        (256, 448, 0.1)),
+                  output_buckets=((16, 64, 1.0),))
+RNN_FLOATS = 11_364_112  # ptb-lstm-easgd's LSTM (vocab 10,000, 256, 512, 2 layers)
+# ROADMAP C8: on the card a row decoded in a batch of 8 and alone runs
+# through GEMMs of other shapes, whose kernels sum in other orders; the
+# tokens then part where the two best scores lie this close (the largest
+# gap at a first divergence on an H100 80GB HBM3 at 700 W was 0.0079)
+NEAR_TIE = 2.0**-5
+# the flash model's logits against the xla model's: bf16 models' limit
+# (tests/test_torch_transformer.py:36); FLASH_TOL bounds one attention's
+# output, and six bf16 layers carry the sm90 kernel's bf16 P further
+SERVE_BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+def serve_model(dtype=torch.bfloat16, attn_impl="xla"):
+    """``ptb-transformer-large``'s model at full width, built for serving."""
+    from mpit_tpu_torch.models.transformer import TransformerLM
+
+    return TransformerLM(SERVE_VOCAB, num_layers=LM_LAYERS, d_model=768, num_heads=12,
+                         max_len=SERVE_MAX_LEN, compute_dtype=dtype,
+                         attn_impl=attn_impl, device=SERVE_DEVICE)
+
+
+def serve_requests() -> list:
+    """SERVE_REQS prompts of 16-199 tokens from a seed, SERVE_NEW tokens each."""
+    import numpy as np
+
+    rng = np.random.default_rng(SERVE_SEED)
+    return [([int(t) for t in rng.integers(1, SERVE_VOCAB, int(rng.integers(16, 200)))],
+             SERVE_NEW) for _ in range(SERVE_REQS)]
+
+
+def first_divergence(a: list, b: list):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def divergence_gap(model, params, seq: list, j: int, other: int, key=None,
+                   temp=None) -> float:
+    """The gap between the two tokens decoded at position ``j`` (``seq[j]``
+    and ``other``) in the scores the draw compared: the model's logits
+    after ``seq[:j]`` (divided by the temperature plus the request's Gumbel
+    noise for that token, when sampled)."""
+    from mpit_tpu_torch import random as jrandom
+
+    with torch.no_grad():
+        logits = model.apply(params, torch.tensor([seq[:j]], device=SERVE_DEVICE))[0, -1]
+    if key is not None:
+        logits = logits / temp + jrandom.gumbel(key[None], (logits.shape[-1],))[0]
+    return abs(float(logits[seq[j]] - logits[other]))
+
+
+def check_near_ties(name: str, diverged: list) -> None:
+    """ROADMAP C8: every divergence from a solo call starts at a near-tie."""
+    far = [d for d in diverged if not d[-1] <= NEAR_TIE]
+    if far:
+        raise AssertionError(f"{name}: divergences past a near-tie ({NEAR_TIE}): {far}")
+
+
+def serve_consistency(model, params, reqs, rule: dict, label: str) -> tuple[dict, list]:
+    """The reqs through ``Server(max_batch=8, segment=16)`` against their
+    solo ``generate_fast`` calls; returns the server's results and, for
+    each request that differs, (index, first divergence, gap)."""
+    from mpit_tpu_torch import random as jrandom
+    from mpit_tpu_torch.models import Server, generate_fast
+
+    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                 device=SERVE_DEVICE, **rule)
+    rids = [srv.submit(p, mn, rng=jrandom.key(1000 + i)) for i, (p, mn) in enumerate(reqs)]
+    t0 = time.perf_counter()
+    got = srv.drain()
+    wall = time.perf_counter() - t0
+    diverged = []
+    for i, (rid, (p, mn)) in enumerate(zip(rids, reqs)):
+        solo = generate_fast(model, params, p, mn, rng=jrandom.key(1000 + i),
+                             device=SERVE_DEVICE, **rule)
+        j = first_divergence(solo, got[rid])
+        if j is None:
+            continue
+        key = None
+        if rule:
+            key = jrandom.split(jrandom.key(1000 + i, SERVE_DEVICE), mn)[j - len(p)]
+        gap = divergence_gap(model, params, solo, j, got[rid][j], key,
+                             rule.get("temperature"))
+        diverged.append((i, j - len(p), gap))
+    check_near_ties("serve", diverged)
+    phase("serve", f"{label}: {SERVE_REQS} requests ({', '.join(str(len(p)) for p, _ in reqs)} "
+          f"prompt tokens, {SERVE_NEW} new each) through Server(max_batch={SERVE_BATCH}, "
+          f"segment={SERVE_SEGMENT}) in {wall:.3f} s: {SERVE_REQS - len(diverged)} of "
+          f"{SERVE_REQS} bit-equal to their solo generate_fast; divergences (request, "
+          f"generated token, gap): {diverged}")
+    return {i: got[r] for i, r in enumerate(rids)}, diverged
+
+
+def serve_vs_cpu(params, prompt: list) -> None:
+    """The f32 serving model's prefill logits and first tick's logits on
+    the card against the port on the CPU, from the same params and tokens."""
+    from mpit_tpu_torch.models import sampling
+    from mpit_tpu_torch.utils.params import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dec = serve_model(torch.float32).clone(decode=True)
+    out = {}
+    tok = None
+    for dev in (SERVE_DEVICE, "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        buf = torch.tensor([prompt], device=dev)
+        lens = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            cache, last = sampling._prefill_chunk(dec, p, dec.init_cache(1, dev), buf, lens)
+            if tok is None:
+                tok = int(torch.argmax(last[0]))
+            logits, _ = dec.apply(p, torch.tensor([[tok]], device=dev), cache)
+        out[dev] = (last.cpu(), logits[:, 0].cpu())
+    errs = []
+    for a, b in zip(out[SERVE_DEVICE], out["cpu"]):
+        torch.testing.assert_close(a, b, **SERVE_F32_TOL)
+        errs.append((a - b).abs().max().item())
+    phase("serve", f"f32 prefill ({len(prompt)} tokens) and first tick, card vs CPU: max "
+          f"|logit err| {errs[0]:.3g} and {errs[1]:.3g} (rtol {SERVE_F32_TOL['rtol']}, atol "
+          f"{SERVE_F32_TOL['atol']})")
+
+
+def serve_load(model, params, card_line: str) -> None:
+    """The open-loop load run with obs on, read by ``obs slo``; then one
+    full segment under the profiler."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.loadgen import LoadHarness, LoadSpec, make_workload
+    from mpit_tpu_torch.models import Server
+    from mpit_tpu_torch.obs.core import ObsConfig
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    def work():
+        return make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB, max_len=SERVE_MAX_LEN)
+
+    warm = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                  device=SERVE_DEVICE)
+    for r in work():
+        warm.submit(list(r.prompt), r.max_new)
+    warm.drain()
+    kv_bytes = SERVE_BATCH * LM_LAYERS * 2 * SERVE_MAX_LEN * 768 * 2
+    with tempfile.TemporaryDirectory(prefix="serve-") as tmp:
+        srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                     device=SERVE_DEVICE, obs=ObsConfig(dir=tmp))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats()
+        rep = LoadHarness(srv, work()).run()
+        peak = torch.cuda.max_memory_allocated() - base
+        rc, out = obs_cli("slo", tmp, "--json")
+    slo = json.loads(out)
+    gen = sum(len(t) - len(rep.requests[r].prompt) for r, t in rep.results.items())
+    if rc != 0 or slo["requests"]["finished"] != SERVE_LOAD["requests"] or rep.killed:
+        raise AssertionError(f"serve: load run {slo['requests']}, obs slo exit {rc}")
+    phase("serve", f"load run: {SERVE_LOAD['requests']} requests at {SERVE_LOAD['rate']}/s "
+          f"(prompts 8-447 tokens, 16-63 new), {rep.boundaries} boundaries in "
+          f"{rep.wall_s:.3f} s: {slo['requests']['finished'] / rep.wall_s:.2f} requests/s, "
+          f"{gen / rep.wall_s:.1f} generated tokens/s; obs slo: TTFT p50 "
+          f"{slo['ttft']['p50_ms']} ms p99 {slo['ttft']['p99_ms']} ms, TPOT p50 "
+          f"{slo['tpot']['p50_ms']} ms p99 {slo['tpot']['p99_ms']} ms, e2e p99 "
+          f"{slo['e2e']['p99_ms']} ms, goodput {slo['goodput']}, occupancy "
+          f"{slo['occupancy']}; max submit lateness {rep.max_submit_lateness_s:.4f} s")
+    phase("serve", f"peak device memory of the load run above what was allocated before "
+          f"it {peak / 2**20:.1f} MiB (before it {base / 2**20:.1f} MiB); the KV cache "
+          f"{kv_bytes / 2**20:.1f} MiB ({SERVE_BATCH} slots x {LM_LAYERS} layers x K,V x "
+          f"{SERVE_MAX_LEN} x 768 x bf16); f32 params {4 * sum(t.numel() for t in tree_leaves(params)) / 2**20:.1f} MiB; "
+          f"{card_line}")
+
+    # one full segment of 16 ticks, 8 rows busy, timed and then profiled
+    reqs = serve_requests()
+    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                 device=SERVE_DEVICE)
+    for p, _ in reqs:
+        srv.submit(p, 4 * SERVE_SEGMENT)
+    srv.step()  # admission and a first segment
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.step()
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / SERVE_SEGMENT
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy_ms, _ = busy_union_ms(prof)
+    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    phase("serve", f"one segment ({SERVE_SEGMENT} ticks, {SERVE_BATCH} rows): "
+          f"{tick_ms:.3f} ms a tick unprofiled; under the profiler {wall_ms / SERVE_SEGMENT:.3f} "
+          f"ms a tick, {launches / SERVE_SEGMENT:.1f} kernel launches a tick, device busy "
+          f"{busy_ms / SERVE_SEGMENT:.4f} ms a tick ({100 * busy_ms / wall_ms:.1f}% of the "
+          f"wall); top kernels:")
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        phase("serve", f"  {e.self_device_time_total / 1e3 / SERVE_SEGMENT:9.4f} ms/tick "
+              f"{e.count / SERVE_SEGMENT:6.1f} calls/tick  {e.key[:90]}")
+    srv.drain()
+
+
+def serve_path(card_line: str) -> dict:
+    """ptb-transformer-large's model (seeded weights) served: greedy and
+    sampled self-consistency, card vs CPU, the load run; returns the
+    greedy server's results for the spec phase."""
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    model = serve_model()
+    params = model.init(torch.Generator().manual_seed(SERVE_SEED))
+    n = sum(t.numel() for t in tree_leaves(params))
+    phase("serve", f"ptb-transformer-large's model: {LM_LAYERS} layers, d_model 768, 12 "
+          f"heads, d_ff 3072, max_len {SERVE_MAX_LEN}, vocab {SERVE_VOCAB}, bf16 compute, "
+          f"{n} parameters (seeded init {SERVE_SEED}); {card_line}")
+    reqs = serve_requests()
+    greedy, _ = serve_consistency(model, params, reqs, {}, "greedy")
+    serve_consistency(model, params, reqs, SERVE_SAMPLED, f"sampled {SERVE_SAMPLED}")
+    serve_vs_cpu(params, reqs[0][0])
+    serve_load(model, params, card_line)
+    return {"model": model, "params": params, "reqs": reqs, "greedy": greedy}
+
+
+def serve_spec(card_line: str, served: dict) -> None:
+    """The greedy requests through the speculative server with a 2-layer,
+    d_model 256 draft (seeded): tokens against the greedy server's,
+    acceptance, tokens per target read, tokens/s."""
+    from mpit_tpu_torch.models import Server, serving
+    from mpit_tpu_torch.models.transformer import TransformerLM
+
+    model, params, reqs = served["model"], served["params"], served["reqs"]
+    draft = TransformerLM(SERVE_VOCAB, num_layers=2, d_model=256, num_heads=4,
+                          max_len=SERVE_MAX_LEN, device=SERVE_DEVICE)
+    d_params = draft.init(torch.Generator().manual_seed(SERVE_SEED + 1))
+    stats = {"row_rounds": 0, "emitted": 0}
+    real = serving._serve_spec_segment
+
+    def counting(tgt, dft, k, r_cap, t_params, d_params, t_cache, d_cache, prev, pos0,
+                 rounds):
+        out = real(tgt, dft, k, r_cap, t_params, d_params, t_cache, d_cache, prev, pos0,
+                   rounds)
+        busy = pos0 > 0  # free slots pass 0
+        stats["row_rounds"] += rounds * int(busy.sum())
+        stats["emitted"] += int(out[4][busy].sum())
+        return out
+
+    serving._serve_spec_segment = counting
+    try:
+        srv = Server(model, params, max_batch=SERVE_BATCH, draft_model=draft,
+                     draft_params=d_params, spec_k=SPEC_K, device=SERVE_DEVICE)
+        rids = [srv.submit(p, mn) for p, mn in reqs]
+        t0 = time.perf_counter()
+        got = srv.drain()
+        wall = time.perf_counter() - t0
+    finally:
+        serving._serve_spec_segment = real
+    diverged = []
+    for i, rid in enumerate(rids):
+        want = served["greedy"][i]
+        j = first_divergence(want, got[rid])
+        if j is not None:
+            diverged.append((i, j - len(reqs[i][0]), divergence_gap(
+                model, params, want, j, got[rid][j])))
+    check_near_ties("serve-spec", diverged)
+    per_read = stats["emitted"] / stats["row_rounds"]
+    phase("serve-spec", f"draft: 2 layers, d_model 256, 4 heads, vocab {SERVE_VOCAB} "
+          f"(seeded init {SERVE_SEED + 1}); spec_k {SPEC_K}: {SERVE_REQS - len(diverged)} of "
+          f"{SERVE_REQS} requests equal the greedy serve run's; divergences (request, "
+          f"generated token, gap): {diverged}; {per_read:.3f} tokens per target read "
+          f"(acceptance {(per_read - 1) / SPEC_K:.4f}); "
+          f"{SERVE_REQS * SERVE_NEW / wall:.1f} tokens/s ({wall:.3f} s); {card_line}")
+
+
+def serve_rnn(card_line: str) -> None:
+    """``RNNServer`` at ptb-lstm-easgd's widths over the load schedule
+    without the length cap; every result against its solo generate_rnn."""
+    from mpit_tpu_torch import random as jrandom
+    from mpit_tpu_torch.loadgen import LoadHarness, LoadSpec, make_workload
+    from mpit_tpu_torch.models import RNNServer, generate_rnn
+    from mpit_tpu_torch.models.lstm import LSTMLM
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    lstm = LSTMLM(device=SERVE_DEVICE)
+    params = lstm.init(torch.Generator().manual_seed(SERVE_SEED))
+    n = sum(t.numel() for t in tree_leaves(params))
+    if n != RNN_FLOATS:
+        raise AssertionError(f"serve-rnn: {n} floats != {RNN_FLOATS}")
+    work = make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB)
+    warm = RNNServer(lstm, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                     device=SERVE_DEVICE)
+    for r in work[:8]:
+        warm.submit(list(r.prompt), r.max_new)
+    warm.drain()
+    rep = LoadHarness(RNNServer(lstm, params, max_batch=SERVE_BATCH,
+                                segment=SERVE_SEGMENT, device=SERVE_DEVICE), work).run()
+    gen = sum(len(t) - len(rep.requests[r].prompt) for r, t in rep.results.items())
+    key = jrandom.key(0, SERVE_DEVICE)
+    diverged = []
+    for rid, req in rep.requests.items():
+        solo = generate_rnn(lstm, params, list(req.prompt), req.max_new,
+                            rng=jrandom.fold_in(key, rid), device=SERVE_DEVICE)
+        j = first_divergence(solo, rep.results[rid])
+        if j is not None:
+            with torch.no_grad():
+                logits = lstm.apply(params, torch.tensor([solo[:j]], device=SERVE_DEVICE))[0, -1]
+            diverged.append((rid, j - len(req.prompt),
+                             abs(float(logits[solo[j]] - logits[rep.results[rid][j]]))))
+    check_near_ties("serve-rnn", diverged)
+    phase("serve-rnn", f"RNNServer(max_batch={SERVE_BATCH}, segment={SERVE_SEGMENT}), "
+          f"LSTM vocab {SERVE_VOCAB}, embed 256, hidden 512, 2 layers, bf16 ({n} floats, "
+          f"seeded init {SERVE_SEED}), the load schedule without a length cap: "
+          f"{len(rep.results)} requests in {rep.wall_s:.3f} s, {gen / rep.wall_s:.1f} "
+          f"generated tokens/s; {len(rep.results) - len(diverged)} of {len(rep.results)} "
+          f"equal their solo generate_rnn; divergences (request, generated token, gap): "
+          f"{diverged}; {card_line}")
+
+
+def generate_flash(served: dict) -> int:
+    """The fixed-buffer ``generate`` on the serving model built with
+    ``attn_impl="flash"``: 16 greedy tokens, one sm90 forward launch per
+    layer per token (counts set to 0 just before, read just after), and
+    the flash model's logits against the xla model's."""
+    from mpit_tpu_torch.models import generate
+    from mpit_tpu_torch.ops import flash_attention as fa
+
+    params, prompt = served["params"], served["reqs"][0][0]
+    flash, xla = serve_model(attn_impl="flash"), serve_model()
+    for k in fa.launches:
+        fa.launches[k] = 0
+    t0 = time.perf_counter()
+    toks = generate(flash, params, prompt, 16, device=SERVE_DEVICE)
+    wall = time.perf_counter() - t0
+    launched = dict(fa.launches)
+    want = {k: 0 for k in launched}
+    want["flash_forward_sm90"] = 16 * LM_LAYERS
+    if launched != want:
+        raise AssertionError(f"generate-flash: launches {launched} != {want}")
+    buf = torch.zeros(1, SERVE_MAX_LEN, dtype=torch.long, device=SERVE_DEVICE)
+    buf[0, :len(toks)] = torch.tensor(toks, device=SERVE_DEVICE)
+    with torch.no_grad():
+        a, b = flash.apply(params, buf)[0, :len(toks)], xla.apply(params, buf)[0, :len(toks)]
+    err = (a - b).abs().max().item()
+    torch.testing.assert_close(a, b, **SERVE_BF16_TOL)
+    tol = FLASH_TOL[torch.bfloat16]
+    past = int(((a - b).abs() > tol + tol * b.abs()).sum())
+    same = toks == generate(xla, params, prompt, 16, device=SERVE_DEVICE)
+    phase("generate-flash", f"generate (fixed (1, {SERVE_MAX_LEN}) buffer) on the flash "
+          f"model, 16 greedy tokens in {wall:.3f} s: flash launches {json.dumps(launched)}; "
+          f"logits vs the xla model's at the {len(toks)} filled positions: max |err| "
+          f"{err:.4g} (rtol, atol {SERVE_BF16_TOL['atol']}); {past} of {a.numel()} past "
+          f"FLASH_TOL[bf16] {tol}; tokens equal the xla model's: {same}")
+    return launched["flash_forward_sm90"]
+
+
+def conv_determinism() -> None:
+    """ROADMAP C7: cuDNN's flags back at PyTorch's defaults, then a tiny
+    ``run()``, which must set the deterministic algorithms; then the
+    dp-quant phase's fused LeNet leg twice with no override here: the
+    losses equal bit for bit. One leg with the defaults, for the cost."""
+    import numpy as np
+
+    from mpit_tpu_torch.data import load_mnist
+    from mpit_tpu_torch.run import run
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    gb = DP_PER_WORKER * WORKERS
+    x_tr, y_tr, *_ = load_mnist(synthetic_train=max(2048, gb))
+    idx = np.random.default_rng(0).integers(0, len(x_tr), gb)
+    x, y = (torch.as_tensor(a[idx]).cuda() for a in (x_tr, y_tr))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    free = dp_leg("fused", x, y)
+    run(dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), algo="sync",
+                            train_size=256, global_batch=64, epochs=1))
+    if not torch.backends.cudnn.deterministic or torch.backends.cudnn.benchmark:
+        raise AssertionError("conv-determinism: run() left cudnn.deterministic "
+                             f"{torch.backends.cudnn.deterministic}, benchmark "
+                             f"{torch.backends.cudnn.benchmark}")
+    legs = [dp_leg("fused", x, y) for _ in range(2)]
+    a, b = (leg["losses"] for leg in legs)
+    if a != b:
+        raise AssertionError(f"conv-determinism: losses differ: {a[-3:]} vs {b[-3:]}")
+    phase("conv-determinism", f"after run(): cudnn.deterministic True, benchmark False; "
+          f"the fused LeNet DP leg twice ({len(a)} steps): losses equal bit for bit "
+          f"({a[0]:.6f} -> {a[-1]:.9g}); ms a step {legs[0]['ms_per_step']:.3f} and "
+          f"{legs[1]['ms_per_step']:.3f} deterministic, {free['ms_per_step']:.3f} with "
+          f"PyTorch's defaults (losses {free['losses'][0]:.6f} -> {free['losses'][-1]:.9g})")
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2604,6 +3036,11 @@ def main() -> int:
     timed("ps-resume", ps_resume)
     timed("profile-dir", profile_phase)
     timed("dist", dist_phase)
+    served = timed("serve", serve_path, card_line)
+    timed("serve-spec", serve_spec, card_line, served)
+    timed("serve-rnn", serve_rnn, card_line)
+    flash["flash_forward_sm90"]["launches"] += timed("generate-flash", generate_flash, served)
+    timed("conv-determinism", conv_determinism)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = [kernel, *flash.values()]

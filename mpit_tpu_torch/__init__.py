@@ -19,7 +19,11 @@ reference's module names, so each module's counterpart is found by name:
   ring and Ulysses attention over a stacked sequence ring.
 - ``models``    — LeNet, the MLP, VGG-small, ResNet-50, AlexNet, the LSTM
   and transformer LMs (``get_model``), with flax-keyed parameter trees;
-  ``convert`` carries weights between the two packages.
+  ``convert`` carries weights between the two packages. The serving tier:
+  the LMs' decode modes, ``generate``, ``generate_fast``,
+  ``generate_batch``, ``beam_search``, ``generate_rnn``, speculative
+  decoding and the continuous-batching ``Server``/``RNNServer``, sampling
+  from ``random``, the reference's threefry key stream.
 - ``parallel``  — the EASGD, Downpour, sync data-parallel (fused, or the
   bucketed and quantized exchange), ZeRO-1 (zero-sync) and
   sequence-parallel (seq-sync) trainers, and the host-async parameter
@@ -32,7 +36,8 @@ reference's module names, so each module's counterpart is found by name:
   telemetry of the PS and sync trainers (the ``MPIT_OBS_*`` knobs), read
   by ``python -m mpit_tpu_torch.obs``; ``analysis.runtime`` holds the
   runtime sanitizers (``MPIT_RT_RACE``, ``MPIT_RT_NUMERICS``), and
-  ``loadgen.slo`` the SLO reader.
+  ``loadgen`` the seeded open-loop load harness (``python -m
+  mpit_tpu_torch.loadgen``) and the SLO reader.
 - ``run``       — ``python -m mpit_tpu_torch.run --preset mnist-easgd``
   (or any BASELINE preset), ``--preset ptb-transformer-large`` (seq-sync;
   ``--sp 4``, ``--seq-impl ulysses``, ``--remat``), or ``--preset

@@ -14,7 +14,8 @@ The trees have the same keys. Leaves differ in one layout only:
 No model of either package has a 3-D leaf, so a 4-D leaf is always an
 unstacked conv kernel and a 5-D one a stacked conv kernel. The optimizer
 states' trees (momentum trace, Adam's moments) have the params' shapes and
-carry across the same way.
+carry across the same way. A decode model's cache tree carries across unchanged
+(:func:`cache_from_flax`).
 
 Both directions go through numpy, so a test hands the JAX package's
 arrays to the port and back without either package importing the other.
@@ -91,3 +92,26 @@ def from_flax_flat(flat: torch.Tensor, shape) -> torch.Tensor:
 def to_flax(params: Any) -> Any:
     """The port's tree -> the flax layout as numpy arrays."""
     return tree_map(leaf_to_flax, params)
+
+
+def cache_from_flax(cache_np: Any, device=None) -> Any:
+    """A decode model's flax ``cache`` collection (numpy or array-likes)
+    -> the port's cache tree on ``device``. Cache leaves keep their layout
+    (the 4-D ``cached_key``/``cached_value`` are (B, L, H, D) in both), and
+    an LSTM's ``(c, h)`` carries stay tuples."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _cache_leaf(np.asarray(a)).to(dev), cache_np)
+
+
+def _cache_leaf(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.tensor(_c_order(a))
+
+
+def cache_to_flax(cache: Any) -> Any:
+    """The port's cache tree -> numpy arrays in flax's layout (bf16 leaves
+    as float32, which holds them exactly)."""
+    return tree_map(
+        lambda t: (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu().numpy(),
+        cache)

@@ -1,10 +1,26 @@
 """Models of the port, one per BASELINE workload config, with flax-keyed
 parameter trees: LeNet and the MLP (MNIST), VGGSmall (CIFAR-10), AlexNet
-and ResNet-50 (ImageNet), the LSTM LM and the transformer LM (PTB).
-Counterpart of ``mpit_tpu/models/__init__.py``'s registry."""
+and ResNet-50 (ImageNet), the LSTM LM and the transformer LM (PTB), and
+the serving tier: the decoding recipes (``generate``, ``generate_fast``,
+``generate_batch``, ``beam_search``, ``generate_rnn``, the speculative
+pair) and the continuous-batching ``Server`` and ``RNNServer``.
+Counterpart of ``mpit_tpu/models/__init__.py`` (``generate_tp`` waits for
+tensor parallelism, ROADMAP.md item A11)."""
 
 from mpit_tpu_torch.models.lenet import LeNet  # noqa: F401
 from mpit_tpu_torch.models.mlp import MLP  # noqa: F401
+from mpit_tpu_torch.models.sampling import (  # noqa: F401
+    beam_search,
+    generate,
+    generate_batch,
+    generate_fast,
+)
+from mpit_tpu_torch.models.rnn_sampling import generate_rnn  # noqa: F401
+from mpit_tpu_torch.models.serving import RNNServer, Server  # noqa: F401
+from mpit_tpu_torch.models.speculative import (  # noqa: F401
+    generate_speculative,
+    generate_speculative_batch,
+)
 from mpit_tpu_torch.models.transformer import TransformerLM  # noqa: F401
 
 _REGISTRY = {"lenet": LeNet, "mlp": MLP, "transformer": TransformerLM}

@@ -255,20 +255,55 @@ class OptimizedLSTMCell(nn.Module):
 
     def forward(self, x):
         """(B, T, in) → (B, T, H) float32."""
+        return self.scan(x)[1]
+
+    def scan(self, x, carry=None, seq_lengths=None, matmul=torch.matmul):
+        """``nn.RNN(cell)(x, initial_carry=carry, return_carry=True,
+        seq_lengths=seq_lengths)``: the carry ``(c, h)`` (each (B, H)
+        float32; flax's zero carry when None) run over (B, T, in), returned
+        with the (B, T, H) outputs. With ``seq_lengths`` (B,) the carry of
+        row ``n`` stops at step ``seq_lengths[n]``, as flax's selection of
+        each row's last carry gives it. ``matmul`` computes the products
+        (the decode path passes :func:`matmul_rows`)."""
         dt = self.dtype
         k_in = torch.cat([getattr(self, "i" + g).kernel for g in self.GATES], -1)
         k_h = torch.cat([getattr(self, "h" + g).kernel for g in self.GATES], -1).to(dt)
         b_h = torch.cat([getattr(self, "h" + g).bias for g in self.GATES], -1).to(dt)
-        gates_in = x.to(dt) @ k_in.to(dt)
-        hidden = k_h.shape[0]
-        c = h = torch.zeros(x.shape[0], hidden, dtype=torch.float32, device=x.device)
+        gates_in = matmul(x.to(dt), k_in.to(dt))
+        if carry is None:
+            zero = torch.zeros(x.shape[0], k_h.shape[0], dtype=torch.float32,
+                               device=x.device)
+            carry = (zero, zero)
+        c, h = carry
         out = []
         for t in range(x.shape[1]):
-            i, f, g, o = ((h.to(dt) @ k_h + b_h) + gates_in[:, t]).chunk(4, -1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            out.append(h)
-        return torch.stack(out, 1)
+            i, f, g, o = ((matmul(h.to(dt), k_h) + b_h) + gates_in[:, t]).chunk(4, -1)
+            c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h_new = torch.sigmoid(o) * torch.tanh(c_new)
+            out.append(h_new)
+            if seq_lengths is None:
+                c, h = c_new, h_new
+            else:
+                live = (t < seq_lengths)[:, None]
+                c, h = torch.where(live, c_new, c), torch.where(live, h_new, h)
+        return (c, h), torch.stack(out, 1)
+
+
+def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a product of one row computed as the first of two
+    equal rows. PyTorch computes a one-row product with a matrix-vector
+    kernel that sums in another order than its matrix kernel, so a row
+    decoded alone would not equal the same row decoded in a batch; with at
+    least two rows per product every row's result is the batch's (on the
+    CPU at the tests' widths; the card is measured by ``chip_smoke.py``).
+    ``b`` 2-D: ``a`` (..., K), every leading dim one row; ``b`` batched:
+    ``a`` (..., M, K)."""
+    if b.dim() == 2:
+        rows = a.reshape(-1, a.shape[-1])
+        return matmul_rows(rows[None], b[None])[0].reshape(*a.shape[:-1], b.shape[-1])
+    if a.shape[-2] != 1:
+        return a @ b
+    return (torch.cat([a, a], -2) @ b)[..., :1, :]
 
 
 def reset_children(module: nn.Module, generator: torch.Generator) -> None:
@@ -329,6 +364,31 @@ class Model(nn.Module):
         self.reset_parameters(generator)
         return params_tree(self)
 
-    def apply(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """Forward pass on ``params``, a flax-keyed tree of any depth."""
-        return torch.func.functional_call(self, dict(_flat_names(params)), (x,))
+    def apply(self, params: dict, x: torch.Tensor, *args, **kwargs):
+        """Forward pass on ``params``, a flax-keyed tree of any depth;
+        further arguments go to ``forward`` (a decode model's cache)."""
+        return torch.func.functional_call(self, dict(_flat_names(params)),
+                                          (x, *args), kwargs)
+
+    def clone(self, **overrides) -> "Model":
+        """The model with some of its settings replaced (flax's
+        ``Module.clone``): a shallow copy sharing the layers and tensors,
+        for settings read by the model's own ``forward`` (a decode model's
+        ``decode``, ``head``, ``head_dtype``)."""
+        import copy
+
+        new = copy.copy(self)
+        for name, value in overrides.items():
+            if name not in self._CLONE_FIELDS:
+                raise ValueError(
+                    f"{type(self).__name__}.clone cannot change {name!r}; "
+                    f"have {self._CLONE_FIELDS}"
+                )
+            object.__setattr__(new, name, value)
+        new._check_settings()
+        return new
+
+    _CLONE_FIELDS: tuple = ()
+
+    def _check_settings(self) -> None:
+        """Validate settings a clone may have changed."""

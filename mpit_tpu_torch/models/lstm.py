@@ -12,9 +12,18 @@ operands are upcast to float32 first, which gives the same numbers
 Not cuDNN's ``nn.LSTM``: it keeps bf16 carries and has no batching rule
 for ``torch.func.vmap`` over per-worker weights.
 
-Decode mode (``decode``, ``head=False``, ``head_logits``) and the head's
-operand-dtype override (``head_dtype``) belong to the serving slice and
-raise.
+Decode mode (``decode=True``, the serving path of
+``models/rnn_sampling.py``): the model takes ``(B, T)`` tokens and a cache
+tree ``{"carry_i": (c, h)}`` (flax's ``cache`` collection, each carry
+(B, hidden) float32; :meth:`LSTMLM.init_cache` makes a zero one) and returns
+``(out, cache)`` with every layer resumed from its stored carry.
+``seq_lengths`` (B,) freezes row ``n``'s carries after its first
+``seq_lengths[n]`` tokens (a padded prompt buffer prefills each row to its
+own length). ``head=False`` returns the top layer's outputs (B, T, hidden)
+and :meth:`LSTMLM.head_logits` projects chosen rows through the same head;
+``head_dtype`` overrides the head's operand dtype. The decode products go
+through :func:`~mpit_tpu_torch.models.layers.matmul_rows`, so a row decoded
+alone equals the same row decoded in a batch.
 """
 
 from __future__ import annotations
@@ -22,8 +31,9 @@ from __future__ import annotations
 import torch
 
 from mpit_tpu_torch.comm.topology import resolve_device
-from mpit_tpu_torch.models.layers import Dense, Embed, Model, OptimizedLSTMCell
-from mpit_tpu_torch.models.transformer import _not_ported
+from mpit_tpu_torch.models.layers import (
+    Dense, Embed, Model, OptimizedLSTMCell, matmul_rows,
+)
 
 
 class LSTMLM(Model):
@@ -40,12 +50,10 @@ class LSTMLM(Model):
         device=None,
     ):
         super().__init__()
-        if decode or not head or head_dtype is not None:
-            raise _not_ported("LSTMLM decode mode (decode, head=False, head_dtype)",
-                              "item A10")
         device = resolve_device(device)
         dt = self.compute_dtype = compute_dtype
-        self.num_layers = num_layers
+        self.vocab_size, self.num_layers, self.hidden = vocab_size, num_layers, hidden
+        self.decode, self.head, self.head_dtype = decode, head, head_dtype
         self.Embed_0 = Embed(vocab_size, embed_dim, dt, device)
         fin = embed_dim
         for i in range(num_layers):
@@ -54,10 +62,45 @@ class LSTMLM(Model):
             fin = hidden
         self.Dense_0 = Dense(hidden, vocab_size, dt, device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    _CLONE_FIELDS = ("decode", "head", "head_dtype")
+
+    def init_cache(self, batch: int, device=None) -> dict:
+        """Zero carries for ``batch`` rows: ``{"carry_i": (c, h)}``."""
+        dev = resolve_device(device)
+        zero = lambda: torch.zeros(batch, self.hidden, device=dev)  # noqa: E731
+        return {f"carry_{i}": (zero(), zero()) for i in range(self.num_layers)}
+
+    @property
+    def _head_operand_dtype(self):
+        return self.compute_dtype if self.head_dtype is None else self.head_dtype
+
+    def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """The vocab head on (B, hidden) rows of a ``head=False`` run, with
+        the bias rounded to the head's operand dtype before the add, as
+        the forward's head adds it."""
+        dt = self._head_operand_dtype
+        kernel = params["Dense_0"]["kernel"].to(dt).float()
+        bias = params["Dense_0"]["bias"].to(dt).float()
+        return matmul_rows(h.to(dt).float(), kernel) + bias
+
+    def forward(self, tokens: torch.Tensor, cache=None, seq_lengths=None):
+        if seq_lengths is not None and not self.decode:
+            raise ValueError("seq_lengths is a decode-mode argument")
+        if self.decode and cache is None:
+            raise ValueError("a decode model takes a cache (init_cache)")
         x = self.Embed_0(tokens)
+        new = {}
         for i in range(self.num_layers):
-            x = getattr(self, f"OptimizedLSTMCell_{i}")(x)
-        dt = self.compute_dtype
-        kernel = self.Dense_0.kernel.to(dt).float()
-        return x.to(dt).float() @ kernel + self.Dense_0.bias.to(dt).float()
+            cell = getattr(self, f"OptimizedLSTMCell_{i}")
+            if not self.decode:
+                x = cell(x)
+                continue
+            new[f"carry_{i}"], x = cell.scan(x, cache[f"carry_{i}"], seq_lengths,
+                                             matmul=matmul_rows)
+        if self.head:
+            dt = self._head_operand_dtype
+            kernel = self.Dense_0.kernel.to(dt).float()
+            bias = self.Dense_0.bias.to(dt).float()
+            mm = matmul_rows if self.decode else torch.matmul
+            x = mm(x.to(dt).float(), kernel) + bias
+        return (x, new) if self.decode else x

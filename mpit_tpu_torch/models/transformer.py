@@ -32,8 +32,26 @@ the trainers then take the gradient with ``torch.autograd.grad``
 
 Parameter names are flax's: ``Embed_0``, ``pos_embedding``,
 ``Block_i/{LayerNorm_0, Dense_0, Dense_1, LayerNorm_1, Dense_2, Dense_3}``,
-``LayerNorm_0``, with or without remat. MoE and decoding are not ported yet
-and raise.
+``LayerNorm_0``, with or without remat. The MoE FFN is not ported yet and
+raises.
+
+Decode mode (``decode=True``, the serving path of ``models/sampling.py``):
+the model takes a T-token chunk ``(B, T)`` and a cache tree and returns
+``(out, cache)``, the way flax's ``apply(..., mutable=["cache"])`` returns
+the ``cache`` collection. The tree has flax's names and shapes:
+``Block_i/{cached_key, cached_value}`` ``(B, max_len, H, D)`` in the
+compute dtype, ``Block_i/cache_index`` and ``pos_index`` ``(B,)`` int32, one
+position clock per row (:meth:`TransformerLM.init_cache` makes a zero
+one). A chunk's K/V go into the cache tensors in place at each row's clock
+and its query row ``r`` attends positions ``<= clock + r``; the clocks
+advance by T. Out-of-range positions are clamped as XLA clamps them: the
+K/V write starts at ``min(clock, max_len - T)`` and the positional gather
+reads row ``min(position, max_len - 1)`` (a server's free slots tick past
+the horizon). ``head=False`` returns the final LayerNorm's output instead
+of logits, and :meth:`TransformerLM.head_logits` projects chosen rows of
+it through the same head. The decode products go through
+:func:`~mpit_tpu_torch.models.layers.matmul_rows`, so a row decoded alone
+equals the same row decoded in a batch.
 """
 
 from __future__ import annotations
@@ -44,7 +62,7 @@ from torch import nn
 
 from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
-    Dense, Embed, LayerNorm, Model, rematerialized, reset_children,
+    Dense, Embed, LayerNorm, Model, matmul_rows, rematerialized, reset_children,
 )
 from mpit_tpu_torch.ops.flash_attention import flash_attention
 from mpit_tpu_torch.ops.ring_attention import dense_attention, ring_attention
@@ -78,9 +96,13 @@ class Block(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_children(self, generator)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
         """``x`` is ``(B, T, d_model)``, or the stacked ring ``(sp, B, T_l,
-        d_model)`` with ``seq_axis`` set."""
+        d_model)`` with ``seq_axis`` set. With ``cache`` (this block's
+        ``cached_key``, ``cached_value``, ``cache_index``) the block runs a
+        decode chunk and returns ``(x, cache)``."""
+        if cache is not None:
+            return self._decode(x, cache)
         d_model, h = x.shape[-1], self.num_heads
         qkv = self.Dense_0(self.LayerNorm_0(x))
         q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
@@ -99,6 +121,52 @@ class Block(nn.Module):
         x = x + self.Dense_1(att.reshape(x.shape))
         y = F.gelu(self.Dense_2(self.LayerNorm_1(x)), approximate="tanh")
         return x + self.Dense_3(y)
+
+    def _decode(self, x, cache):
+        d_model, h = x.shape[-1], self.num_heads
+        qkv = _dense(self.Dense_0, self.LayerNorm_0(x))
+        q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
+                   for a in qkv.split(d_model, -1))
+        att, cache = _cached_attention(q, k, v, cache)
+        x = x + _dense(self.Dense_1, att.reshape(x.shape))
+        y = F.gelu(_dense(self.Dense_2, self.LayerNorm_1(x)), approximate="tanh")
+        return x + _dense(self.Dense_3, y), cache
+
+
+def _dense(layer: Dense, x):
+    """``layer(x)`` with its product through :func:`matmul_rows`."""
+    y = matmul_rows(x, layer.kernel.to(layer.dtype))
+    return y if layer.bias is None else y + layer.bias.to(layer.dtype)
+
+
+def _cached_attention(q, k, v, cache):
+    """Causal attention of a T-token chunk ``q, k, v`` (B, T, H, D) over the
+    block's K/V cache (``Block._cached_attention`` of the reference): the
+    chunk's K/V are written into the cache in place at each row's clock
+    ``i`` (the start clamped to ``[0, L - T]``, as ``dynamic_update_slice``
+    clamps it), and query row ``r`` of batch row ``n`` sees positions ``<=
+    i[n] + r``. Scores, softmax and P·V in float32 from the compute-dtype
+    values. Returns the attention output and the cache with the clocks
+    advanced by T."""
+    ck, cv, i = cache["cached_key"], cache["cached_value"], cache["cache_index"]
+    b, t, h, d = q.shape
+    length = ck.shape[1]
+    if t > length:
+        raise ValueError(f"chunk of {t} exceeds the {length}-slot cache")
+    steps = torch.arange(t, device=q.device)
+    start = torch.clamp(i.long(), 0, length - t)
+    slots = start[:, None] + steps
+    rows = torch.arange(b, device=q.device)[:, None]
+    ck[rows, slots] = k.to(ck.dtype)
+    cv[rows, slots] = v.to(cv.dtype)
+    s = matmul_rows(q.float().permute(0, 2, 1, 3),
+                    ck.float().permute(0, 2, 3, 1)) / (d ** 0.5)
+    mask = (torch.arange(length, device=q.device)[None, None, :]
+            <= i.long()[:, None, None] + steps[None, :, None])  # (b, t, L)
+    s = torch.where(mask[:, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = matmul_rows(p, cv.float().permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    return out.to(q.dtype), dict(cache, cache_index=i + t)
 
 
 class TransformerLM(Model):
@@ -121,6 +189,7 @@ class TransformerLM(Model):
         attn_impl: str = "xla",
         seq_impl: str = "ring",
         decode: bool = False,
+        head: bool = True,
         head_dtype=None,
         device=None,
     ):
@@ -131,8 +200,6 @@ class TransformerLM(Model):
             )
         if moe_experts:
             raise _not_ported("the MoE FFN (moe_experts)", "item A11")
-        if decode:
-            raise _not_ported("decode mode", "item A10")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; have {ATTN_IMPLS}")
         if d_model % num_heads:
@@ -149,7 +216,8 @@ class TransformerLM(Model):
         self.attn_impl = attn_impl
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.remat = remat
-        self.head_dtype = head_dtype
+        self.decode, self.head, self.head_dtype = decode, head, head_dtype
+        self._check_settings()
         self.Embed_0 = Embed(vocab_size, d_model, dt, device)
         self.pos_embedding = nn.Parameter(torch.zeros(max_len, d_model, device=device))
         for i in range(num_layers):
@@ -164,7 +232,48 @@ class TransformerLM(Model):
         with torch.no_grad():
             self.pos_embedding.copy_(draw * 0.02)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    _CLONE_FIELDS = ("decode", "head", "head_dtype")
+
+    def _check_settings(self) -> None:
+        if self.decode and self.seq_axis is not None:
+            raise ValueError("decode mode requires seq_axis=None")
+
+    def init_cache(self, batch: int, device=None) -> dict:
+        """A zero decode cache for ``batch`` rows (flax's initial ``cache``
+        collection): per block ``cached_key``/``cached_value`` ``(batch,
+        max_len, H, D)`` in the compute dtype and ``cache_index``
+        ``(batch,)`` int32, and the LM's ``pos_index`` ``(batch,)``."""
+        dev = resolve_device(device)
+        h = self.num_heads
+        shape = (batch, self.max_len, h, self.d_model // h)
+        tree = {
+            f"Block_{i}": {
+                "cache_index": torch.zeros(batch, dtype=torch.int32, device=dev),
+                "cached_key": torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+                "cached_value": torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+            }
+            for i in range(self.num_layers)
+        }
+        tree["pos_index"] = torch.zeros(batch, dtype=torch.int32, device=dev)
+        return tree
+
+    @property
+    def _head_operand_dtype(self):
+        return self.compute_dtype if self.head_dtype is None else self.head_dtype
+
+    def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
+        """The tied head on (B, d_model) hidden rows of a ``head=False``
+        run: the projection the forward ends with (float32 operands
+        holding head-dtype values), so prefill and tick logits agree."""
+        hdt = self._head_operand_dtype
+        table = params["Embed_0"]["embedding"].to(hdt).float()
+        return matmul_rows(h.to(hdt).float(), table.t())
+
+    def forward(self, tokens: torch.Tensor, cache=None):
+        if self.decode:
+            if cache is None:
+                raise ValueError("a decode model takes a cache (init_cache)")
+            return self._decode(tokens, cache)
         t_local = tokens.shape[-1]
         sp = tokens.shape[0] if self.seq_axis is not None else 1
         total_len = t_local * sp
@@ -181,6 +290,27 @@ class TransformerLM(Model):
             block = getattr(self, f"Block_{i}")
             x = rematerialized(block, x) if self.remat else block(x)
         x = self.LayerNorm_0(x)
-        hdt = self.compute_dtype if self.head_dtype is None else self.head_dtype
+        if not self.head:
+            return x
+        hdt = self._head_operand_dtype
         table = self.Embed_0.embedding.to(hdt).float()
         return torch.matmul(x.to(hdt).float(), table.t())
+
+    def _decode(self, tokens, cache):
+        """One decode chunk: ``(B, T)`` tokens at each row's ``pos_index``
+        through every block's cached attention; returns ``(out, cache)``."""
+        offset = cache["pos_index"]
+        steps = torch.arange(tokens.shape[1], device=tokens.device)
+        # XLA clamps the gather; a free server slot's clock runs past the end
+        pos = torch.clamp(offset.long()[:, None] + steps, 0, self.max_len - 1)
+        x = self.Embed_0(tokens) + self.pos_embedding[pos].to(self.compute_dtype)
+        new = {"pos_index": offset + tokens.shape[1]}
+        for i in range(self.num_layers):
+            name = f"Block_{i}"
+            x, new[name] = getattr(self, name)(x, cache[name])
+        x = self.LayerNorm_0(x)
+        if self.head:
+            hdt = self._head_operand_dtype
+            table = self.Embed_0.embedding.to(hdt).float()
+            x = matmul_rows(x.to(hdt).float(), table.t())
+        return x, new

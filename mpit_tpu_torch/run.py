@@ -340,6 +340,16 @@ def _check_resume_layout(cfg: TrainConfig) -> None:
         )
 
 
+def deterministic_convolutions() -> None:
+    """cuDNN's deterministic algorithms and no autotuning, for every run
+    (ROADMAP C7): cuDNN's default convolution backward sums in an order
+    that changes run to run, and a chaotic trajectory (LeNet at lr 0.05,
+    momentum 0.9) then ends elsewhere each time; XLA's programs, the
+    reference's, give the same bits every run."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def run(cfg: TrainConfig, device=None) -> dict:
     """Train per ``cfg``; returns a results dict (acc, loss, throughput...).
 
@@ -348,7 +358,8 @@ def run(cfg: TrainConfig, device=None) -> dict:
     topology's worker count (default 8). With ``resume`` it restores the
     latest checkpoint of ``ckpt_dir`` and trains on to ``epochs`` in all
     (the total, not the number to add), re-entering the data order where
-    the checkpoint left it."""
+    the checkpoint left it. cuDNN runs its deterministic algorithms
+    (:func:`deterministic_convolutions`), so a run repeats bit for bit."""
     from mpit_tpu_torch.comm.topology import (
         DEFAULT_WORKERS, Topology, is_initialized, resolve_device, topology,
     )
@@ -360,6 +371,7 @@ def run(cfg: TrainConfig, device=None) -> dict:
     from mpit_tpu_torch.utils.profiling import force_completion, trace
 
     _check_supported(cfg)
+    deterministic_convolutions()
     if device is None:
         topo = topology()
     else:

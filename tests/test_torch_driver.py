@@ -213,6 +213,21 @@ def test_profile_dir_writes_a_trace(tmp_path):
 
 
 
+def test_run_sets_deterministic_convolutions():
+    """ROADMAP C7: ``run()`` turns on cuDNN's deterministic algorithms and
+    turns off its autotuning before it builds a trainer, so a run repeats
+    bit for bit on the card (``chip_smoke.py``'s ``conv-determinism``)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True
+    try:
+        _port_run(_cfg("mnist-easgd", model="mlp", algo="sync", train_size=256,
+                       global_batch=64, epochs=1))
+        assert torch.backends.cudnn.deterministic is True
+        assert torch.backends.cudnn.benchmark is False
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 @pytest.mark.parametrize("schedule", ["constant", "cosine", "warmup-cosine"])
 @pytest.mark.parametrize("optimizer", ["sgd", "adam", "adamw"])
 @pytest.mark.parametrize("algo", ["easgd", "downpour", "sync", "ps-easgd", "ps-downpour"])

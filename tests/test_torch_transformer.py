@@ -179,7 +179,7 @@ def test_apply_takes_trees_of_any_depth():
     (dict(seq_impl="allgather"), ValueError),
     (dict(seq_axis="sp", seq_impl="Ring"), ValueError),
     (dict(moe_experts=4), NotImplementedError),
-    (dict(decode=True), NotImplementedError),
+    (dict(decode=True, seq_axis="sp"), ValueError),
     (dict(attn_impl="ring"), ValueError),
     (dict(num_heads=5), ValueError),
 ])
