@@ -187,14 +187,17 @@ non-zero before the result lines:
              d_model 768, 12 heads, max_len 512, vocab 10,000, bf16, seeded
              weights) served: 8 requests through ``Server(max_batch=8,
              segment=16)`` against their solo ``generate_fast``, greedy and
-             at temperature 0.8, top_p 0.95 (the number bit-equal; every
-             divergence starts at a near-tie, ROADMAP C8); the f32 prefill
-             and first tick's logits, card vs CPU; the load run
+             at temperature 0.8, top_p 0.95: 8 of 8 bit-equal each (ROADMAP
+             C8, repaired by the decode path's fixed row blocks); 4 requests
+             behind a shared ``prefix=`` against solo calls on prefix +
+             prompt (counted; each divergence at a near-tie); the f32
+             prefill and first tick's logits, card vs CPU; the load run
              (``LoadHarness`` over 64 requests at 50/s with obs on, read by
              ``python -m mpit_tpu_torch.obs slo``: requests/s, generated
              tokens/s, TTFT and TPOT p50/p99, peak memory against the KV
              cache); one segment timed and profiled (ms and launches a tick,
-             busy share, top kernels).
+             busy share, top kernels); each cost beside the one measured
+             before the row blocks.
 26. serve-spec — the same 8 requests through the speculative server with a
              2-layer, d_model 256 draft, ``spec_k`` 4: tokens against the
              greedy run's (or C8), acceptance, tokens per target read,
@@ -202,6 +205,24 @@ non-zero before the result lines:
 27. serve-rnn — ``RNNServer`` at ``ptb-lstm-easgd``'s widths over the load
              schedule without the length cap: every result against its solo
              ``generate_rnn`` (or C8); tokens/s.
+27b. fleet — the serving fleet (``mpit_tpu_torch.fleet``) over ``serve``'s
+             full-width model, replicas ``Server(max_batch=8, segment=16)``,
+             16 requests at 25/s (``scripts/fleet_soak.sh``'s shape): (a) 3
+             replicas in threads, p2c, a clean run and one with rank 1
+             killed at router boundary 30 (a spare, the controller): both
+             audits ok with nothing lost, rank 1 dead, redispatches, every
+             request's tokens equal across the runs and to its solo
+             ``generate_fast``; (b) the soak pair (bf16 weight pushes at
+             boundaries 20 and 60, the chaos run with the kill): audits ok
+             with monotonic versions, ``pin --expect-kill``, ``obs slo
+             --gate scripts/fleet_smoke.json``; tokens/s, e2e and TTFT
+             p50/p99, redispatches, peak memory per run; bytes and seconds
+             to encode, send and install per push; (c) ``python -m
+             mpit_tpu_torch.fleet run --procs`` with the CLI's model on the
+             card, clean and with rank 1 SIGKILLed: each replica process has
+             its own CUDA context, the kill is detected, the audit is ok;
+             tokens/s beside the same CLI in threads and one ``Server``, and
+             on a burst of 96 requests at once.
 28. generate-flash — the fixed-buffer ``generate`` on the serving model
              built with ``attn_impl="flash"``, 16 greedy tokens: 96 sm90
              forward launches (counts set to 0 just before, read after; they
@@ -2587,11 +2608,21 @@ SERVE_LOAD = dict(requests=64, rate=50, prompt_buckets=((8, 64, 0.5), (64, 256, 
                                                         (256, 448, 0.1)),
                   output_buckets=((16, 64, 1.0),))
 RNN_FLOATS = 11_364_112  # ptb-lstm-easgd's LSTM (vocab 10,000, 256, 512, 2 layers)
-# ROADMAP C8: on the card a row decoded in a batch of 8 and alone runs
-# through GEMMs of other shapes, whose kernels sum in other orders; the
-# tokens then part where the two best scores lie this close (the largest
-# gap at a first divergence on an H100 80GB HBM3 at 700 W was 0.0079)
+# ROADMAP C8: the decode path runs every token product at a row count that
+# neither the batch nor the caller sets (models/layers.py ROW_BLOCK), so a
+# served row equals its solo call bit for bit. What still runs at other
+# shapes by design (the speculative verification chunk against a tick, a
+# prefix template's chunk against the whole prompt's) may part where the
+# two best scores lie this close (the largest gap at a first divergence on
+# an H100 80GB HBM3 at 700 W was 0.0079 before the row blocks)
 NEAR_TIE = 2.0**-5
+# the serve phase's costs before the row blocks (PERF.md section 6: three
+# chip calls on an H100 80GB HBM3 at 700 W): ms and launches a tick of the
+# profiled segment, the load run's TTFT and generated tokens/s
+SERVE_BEFORE_BLOCKS = dict(tick_ms="8.286-10.705", launches="447.8-450.3",
+                  ttft_p50_ms="1617.7-2368.5", ttft_p99_ms="2865.9-3814.5",
+                  tokens_per_s="406.2-531.8")
+SERVE_PREFIX = 24  # tokens of the shared prefix in the prefix count
 # the flash model's logits against the xla model's: bf16 models' limit
 # (tests/test_torch_transformer.py:36); FLASH_TOL bounds one attention's
 # output, and six bf16 layers carry the sm90 kernel's bf16 P further
@@ -2642,10 +2673,11 @@ def check_near_ties(name: str, diverged: list) -> None:
         raise AssertionError(f"{name}: divergences past a near-tie ({NEAR_TIE}): {far}")
 
 
-def serve_consistency(model, params, reqs, rule: dict, label: str) -> tuple[dict, list]:
+def serve_consistency(model, params, reqs, rule: dict, label: str) -> dict:
     """The reqs through ``Server(max_batch=8, segment=16)`` against their
-    solo ``generate_fast`` calls; returns the server's results and, for
-    each request that differs, (index, first divergence, gap)."""
+    solo ``generate_fast`` calls: every one bit-equal (ROADMAP C8, closed
+    for these), or the first divergences, with their gaps, in the error.
+    Returns the server's results."""
     from mpit_tpu_torch import random as jrandom
     from mpit_tpu_torch.models import Server, generate_fast
 
@@ -2668,13 +2700,44 @@ def serve_consistency(model, params, reqs, rule: dict, label: str) -> tuple[dict
         gap = divergence_gap(model, params, solo, j, got[rid][j], key,
                              rule.get("temperature"))
         diverged.append((i, j - len(p), gap))
-    check_near_ties("serve", diverged)
+    if diverged:
+        raise AssertionError(f"serve: {label}: {SERVE_REQS - len(diverged)} of {SERVE_REQS} "
+                             f"bit-equal to their solo generate_fast; divergences "
+                             f"(request, generated token, gap): {diverged}")
     phase("serve", f"{label}: {SERVE_REQS} requests ({', '.join(str(len(p)) for p, _ in reqs)} "
           f"prompt tokens, {SERVE_NEW} new each) through Server(max_batch={SERVE_BATCH}, "
-          f"segment={SERVE_SEGMENT}) in {wall:.3f} s: {SERVE_REQS - len(diverged)} of "
-          f"{SERVE_REQS} bit-equal to their solo generate_fast; divergences (request, "
-          f"generated token, gap): {diverged}")
-    return {i: got[r] for i, r in enumerate(rids)}, diverged
+          f"segment={SERVE_SEGMENT}) in {wall:.3f} s: {SERVE_REQS} of {SERVE_REQS} "
+          f"bit-equal to their solo generate_fast (before the row blocks: 5 of 8 "
+          f"greedy, 7 of 8 sampled)")
+    return {i: got[r] for i, r in enumerate(rids)}
+
+
+def serve_prefix_count(model, params, reqs) -> None:
+    """ROADMAP C8, what is left: requests behind a shared prefix (its
+    template prefilled once, each suffix a chunk of its own bucket)
+    against solo ``generate_fast`` on prefix + prompt, which prefills the
+    whole at another shape; the count equal, each divergence at a
+    near-tie."""
+    from mpit_tpu_torch.models import Server, generate_fast
+
+    prefix = [int(t) for t in reqs[-1][0][:SERVE_PREFIX]]
+    few = [(p[:40], 16) for p, _ in reqs[:4]]
+    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                 prefix=prefix, device=SERVE_DEVICE)
+    rids = [srv.submit(p, mn) for p, mn in few]
+    got = srv.drain()
+    diverged = []
+    for i, (rid, (p, mn)) in enumerate(zip(rids, few)):
+        solo = generate_fast(model, params, prefix + p, mn, device=SERVE_DEVICE)
+        j = first_divergence(solo, got[rid])
+        if j is not None:
+            diverged.append((i, j - len(prefix) - len(p),
+                             divergence_gap(model, params, solo, j, got[rid][j])))
+    check_near_ties("serve", diverged)
+    phase("serve", f"prefix= ({SERVE_PREFIX} tokens, prefilled once as a template): "
+          f"{len(few) - len(diverged)} of {len(few)} requests (16 new "
+          f"each, greedy) bit-equal to solo generate_fast on prefix + prompt; divergences "
+          f"(request, generated token, gap): {diverged}")
 
 
 def serve_vs_cpu(params, prompt: list) -> None:
@@ -2719,6 +2782,8 @@ def serve_load(model, params, card_line: str) -> None:
     from mpit_tpu_torch.obs.core import ObsConfig
     from mpit_tpu_torch.utils.params import tree_leaves
 
+    old = SERVE_BEFORE_BLOCKS
+
     def work():
         return make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB, max_len=SERVE_MAX_LEN)
 
@@ -2748,7 +2813,9 @@ def serve_load(model, params, card_line: str) -> None:
           f"{slo['ttft']['p50_ms']} ms p99 {slo['ttft']['p99_ms']} ms, TPOT p50 "
           f"{slo['tpot']['p50_ms']} ms p99 {slo['tpot']['p99_ms']} ms, e2e p99 "
           f"{slo['e2e']['p99_ms']} ms, goodput {slo['goodput']}, occupancy "
-          f"{slo['occupancy']}; max submit lateness {rep.max_submit_lateness_s:.4f} s")
+          f"{slo['occupancy']}; max submit lateness {rep.max_submit_lateness_s:.4f} s; "
+          f"before the row blocks: TTFT p50 {old['ttft_p50_ms']} ms p99 "
+          f"{old['ttft_p99_ms']} ms, {old['tokens_per_s']} generated tokens/s")
     phase("serve", f"peak device memory of the load run above what was allocated before "
           f"it {peak / 2**20:.1f} MiB (before it {base / 2**20:.1f} MiB); the KV cache "
           f"{kv_bytes / 2**20:.1f} MiB ({SERVE_BATCH} slots x {LM_LAYERS} layers x K,V x "
@@ -2778,7 +2845,8 @@ def serve_load(model, params, card_line: str) -> None:
           f"{tick_ms:.3f} ms a tick unprofiled; under the profiler {wall_ms / SERVE_SEGMENT:.3f} "
           f"ms a tick, {launches / SERVE_SEGMENT:.1f} kernel launches a tick, device busy "
           f"{busy_ms / SERVE_SEGMENT:.4f} ms a tick ({100 * busy_ms / wall_ms:.1f}% of the "
-          f"wall); top kernels:")
+          f"wall); before the row blocks: {old['tick_ms']} ms and {old['launches']} "
+          f"launches a tick; top kernels:")
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         phase("serve", f"  {e.self_device_time_total / 1e3 / SERVE_SEGMENT:9.4f} ms/tick "
@@ -2799,8 +2867,9 @@ def serve_path(card_line: str) -> dict:
           f"heads, d_ff 3072, max_len {SERVE_MAX_LEN}, vocab {SERVE_VOCAB}, bf16 compute, "
           f"{n} parameters (seeded init {SERVE_SEED}); {card_line}")
     reqs = serve_requests()
-    greedy, _ = serve_consistency(model, params, reqs, {}, "greedy")
+    greedy = serve_consistency(model, params, reqs, {}, "greedy")
     serve_consistency(model, params, reqs, SERVE_SAMPLED, f"sampled {SERVE_SAMPLED}")
+    serve_prefix_count(model, params, reqs)
     serve_vs_cpu(params, reqs[0][0])
     serve_load(model, params, card_line)
     return {"model": model, "params": params, "reqs": reqs, "greedy": greedy}
@@ -2971,6 +3040,352 @@ def conv_determinism() -> None:
           f"PyTorch's defaults (losses {free['losses'][0]:.6f} -> {free['losses'][-1]:.9g})")
 
 
+# the fleet phase (ROADMAP A10b): scripts/fleet_soak.sh's run shape (16
+# requests at 25/s, 3 replicas, refreshes at boundaries 20 and 60 in bf16,
+# a kill of rank 1 at boundary 30 with a spare and the controller)
+FLEET_REQUESTS, FLEET_RATE = 16, 25.0
+FLEET_REPLICAS = 3
+FLEET_KILL_AFTER, FLEET_KILL_RANK = 30, 1
+FLEET_REFRESH = (20, 60)
+FLEET_SLO_MS = 60_000.0  # the fleet CLI's --slo-ms default
+# the kill leg's workload seed: its first request arrives at 11 ms with 15
+# new tokens, and p2c at router seed 0 sends rid 0 to rank 1, so the kill at
+# boundary 30 finds rank 1 holding work (at seed 0 the first request comes
+# at 74 ms, after boundary 30 of an idle router)
+FLEET_KILL_SEED = 3
+FLEET_SOAK_SEED = 0  # fleet_soak.sh's first round
+FLEET_SATURATE = 96  # requests arriving at once: threads against processes
+FLEET_CLI_TIMEOUT_S = 240
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def fleet_work(seed: int, vocab: int = SERVE_VOCAB, max_len: int = SERVE_MAX_LEN,
+               requests: int = FLEET_REQUESTS, rate: float = FLEET_RATE) -> list:
+    """``make_workload(LoadSpec(requests, rate, seed), vocab, max_len)`` with
+    the fleet CLI's SLO on every request."""
+    from mpit_tpu_torch.loadgen import LoadSpec, make_workload
+
+    work = make_workload(LoadSpec(requests=requests, rate=rate, seed=seed, cancel_prob=0.0),
+                         vocab, max_len=max_len)
+    for r in work:
+        r.slo_ms = FLEET_SLO_MS
+    return work
+
+
+def journals(d: str) -> list:
+    import glob
+
+    return sorted(glob.glob(os.path.join(d, "obs_rank*.jsonl")))
+
+
+def finish_window_rate(paths: list) -> float:
+    """Generated tokens a second between the first and the last
+    ``req_finish`` of the journals (the first finish's tokens left out):
+    the serving rate with the start-up before the first reply taken away."""
+    from mpit_tpu_torch.obs.merge import read_journal
+
+    done = sorted((r["t"], r.get("gen", 0)) for p in paths for r in read_journal(p)
+                  if r.get("ev") == "req_finish")
+    return sum(g for _, g in done[1:]) / (done[-1][0] - done[0][0])
+
+
+def fleet_thread_run(model, params, out: str, seed: int, work_seed: int, **kw) -> tuple:
+    """One ``FleetHarness`` run of 3 replicas in threads, each a
+    ``Server(max_batch=8, segment=16)`` of the serving model journaling into
+    ``out/rep<rank>``, the router journal in ``out``; returns the workload,
+    the report, the audit and the run's numbers."""
+    from mpit_tpu_torch.fleet import FleetHarness, audit_lifecycle
+    from mpit_tpu_torch.loadgen import aggregate_paths, pooled_latencies
+    from mpit_tpu_torch.models import Server
+    from mpit_tpu_torch.obs.core import ObsConfig
+
+    def factory(rank):
+        return Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                      device=SERVE_DEVICE, obs=ObsConfig(dir=os.path.join(out, f"rep{rank}")))
+
+    work = fleet_work(work_seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rep = FleetHarness(factory, work, n_replicas=FLEET_REPLICAS, policy="p2c", seed=seed,
+                       obs_dir=out, **kw).run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    audit = audit_lifecycle([out])
+    e2e = aggregate_paths(journals(out))["e2e"]
+    reps = sorted(d for d in os.listdir(out) if d.startswith("rep"))
+    ttft = pooled_latencies([journals(os.path.join(out, d)) for d in reps],
+                            names=("ttft",))["ttft"]
+    gen = sum(len(rep.results[r.rid]["tokens"]) - len(r.prompt) for r in work)
+    stats = dict(tokens_per_s=round(gen / rep.wall_s, 1), wall_s=round(rep.wall_s, 3),
+                 e2e_p50_ms=e2e["p50_ms"], e2e_p99_ms=e2e["p99_ms"],
+                 ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
+                 redispatched=rep.redispatched, peak_mib=round(peak / 2**20, 1))
+    return work, rep, audit, stats
+
+
+def check_audit(leg: str, audit: dict) -> None:
+    if not audit["ok"] or audit["lost"] or not audit["versions_monotonic"]:
+        raise AssertionError(f"fleet {leg}: audit {audit}")
+
+
+def fleet_kill_leg(model, params, tmp: str) -> None:
+    """(a) greedy, no refresh: a clean run and a run with rank 1 killed at
+    boundary 30 (a spare, the controller); every request's tokens equal
+    across the two runs and equal its solo ``generate_fast``."""
+    from mpit_tpu_torch.loadgen import ServeChaos
+    from mpit_tpu_torch.models import generate_fast
+
+    runs = {}
+    for name, kw in (("clean", {}),
+                     ("kill", dict(chaos=ServeChaos(seed=0, kill_after=FLEET_KILL_AFTER),
+                                   kill_rank=FLEET_KILL_RANK, spares=1,
+                                   use_controller=True))):
+        runs[name] = fleet_thread_run(model, params, os.path.join(tmp, f"a-{name}"), 0,
+                                      FLEET_KILL_SEED, **kw)
+        check_audit(f"(a) {name}", runs[name][2])
+    work, kill, audit, stats = runs["kill"]
+    if audit["dead_replicas"] != [FLEET_KILL_RANK] or not kill.redispatched > 0:
+        raise AssertionError(f"fleet (a): the kill orphaned nothing: dead "
+                             f"{audit['dead_replicas']}, redispatched {kill.redispatched}")
+    clean_work, clean = runs["clean"][0], runs["clean"][1]
+    differ = []
+    for a, b in zip(clean_work, work):
+        solo = generate_fast(model, params, list(a.prompt), a.max_new, device=SERVE_DEVICE)
+        if not clean.results[a.rid]["tokens"] == kill.results[b.rid]["tokens"] == solo:
+            differ.append(a.rid)
+    if differ:
+        raise AssertionError(f"fleet (a): requests {differ} differ between the clean run, "
+                             f"the kill run and their solo calls")
+    for name, run in runs.items():
+        phase("fleet", f"(a) {name}: {json.dumps(run[3])}; controller "
+              f"{[(x.kind, x.rank, x.reason) for x in run[1].controller_log]}")
+    phase("fleet", f"(a) {FLEET_REQUESTS} requests (workload seed {FLEET_KILL_SEED}), 3 "
+          f"replicas in threads, p2c seed 0: both audits ok, lost []; the kill run's "
+          f"dead replicas {audit['dead_replicas']}, {kill.redispatched} redispatched, spare "
+          f"{kill.spawned_ranks} spawned; every request's tokens equal across the two runs "
+          f"and equal its solo generate_fast")
+
+
+def fleet_soak_pair(model, params, tmp: str) -> None:
+    """(b) fleet_soak.sh's pair at full width: refreshes at boundaries 20 and
+    60 in bf16, the chaos run with the kill, a spare and the controller;
+    the audits, ``pin --expect-kill`` and ``obs slo --gate``; each push's
+    bytes and its seconds to encode, send and install."""
+    import contextlib
+    import io
+
+    from mpit_tpu_torch.fleet import StaticWeightSource, replica, weights
+    from mpit_tpu_torch.fleet.__main__ import main as fleet_main
+    from mpit_tpu_torch.loadgen import ServeChaos
+    from mpit_tpu_torch.utils.params import tree_map
+
+    pushes = []
+    encode, publish, install = (weights.WeightPublisher._encode,
+                                weights.WeightPublisher.publish_to,
+                                replica.ReplicaServer._install)
+
+    def timed_encode(self, p):
+        t0 = time.perf_counter()
+        out = encode(self, p)
+        pushes.append({"bytes": sum(a.nbytes for a in out[1]),
+                       "encode_s": time.perf_counter() - t0})
+        return out
+
+    def timed_publish(self, rank):
+        t0 = time.perf_counter()
+        out = publish(self, rank)
+        rec = pushes[-1]
+        rec["send_s"] = time.perf_counter() - t0 - rec["encode_s"]
+        return out
+
+    def timed_install(self, version, names, arrays):
+        t0 = time.perf_counter()
+        install(self, version, names, arrays)
+        torch.cuda.synchronize()
+        installs.append(time.perf_counter() - t0)
+
+    def bump(version):
+        return tree_map(lambda a: a + 1e-3 * version, params)
+
+    dirs, report = {}, {}
+    weights.WeightPublisher._encode = timed_encode
+    weights.WeightPublisher.publish_to = timed_publish
+    replica.ReplicaServer._install = timed_install
+    try:
+        for name, kw in (("clean", {}),
+                         ("chaos", dict(chaos=ServeChaos(seed=FLEET_SOAK_SEED,
+                                                         kill_after=FLEET_KILL_AFTER),
+                                        kill_rank=FLEET_KILL_RANK, spares=1,
+                                        use_controller=True))):
+            pushes.clear()
+            installs = []
+            dirs[name] = os.path.join(tmp, f"b-{name}")
+            _, rep, audit, stats = fleet_thread_run(
+                model, params, dirs[name], FLEET_SOAK_SEED, FLEET_SOAK_SEED,
+                source=StaticWeightSource(params, version=1), quant="bf16",
+                refresh_boundaries=FLEET_REFRESH, refresh_params_fn=bump, **kw)
+            check_audit(f"(b) {name}", audit)
+            report[name] = (rep, audit, stats, list(pushes), installs)
+    finally:
+        weights.WeightPublisher._encode = encode
+        weights.WeightPublisher.publish_to = publish
+        replica.ReplicaServer._install = install
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fleet_main(["pin", dirs["clean"], dirs["chaos"], "--expect-kill"])
+    pin = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"fleet (b): pin --expect-kill exited {rc}: {pin}")
+    rc, out = obs_cli("slo", dirs["chaos"], "--gate",
+                      os.path.join(REPO, "scripts", "fleet_smoke.json"))
+    if rc != 0:
+        raise AssertionError(f"fleet (b): obs slo --gate fleet_smoke.json exited {rc}:\n{out}")
+    for name, (rep, audit, stats, pushed, installs) in report.items():
+        phase("fleet", f"(b) {name}: {json.dumps(stats)}; versions by replica "
+              f"{audit['versions_by_replica']}; dead {audit['dead_replicas']}; pushed "
+              f"{rep.weights_pushed}")
+        phase("fleet", f"(b) {name}: {len(pushed)} pushes, bytes "
+              f"{sorted({p['bytes'] for p in pushed})}; encode s "
+              f"{[round(p['encode_s'], 4) for p in pushed]}; send s "
+              f"{[round(p.get('send_s', 0.0), 6) for p in pushed]}; install s "
+              f"{[round(t, 4) for t in installs]}")
+    phase("fleet", f"(b) {pin[0]}; pin --expect-kill: {pin[-1]}; obs slo --gate "
+          f"scripts/fleet_smoke.json on the chaos run: exit 0")
+
+
+def fleet_cli(out: str, *flags) -> tuple[dict, float]:
+    """``python -m mpit_tpu_torch.fleet run --out out *flags`` on the card
+    (``SERVE_DEVICE``):
+    its report line and wall seconds; fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "mpit_tpu_torch.fleet", "run", "--out", out,
+                        "--replicas", str(FLEET_REPLICAS), "--requests", str(FLEET_REQUESTS),
+                        "--rate", str(int(FLEET_RATE)), "--device", SERVE_DEVICE, *flags],
+                       cwd=REPO, capture_output=True, text=True, timeout=FLEET_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"fleet run {' '.join(flags)} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), wall
+
+
+def fleet_procs(tmp: str) -> None:
+    """(c) the CLI's own model: 3 replica processes, clean and with rank 1
+    SIGKILLed at boundary 30, beside the same run in threads and one
+    ``Server`` on the workload; then all three on a burst of requests
+    arriving at once."""
+    from mpit_tpu_torch.fleet import FleetHarness, audit_lifecycle
+    from mpit_tpu_torch.fleet.__main__ import _build_model, _proc_harness
+    from mpit_tpu_torch.loadgen import LoadHarness
+    from mpit_tpu_torch.models import Server
+    from mpit_tpu_torch.obs.core import ObsConfig
+
+    rates = {}
+    runs = {}
+    for name, flags in (("procs", ["--procs"]),
+                        ("procs-kill", ["--procs", "--kill-after", str(FLEET_KILL_AFTER),
+                                        "--kill-rank", str(FLEET_KILL_RANK)]),
+                        ("threads", [])):
+        d = os.path.join(tmp, f"c-{name}")
+        report, wall = fleet_cli(d, *flags)
+        if not report["fleet"]["ok"]:
+            raise AssertionError(f"fleet (c) {name}: {report['fleet']}")
+        runs[name] = (d, report, wall)
+        rates[name] = report["tokens"] / report["client"]["wall_s"]
+    summaries = []
+    for rank in range(1, FLEET_REPLICAS + 1):
+        with open(os.path.join(runs["procs"][0], f"rep{rank}.out")) as f:
+            summaries.append(json.loads(f.read().strip().splitlines()[-1]))
+    pids = {s["pid"] for s in summaries}
+    cuda = SERVE_DEVICE == "cuda"
+    if (not all(s["device"] == SERVE_DEVICE and s["cuda_initialized"] == cuda
+                for s in summaries)
+            or len(pids) != FLEET_REPLICAS or os.getpid() in pids):
+        raise AssertionError(f"fleet (c): replica summaries {summaries}")
+    kill = runs["procs-kill"][1]
+    with open(os.path.join(runs["procs-kill"][0], f"rep{FLEET_KILL_RANK}.out")) as f:
+        corpse = f.read()
+    if (kill["client"]["killed_ranks"] != [FLEET_KILL_RANK]
+            or kill["client"]["dead_ranks"] != [FLEET_KILL_RANK] or corpse):
+        raise AssertionError(f"fleet (c): kill not detected: {kill['client']}; rank "
+                             f"{FLEET_KILL_RANK} printed {corpse!r}")
+    model, params = _build_model(0, SERVE_DEVICE)
+    work = fleet_work(0, 17, 64)
+    one = LoadHarness(Server(model, params, max_batch=2, segment=4, device=SERVE_DEVICE),
+                      work).run()
+    rates["one Server"] = sum(len(t) - len(one.requests[r].prompt)
+                              for r, t in one.results.items()) / one.wall_s
+    for name, (d, report, wall) in runs.items():
+        phase("fleet", f"(c) fleet run {name}: {report['tokens']} tokens, "
+              f"{rates[name]:.1f} generated tokens/s over the router's wall "
+              f"{report['client']['wall_s']} s (replica start-up included), e2e p50 "
+              f"{report['e2e']['p50_ms']} ms p99 {report['e2e']['p99_ms']} ms, "
+              f"{json.dumps(report['fleet'])}, client {json.dumps(report['client'])}; "
+              f"command {wall:.3f} s")
+    phase("fleet", f"(c) replica processes {[s['pid'] for s in summaries]} each on "
+          f"{summaries[0]['device']} with its own CUDA context (this process "
+          f"{os.getpid()}); the kill run's SIGKILL of rank {FLEET_KILL_RANK} detected "
+          f"(dead ranks {kill['client']['dead_ranks']}, no exit summary), audit ok; "
+          f"generated tokens/s at {FLEET_RATE:g}/s: processes {rates['procs']:.1f}, threads "
+          f"{rates['threads']:.1f}, one Server {rates['one Server']:.1f}")
+
+    # the burst: FLEET_SATURATE requests at once, the serving window's rate
+    burst = {}
+    env = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = REPO + ("" if env is None else os.pathsep + env)
+    try:
+        d = os.path.join(tmp, "c-burst-procs")
+        work = fleet_work(1, 17, 64, FLEET_SATURATE, 1e6)
+        _proc_harness(d, 2, 4, 0, device=SERVE_DEVICE, requests=work,
+                      n_replicas=FLEET_REPLICAS, seed=0, obs_dir=d).run()
+        check_audit("(c) burst procs", audit_lifecycle([d]))
+        burst["processes"] = finish_window_rate(journals(d))
+    finally:
+        if env is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = env
+    d = os.path.join(tmp, "c-burst-threads")
+    FleetHarness(lambda rank: Server(model, params, max_batch=2, segment=4,
+                                     device=SERVE_DEVICE),
+                 fleet_work(1, 17, 64, FLEET_SATURATE, 1e6), n_replicas=FLEET_REPLICAS,
+                 seed=0, obs_dir=d).run()
+    check_audit("(c) burst threads", audit_lifecycle([d]))
+    burst["threads"] = finish_window_rate(journals(d))
+    d = os.path.join(tmp, "c-burst-one")
+    srv = Server(model, params, max_batch=2, segment=4, device=SERVE_DEVICE,
+                 obs=ObsConfig(dir=d))
+    for r in fleet_work(1, 17, 64, FLEET_SATURATE, 1e6):
+        srv.submit(list(r.prompt), r.max_new)
+    srv.drain()
+    srv.close()
+    burst["one Server"] = finish_window_rate(journals(d))
+    phase("fleet", f"(c) a burst of {FLEET_SATURATE} requests at once, generated tokens/s "
+          f"between the first and the last reply: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in burst.items()))
+
+
+def fleet_path(card_line: str, served: dict) -> None:
+    """The serving fleet (ROADMAP A10b) over the serve phase's full-width
+    model: the kill leg, the soak pair, the CLI as processes."""
+    import tempfile
+
+    phase("fleet", card_line)
+    with tempfile.TemporaryDirectory(prefix="fleet-") as tmp:
+        # first-call set-up (cuBLAS handles, allocator growth) outside the runs
+        from mpit_tpu_torch.models import Server
+
+        warm = Server(served["model"], served["params"], max_batch=SERVE_BATCH,
+                      segment=SERVE_SEGMENT, device=SERVE_DEVICE)
+        for r in fleet_work(FLEET_KILL_SEED):
+            warm.submit(list(r.prompt), r.max_new)
+        warm.drain()
+        fleet_kill_leg(served["model"], served["params"], tmp)
+        fleet_soak_pair(served["model"], served["params"], tmp)
+        fleet_procs(tmp)
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3039,6 +3454,7 @@ def main() -> int:
     served = timed("serve", serve_path, card_line)
     timed("serve-spec", serve_spec, card_line, served)
     timed("serve-rnn", serve_rnn, card_line)
+    timed("fleet", fleet_path, card_line, served)
     flash["flash_forward_sm90"]["launches"] += timed("generate-flash", generate_flash, served)
     timed("conv-determinism", conv_determinism)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -289,21 +289,42 @@ class OptimizedLSTMCell(nn.Module):
         return (c, h), torch.stack(out, 1)
 
 
+#: The row count of every decode product whose rows are tokens. cuBLAS picks
+#: its kernel, and so its order of summation, by shape, and PyTorch's CPU
+#: path computes one row with a matrix-vector kernel that sums in another
+#: order; a row then rounds apart from itself in a batch of another size.
+#: Decoding runs its rows in blocks of this many, and :func:`matmul_rows`
+#: pads a product to a multiple of it, so a row's result does not depend
+#: on how many rows run beside it.
+ROW_BLOCK = 8
+
+
+def pad_rows(x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """``x`` with zero rows appended along ``dim`` up to ``n`` rows."""
+    short = n - x.shape[dim]
+    if short <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = short
+    return torch.cat([x, x.new_zeros(shape)], dim)
+
+
 def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with a product of one row computed as the first of two
-    equal rows. PyTorch computes a one-row product with a matrix-vector
-    kernel that sums in another order than its matrix kernel, so a row
-    decoded alone would not equal the same row decoded in a batch; with at
-    least two rows per product every row's result is the batch's (on the
-    CPU at the tests' widths; the card is measured by ``chip_smoke.py``).
-    ``b`` 2-D: ``a`` (..., K), every leading dim one row; ``b`` batched:
-    ``a`` (..., M, K)."""
+    """``a @ b`` with the row count padded by zero rows to a multiple of
+    :data:`ROW_BLOCK` and the pad rows dropped from the result. A caller
+    that hands it a row count which does not depend on the batch (a block
+    of :data:`ROW_BLOCK` decode rows, one row's prompt chunk) gets each
+    row's result from a product of one shape, whoever calls. ``b`` 2-D:
+    ``a`` (..., K), every leading dim one row; ``b`` batched: ``a`` (...,
+    M, K)."""
     if b.dim() == 2:
         rows = a.reshape(-1, a.shape[-1])
         return matmul_rows(rows[None], b[None])[0].reshape(*a.shape[:-1], b.shape[-1])
-    if a.shape[-2] != 1:
+    m = a.shape[-2]
+    padded = -(-m // ROW_BLOCK) * ROW_BLOCK
+    if padded == m:
         return a @ b
-    return (torch.cat([a, a], -2) @ b)[..., :1, :]
+    return (pad_rows(a, padded, -2) @ b)[..., :m, :]
 
 
 def reset_children(module: nn.Module, generator: torch.Generator) -> None:

@@ -38,6 +38,7 @@ import torch
 
 from mpit_tpu_torch import random as jrandom
 from mpit_tpu_torch.comm.topology import resolve_device
+from mpit_tpu_torch.models.layers import ROW_BLOCK
 from mpit_tpu_torch.utils.params import tree_map
 
 
@@ -179,6 +180,28 @@ def _filter_logits(logits, top_k, top_p=None, min_p=None):
         keep.scatter_(-1, order, before < top_p)
         logits = torch.where(keep, logits, float("-inf"))
     return logits
+
+
+def _filter_blocks(logits, top_k, top_p=None, min_p=None):
+    """:func:`_filter_logits` over ``ROW_BLOCK`` rows at a time, a short
+    block filled up with copies of its first row: its sort, softmax and
+    running sum then see a row count that the batch does not set, as the
+    decode path's products do (``models/transformer.py``)."""
+    n = logits.shape[0]
+    out = []
+    for s in range(0, n, ROW_BLOCK):
+        rows = slice(s, min(s + ROW_BLOCK, n))
+
+        def block(a):
+            if a is None:
+                return None
+            a = a[rows]
+            short = ROW_BLOCK - a.shape[0]
+            return torch.cat([a, a[:1].expand(short, *a.shape[1:])]) if short else a
+
+        kept = _filter_logits(block(logits), top_k, block(top_p), block(min_p))
+        out.append(kept[: rows.stop - s])
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 @torch.no_grad()
@@ -380,7 +403,7 @@ def _sample_rows(logits, row_keys, greedy, top_k, use_top_p, temp, top_p,
     if greedy:
         return torch.argmax(logits, -1)
     n, dev = logits.shape[0], logits.device
-    scaled = _filter_logits(
+    scaled = _filter_blocks(
         logits / _col(temp, n, dev), top_k,
         _col(top_p, n, dev) if use_top_p else None,
         None if min_p is None else _col(min_p, n, dev),

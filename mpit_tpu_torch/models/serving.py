@@ -32,6 +32,8 @@ slo``; with obs off every hook is one ``is None`` check.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import os
 import time
 from collections import deque
@@ -261,6 +263,16 @@ def _serve_segment(model, seg, greedy, top_k, use_top_p, params, cache, prev,
     return cache, prev, toks
 
 
+def _own_modules(model):
+    """``model`` with module objects of its own around the same parameter
+    tensors. ``Model.apply`` (``torch.func.functional_call``) swaps the
+    parameters on the module objects while it runs, so two servers that
+    share them, each in a thread of its own (a fleet's replicas), would
+    run on each other's weights."""
+    shared = itertools.chain(model.parameters(), model.buffers())
+    return copy.deepcopy(model, {id(t): t for t in shared})
+
+
 def _bf16_weights(weights_dtype) -> bool:
     return weights_dtype in ("bf16", torch.bfloat16)
 
@@ -358,7 +370,7 @@ class Server:
         self.segments_run = 0
         # None for carry-decode RNNs: no positional horizon, no caps
         self._max_len = getattr(model, "max_len", None)
-        self._dec = model.clone(decode=True)
+        self._dec = _own_modules(model).clone(decode=True)
         self._nb = sampling._bucket(self.max_batch, 1 << 30)
         self._slots: list = [None] * self._nb
         self._cache = None  # built at first admission
@@ -368,7 +380,7 @@ class Server:
         self._greedy = self.temperature == 0.0
         self.spec_k = int(spec_k)
         self.spec_rounds = int(spec_rounds)
-        self._dft = (draft_model.clone(decode=True)
+        self._dft = (_own_modules(draft_model).clone(decode=True)
                      if draft_model is not None else None)
         self._d_params = None
         if draft_params is not None:

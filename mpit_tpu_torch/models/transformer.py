@@ -49,9 +49,17 @@ K/V write starts at ``min(clock, max_len - T)`` and the positional gather
 reads row ``min(position, max_len - 1)`` (a server's free slots tick past
 the horizon). ``head=False`` returns the final LayerNorm's output instead
 of logits, and :meth:`TransformerLM.head_logits` projects chosen rows of
-it through the same head. The decode products go through
-:func:`~mpit_tpu_torch.models.layers.matmul_rows`, so a row decoded alone
-equals the same row decoded in a batch.
+it through the same head.
+
+A row decoded alone equals the same row decoded in a batch, on the card
+too: no product, norm or softmax of the decode path runs at a row count
+that the batch or the caller sets. A tick (T = 1) runs the rows
+:data:`~mpit_tpu_torch.models.layers.ROW_BLOCK` at a time, the last block
+padded with zero rows; a longer chunk (a prompt, a verification chunk)
+runs one row at a time, at M = T; the products go through
+:func:`~mpit_tpu_torch.models.layers.matmul_rows`, and
+:meth:`TransformerLM.head_logits` projects its rows in blocks of
+``ROW_BLOCK`` as well.
 """
 
 from __future__ import annotations
@@ -62,7 +70,8 @@ from torch import nn
 
 from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
-    Dense, Embed, LayerNorm, Model, matmul_rows, rematerialized, reset_children,
+    ROW_BLOCK, Dense, Embed, LayerNorm, Model, matmul_rows, pad_rows, rematerialized,
+    reset_children,
 )
 from mpit_tpu_torch.ops.flash_attention import flash_attention
 from mpit_tpu_torch.ops.ring_attention import dense_attention, ring_attention
@@ -99,8 +108,9 @@ class Block(nn.Module):
     def forward(self, x, cache=None):
         """``x`` is ``(B, T, d_model)``, or the stacked ring ``(sp, B, T_l,
         d_model)`` with ``seq_axis`` set. With ``cache`` (this block's
-        ``cached_key``, ``cached_value``, ``cache_index``) the block runs a
-        decode chunk and returns ``(x, cache)``."""
+        ``cached_key``, ``cached_value``, ``cache_index`` for the first of
+        ``x``'s rows; the rest are pad rows) the block runs a decode chunk,
+        writing the chunk's K/V into the cache in place."""
         if cache is not None:
             return self._decode(x, cache)
         d_model, h = x.shape[-1], self.num_heads
@@ -127,10 +137,10 @@ class Block(nn.Module):
         qkv = _dense(self.Dense_0, self.LayerNorm_0(x))
         q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
                    for a in qkv.split(d_model, -1))
-        att, cache = _cached_attention(q, k, v, cache)
+        att = _cached_attention(q, k, v, cache)
         x = x + _dense(self.Dense_1, att.reshape(x.shape))
         y = F.gelu(_dense(self.Dense_2, self.LayerNorm_1(x)), approximate="tanh")
-        return x + _dense(self.Dense_3, y), cache
+        return x + _dense(self.Dense_3, y)
 
 
 def _dense(layer: Dense, x):
@@ -140,33 +150,42 @@ def _dense(layer: Dense, x):
 
 
 def _cached_attention(q, k, v, cache):
-    """Causal attention of a T-token chunk ``q, k, v`` (B, T, H, D) over the
-    block's K/V cache (``Block._cached_attention`` of the reference): the
-    chunk's K/V are written into the cache in place at each row's clock
-    ``i`` (the start clamped to ``[0, L - T]``, as ``dynamic_update_slice``
-    clamps it), and query row ``r`` of batch row ``n`` sees positions ``<=
-    i[n] + r``. Scores, softmax and P·V in float32 from the compute-dtype
-    values. Returns the attention output and the cache with the clocks
-    advanced by T."""
+    """Causal attention of a T-token chunk ``q, k, v`` (W, T, H, D) over the
+    block's K/V cache of N <= W rows (``Block._cached_attention`` of the
+    reference; rows past N are pad rows): the first N rows' K/V are written
+    into the cache in place at each row's clock ``i`` (the start clamped to
+    ``[0, L - T]``, as ``dynamic_update_slice`` clamps it), and query row
+    ``r`` of batch row ``n`` sees positions ``<= i[n] + r``. Scores, softmax
+    and P·V in float32 from the compute-dtype values, over the cache padded
+    with zero rows to W (a pad row sees position 0 only). The caller
+    advances the clocks."""
     ck, cv, i = cache["cached_key"], cache["cached_value"], cache["cache_index"]
-    b, t, h, d = q.shape
-    length = ck.shape[1]
+    w, t, h, d = q.shape
+    n, length = ck.shape[0], ck.shape[1]
     if t > length:
         raise ValueError(f"chunk of {t} exceeds the {length}-slot cache")
     steps = torch.arange(t, device=q.device)
     start = torch.clamp(i.long(), 0, length - t)
     slots = start[:, None] + steps
-    rows = torch.arange(b, device=q.device)[:, None]
-    ck[rows, slots] = k.to(ck.dtype)
-    cv[rows, slots] = v.to(cv.dtype)
-    s = matmul_rows(q.float().permute(0, 2, 1, 3),
-                    ck.float().permute(0, 2, 3, 1)) / (d ** 0.5)
+    rows = torch.arange(n, device=q.device)[:, None]
+    ck[rows, slots] = k[:n].to(ck.dtype)
+    cv[rows, slots] = v[:n].to(cv.dtype)
+    keys, values = pad_rows(ck.float(), w), pad_rows(cv.float(), w)
+    s = matmul_rows(q.float().permute(0, 2, 1, 3), keys.permute(0, 2, 3, 1)) / (d ** 0.5)
     mask = (torch.arange(length, device=q.device)[None, None, :]
-            <= i.long()[:, None, None] + steps[None, :, None])  # (b, t, L)
+            <= pad_rows(i.long(), w)[:, None, None] + steps[None, :, None])  # (w, t, L)
     s = torch.where(mask[:, None], s, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    out = matmul_rows(p, cv.float().permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
-    return out.to(q.dtype), dict(cache, cache_index=i + t)
+    out = matmul_rows(p, values.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+def _cache_rows(cache, start: int, stop: int) -> dict:
+    """Rows ``[start, stop)`` of a decode cache tree, as views (writes go to
+    the tree's tensors)."""
+    return {name: ({k: a[start:stop] for k, a in node.items()}
+                   if isinstance(node, dict) else node[start:stop])
+            for name, node in cache.items()}
 
 
 class TransformerLM(Model):
@@ -264,10 +283,14 @@ class TransformerLM(Model):
     def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """The tied head on (B, d_model) hidden rows of a ``head=False``
         run: the projection the forward ends with (float32 operands
-        holding head-dtype values), so prefill and tick logits agree."""
+        holding head-dtype values), so prefill and tick logits agree; the
+        rows are projected ``ROW_BLOCK`` at a time, as a tick projects
+        them."""
         hdt = self._head_operand_dtype
-        table = params["Embed_0"]["embedding"].to(hdt).float()
-        return matmul_rows(h.to(hdt).float(), table.t())
+        table = params["Embed_0"]["embedding"].to(hdt).float().t()
+        out = [matmul_rows(pad_rows(blk, ROW_BLOCK), table)[: blk.shape[0]]
+               for blk in h.to(hdt).float().split(ROW_BLOCK)]
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     def forward(self, tokens: torch.Tensor, cache=None):
         if self.decode:
@@ -298,19 +321,39 @@ class TransformerLM(Model):
 
     def _decode(self, tokens, cache):
         """One decode chunk: ``(B, T)`` tokens at each row's ``pos_index``
-        through every block's cached attention; returns ``(out, cache)``."""
-        offset = cache["pos_index"]
-        steps = torch.arange(tokens.shape[1], device=tokens.device)
-        # XLA clamps the gather; a free server slot's clock runs past the end
-        pos = torch.clamp(offset.long()[:, None] + steps, 0, self.max_len - 1)
-        x = self.Embed_0(tokens) + self.pos_embedding[pos].to(self.compute_dtype)
-        new = {"pos_index": offset + tokens.shape[1]}
+        through every block's cached attention; returns ``(out, cache)``.
+        A tick runs its rows ``ROW_BLOCK`` at a time, a longer chunk one row
+        at a time (the module docstring says why)."""
+        b, t = tokens.shape
+        if t == 1:
+            spans = [(s, min(s + ROW_BLOCK, b)) for s in range(0, b, ROW_BLOCK)]
+            width = ROW_BLOCK
+        else:
+            spans, width = [(n, n + 1) for n in range(b)], 1
+        outs = [self._decode_rows(tokens[s:e], _cache_rows(cache, s, e), width)
+                for s, e in spans]
+        new = {"pos_index": cache["pos_index"] + t}
         for i in range(self.num_layers):
             name = f"Block_{i}"
-            x, new[name] = getattr(self, name)(x, cache[name])
+            new[name] = dict(cache[name], cache_index=cache[name]["cache_index"] + t)
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), new
+
+    def _decode_rows(self, tokens, cache, width: int):
+        """The decode chunk of N <= ``width`` rows, run as ``width`` rows (the
+        pad rows are token 0 at position 0); returns the N rows' output."""
+        n, t = tokens.shape
+        offset = pad_rows(cache["pos_index"], width)
+        steps = torch.arange(t, device=tokens.device)
+        # XLA clamps the gather; a free server slot's clock runs past the end
+        pos = torch.clamp(offset.long()[:, None] + steps, 0, self.max_len - 1)
+        x = (self.Embed_0(pad_rows(tokens, width))
+             + self.pos_embedding[pos].to(self.compute_dtype))
+        for i in range(self.num_layers):
+            name = f"Block_{i}"
+            x = getattr(self, name)(x, cache[name])
         x = self.LayerNorm_0(x)
         if self.head:
             hdt = self._head_operand_dtype
             table = self.Embed_0.embedding.to(hdt).float()
             x = matmul_rows(x.to(hdt).float(), table.t())
-        return x, new
+        return x[:n]

@@ -51,10 +51,9 @@ import os
 from typing import Iterable, Optional
 
 # protocol tag names for display; sources of truth are
-# mpit_tpu_torch/parallel/pserver.py (1-10) and the reference's
-# mpit_tpu/fleet/replica.py (11-15; the port's fleet is ROADMAP A10) —
-# kept literal here so the merger imports nothing heavier than the
-# standard library
+# mpit_tpu_torch/parallel/pserver.py (1-10) and
+# mpit_tpu_torch/fleet/replica.py (11-15) — kept literal here so the
+# merger imports nothing heavier than the standard library
 TAG_NAMES = {
     1: "FETCH",
     2: "PUSH_EASGD",

@@ -33,9 +33,11 @@ from mpit_tpu_torch.models import (
     generate_rnn,
     serving,
 )
+from mpit_tpu_torch.models.layers import matmul_rows
 from mpit_tpu_torch.models.lstm import LSTMLM
 from mpit_tpu_torch.models.transformer import TransformerLM
 from mpit_tpu_torch.obs.core import ObsConfig
+from mpit_tpu_torch.utils.params import tree_map
 
 V, T = 17, 64
 CPU = dict(device="cpu")
@@ -173,6 +175,83 @@ def test_rnn_server_equals_jax_and_solo(lstm):
     with pytest.raises(ValueError, match="carry-decode"):
         RNNServer(TransformerLM(V, num_layers=1, d_model=16, num_heads=2, max_len=T,
                                 device="cpu"), None, **CPU)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 11])
+def test_padded_product_equals_each_row_alone(n):
+    """ROADMAP C8: ``matmul_rows`` runs a product at a multiple of
+    ``ROW_BLOCK`` rows. Each row of it equals that row's product computed
+    alone bit for bit, and the product is the unpadded one within f32
+    rounding; the same holds for the batched form the cached attention
+    uses."""
+    rng = np.random.default_rng(n)
+    a = torch.from_numpy(rng.normal(size=(n, 48)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(48, 40)).astype(np.float32))
+    got = matmul_rows(a, b)
+    assert got.shape == (n, 40)
+    for r in range(n):
+        assert torch.equal(got[r], matmul_rows(a[r:r + 1], b)[0]), r
+    torch.testing.assert_close(got, a @ b, rtol=2e-6, atol=2e-5)
+    q = torch.from_numpy(rng.normal(size=(2, 3, n, 16)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 3, 16, 24)).astype(np.float32))
+    got = matmul_rows(q, k)
+    assert got.shape == (2, 3, n, 24)
+    for r in range(n):
+        assert torch.equal(got[:, :, r], matmul_rows(q[:, :, r:r + 1], k)[:, :, 0]), r
+    torch.testing.assert_close(got, q @ k, rtol=2e-6, atol=2e-5)
+
+
+@pytest.mark.parametrize("rule", [{}, SAMPLED], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("max_batch", [3, 11])
+def test_server_blocks_equal_solo_calls(lm, rule, max_batch):
+    """ROADMAP C8: a server below one ``ROW_BLOCK`` of slots (3, whose
+    ticks run padded) and above one (11: 16 slots, two blocks) serves
+    every request equal to its solo call."""
+    _, pm, _, tp = lm
+    reqs = REQS + [([(7 * i + 3) % V for i in range(1 + n % 6)], 4 + n % 5)
+                   for n in range(7)]
+    srv = Server(pm, tp, max_batch=max_batch, segment=3, **rule, **CPU)
+    rids = [srv.submit(q, mn, rng=jrandom.key(500 + i)) for i, (q, mn) in enumerate(reqs)]
+    got = srv.drain()
+    for i, ((q, mn), rid) in enumerate(zip(reqs, rids)):
+        assert got[rid] == generate_fast(pm, tp, q, mn, rng=jrandom.key(500 + i),
+                                         **rule, **CPU), i
+
+
+def test_servers_in_threads_keep_their_own_weights(lm):
+    """Servers built on one model object, each with weights of its own and
+    each in a thread of its own (a fleet's replicas), serve every request
+    as the solo call with those weights: ``Model.apply`` swaps parameters
+    on the module objects while it runs, so each server runs module
+    objects of its own."""
+    import sys
+    import threading
+
+    _, pm, _, tp = lm
+    bumped = tree_map(lambda a: a + 1e-2, tp)
+    weights = [tp, bumped] * 3
+    reqs = REQS[:3]
+    got = [None] * len(weights)
+
+    def serve(i):
+        srv = Server(pm, weights[i], max_batch=2, segment=2, **CPU)
+        rids = [srv.submit(q, mn) for q, mn in reqs]
+        out = srv.drain()
+        got[i] = [out[r] for r in rids]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=serve, args=(i,)) for i in range(len(weights))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for w, rows in zip(weights, got):
+        assert rows == [generate_fast(pm, w, q, mn, **CPU) for q, mn in reqs]
 
 
 def _schedule(seed):

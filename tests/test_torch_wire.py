@@ -217,12 +217,12 @@ def _project():
 
 
 def test_port_wire_schema_equals_the_lock_for_its_tags_and_snapshot():
-    """Tags 1-10 (the PS protocol) and the shard snapshot's keys are
-    inferred from the port as the lock has them; tags 11-15 are the
-    fleet's (ROADMAP.md item A10)."""
+    """Tags 1-10 (the PS protocol), tags 11-15 (the fleet's) and the
+    shard snapshot's keys are inferred from the port as the lock has
+    them."""
     doc = _project().schema.to_json()
     lock = json.loads((REPO / "wire-schema.lock.json").read_text())
-    assert sorted(doc["tags"], key=int) == [str(t) for t in range(1, 11)]
+    assert sorted(doc["tags"], key=int) == [str(t) for t in range(1, 16)]
     assert {t: doc["tags"][t] for t in doc["tags"]} == {t: lock["tags"][t] for t in doc["tags"]}
     assert doc["snapshot"] == lock["snapshot"]
     assert doc["snapshot"]["writes"] == [
