@@ -200,8 +200,9 @@ non-zero before the result lines:
              before the row blocks.
 26. serve-spec — the same 8 requests through the speculative server with a
              2-layer, d_model 256 draft, ``spec_k`` 4: tokens against the
-             greedy run's (or C8), acceptance, tokens per target read,
-             tokens/s.
+             greedy run's and against each request's solo
+             ``generate_speculative`` (or C8), acceptance, tokens per target
+             read, tokens/s.
 27. serve-rnn — ``RNNServer`` at ``ptb-lstm-easgd``'s widths over the load
              schedule without the length cap: every result against its solo
              ``generate_rnn`` (or C8); tokens/s.
@@ -233,6 +234,29 @@ non-zero before the result lines:
              algorithms), then ``dp-quant``'s fused LeNet leg twice with no
              override: the losses equal bit for bit; one leg with the
              defaults for the cost.
+30. moe      — ``ptb-transformer-large --algo moe-sync --moe-experts 8
+             --attn-impl flash`` at full width through ``run()``, 32 steps
+             (W = 8, 512 tokens and capacity 128 a worker): losses finite,
+             the last 8 below the first 8; the sm90 flash launches (counts
+             set to 0 just before; they join the kernels line): forward 6 ×
+             (steps + eval forwards), dQ = dK/dV = 6 × steps; tokens/s, ms a
+             step, busy share, peak memory of a training step, the first
+             step's ``moe_balance``, ``moe_zloss``, ``moe_dropped_frac``; one
+             f32 step of a narrow MoE LM (top-2, both aux weights), card vs
+             CPU.
+31. pp       — ``ptb-transformer-large --algo pp-sync`` at full width (f32,
+             (dp, pp) = (4, 2), 4 microbatches, global batch 32), 8 steps
+             each of gpipe, 1f1b and interleaved (3 virtual chunks): losses
+             equal across schedules within ``PP_TOL``; ticks, ms a step,
+             tokens/s, peak memory of a training step (1F1B's against
+             GPipe's); one f32 step of a narrow 1F1B pipeline, card vs CPU.
+32. tp       — the tp (2, 4) and composed (2, 2, 2) trainers against the
+             sync trainer at full width: two f32 steps from one init within
+             ``TP_F32_TOL``, then 8 bf16 steps each (ms a step);
+             ``generate_tp`` at (1, 4) against ``generate_batch`` on the
+             serving model's 8 greedy prompts under the near-tie rule (ms a
+             token).
+33. tour     — ``mpit_tpu_torch/examples/parallelism_tour.py`` on the card.
 
 Each phase's seconds follow its lines. Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
@@ -1700,7 +1724,7 @@ def seq_vs_cpu() -> None:
     y = np.roll(x, -1, axis=1)
     params = None
     out = {}
-    for dev in ("cuda", "cpu"):
+    for dev in (CARD, "cpu"):
         for impl, shape in (("ring", (8, 1)), ("ring", (2, 4)), ("ulysses", (2, 4))):
             model = TransformerLM(97, num_layers=2, d_model=64, num_heads=4, max_len=64,
                                   compute_dtype=torch.float32, seq_axis="sp",
@@ -2877,9 +2901,10 @@ def serve_path(card_line: str) -> dict:
 
 def serve_spec(card_line: str, served: dict) -> None:
     """The greedy requests through the speculative server with a 2-layer,
-    d_model 256 draft (seeded): tokens against the greedy server's,
-    acceptance, tokens per target read, tokens/s."""
-    from mpit_tpu_torch.models import Server, serving
+    d_model 256 draft (seeded): tokens against the greedy server's and
+    against each request's solo ``generate_speculative`` (ROADMAP C8, the
+    same near-tie rule), acceptance, tokens per target read, tokens/s."""
+    from mpit_tpu_torch.models import Server, generate_speculative, serving
     from mpit_tpu_torch.models.transformer import TransformerLM
 
     model, params, reqs = served["model"], served["params"], served["reqs"]
@@ -2916,11 +2941,23 @@ def serve_spec(card_line: str, served: dict) -> None:
             diverged.append((i, j - len(reqs[i][0]), divergence_gap(
                 model, params, want, j, got[rid][j])))
     check_near_ties("serve-spec", diverged)
+    # ROADMAP C8: each served row against its solo generate_speculative
+    solo_div = []
+    for i, (rid, (p, mn)) in enumerate(zip(rids, reqs)):
+        solo = generate_speculative(model, params, draft, d_params, p, mn, k=SPEC_K,
+                                    device=SERVE_DEVICE)
+        j = first_divergence(solo, got[rid])
+        if j is not None:
+            solo_div.append((i, j - len(p), divergence_gap(model, params, solo, j,
+                                                           got[rid][j])))
+    check_near_ties("serve-spec (solo)", solo_div)
     per_read = stats["emitted"] / stats["row_rounds"]
     phase("serve-spec", f"draft: 2 layers, d_model 256, 4 heads, vocab {SERVE_VOCAB} "
           f"(seeded init {SERVE_SEED + 1}); spec_k {SPEC_K}: {SERVE_REQS - len(diverged)} of "
           f"{SERVE_REQS} requests equal the greedy serve run's; divergences (request, "
-          f"generated token, gap): {diverged}; {per_read:.3f} tokens per target read "
+          f"generated token, gap): {diverged}; {SERVE_REQS - len(solo_div)} of {SERVE_REQS} "
+          f"equal their solo generate_speculative, divergences {solo_div}; "
+          f"{per_read:.3f} tokens per target read "
           f"(acceptance {(per_read - 1) / SPEC_K:.4f}); "
           f"{SERVE_REQS * SERVE_NEW / wall:.1f} tokens/s ({wall:.3f} s); {card_line}")
 
@@ -3386,6 +3423,350 @@ def fleet_path(card_line: str, served: dict) -> None:
         fleet_procs(tmp)
 
 
+# ------------------------------------- the other parallel strategies (A11)
+
+# the device of the A11 phases' own tensors and worlds (run() takes the
+# current topology's)
+CARD = "cuda"
+MOE_EXPERTS = 8
+MOE_STEPS = 32
+PP_STEPS = 8
+PP_SCHEDULES = (("gpipe", {}), ("1f1b", {}), ("interleaved", dict(pp_virtual=3)))
+# the pipelines' f32 losses across schedules: the same function, summed in
+# another order (GPipe's autograd against per-layer vjps of recomputed layers)
+PP_TOL = 1e-4
+TP_STEPS = 8
+# full-width f32 steps of the tp and composed trainers against the sync
+# trainer: the row-parallel products sum their shards in another order
+TP_F32_TOL = 1e-4
+
+
+def moe_config():
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    return dataclasses.replace(
+        TrainConfig().apply_preset("ptb-transformer-large"), algo="moe-sync",
+        moe_experts=MOE_EXPERTS, attn_impl="flash", epochs=1,
+        train_size=MOE_STEPS * 8)
+
+
+def moe_eval_forwards(cfg) -> int:
+    """The eval body forwards of a moe-sync run: one per eval batch (each
+    worker routes its share of a batch together)."""
+    from mpit_tpu_torch.run import _ptb_windows
+
+    x_va = _ptb_windows(cfg)[2]
+    batch = (min(512, len(x_va)) // WORKERS) * WORKERS
+    return len(x_va) // batch
+
+
+def moe_step_metrics(cfg) -> tuple[dict, int]:
+    """One step's aux metrics of ``cfg``'s trainer built as ``run()``
+    builds it (its first step from the seed), and its parameter count."""
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    trainer, state, x, y = built_step(cfg)
+    _, m = trainer._step(state, x, y)
+    return ({k: float(v) for k, v in m.items()},
+            sum(t.numel() for t in tree_leaves(state.params)))
+
+
+def narrow_vs_cpu(name: str, make, x, y, steps: int = 1) -> tuple[float, float]:
+    """``steps`` f32 steps of ``make(device)``'s trainer on the card and on
+    the CPU from one init: (max |loss diff|, max |param diff|), each within
+    UNIT_TOL."""
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    out = {}
+    for dev in (CARD, "cpu"):
+        trainer = make(torch.device(dev))
+        state = trainer.init_state(torch.Generator().manual_seed(0))
+        losses = []
+        for _ in range(steps):
+            state, m = trainer.step(state, x, y)
+            losses.append(float(m["loss"]))
+        params = state["params"] if isinstance(state, dict) else state.params
+        out[dev] = losses, [t.detach().cpu() for t in tree_leaves(params)]
+    loss_err = max(abs(a - b) for a, b in zip(out[CARD][0], out["cpu"][0]))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(out[CARD][1], out["cpu"][1]))
+    if not (loss_err <= UNIT_TOL and param_err <= UNIT_TOL):
+        raise AssertionError(f"{name}: card vs CPU loss {loss_err}, params {param_err} "
+                             f"(limit {UNIT_TOL})")
+    return loss_err, param_err
+
+
+def moe_path(card_line: str) -> dict:
+    """``ptb-transformer-large --algo moe-sync --moe-experts 8 --attn-impl
+    flash`` at full width through ``run()``, MOE_STEPS steps: finite and
+    falling losses, the sm90 flash launches; tokens/s, ms a step, busy
+    share, peak memory, the aux metrics; one f32 step of a narrow MoE LM,
+    card vs CPU. Returns the run's flash launches."""
+    import numpy as np
+
+    from mpit_tpu_torch import optim
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models.transformer import TransformerLM
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import MoEParallelTrainer
+    from mpit_tpu_torch.run import run
+
+    cfg = moe_config()
+    phase("moe", f"preset ptb-transformer-large, algo moe-sync: {cfg.moe_experts} experts "
+          f"(capacity factor {cfg.moe_capacity_factor}, top-{cfg.moe_top_k}), layers "
+          f"{cfg.layers}, d_model {cfg.d_model}, heads {cfg.heads}, T {cfg.seq_len}, global "
+          f"batch {cfg.global_batch}, W = {WORKERS}, attn flash, {cfg.optimizer}; {card_line}")
+    # the warm-up: a shorter run's validation split holds no eval batch
+    peak, ms = train_peak(cfg)
+    for k in fa.launches:
+        fa.launches[k] = 0
+    res = run(cfg)
+    launches = dict(fa.launches)
+    steps, losses = res["trained_units"], res["round_losses"]
+    evals = moe_eval_forwards(cfg)
+    want = lm_launches(steps, evals)
+    if steps != MOE_STEPS or launches != want:
+        raise AssertionError(f"moe: {steps} steps, flash launches {launches} != {want} "
+                             f"({evals} eval forwards)")
+    if not finite(losses):
+        raise AssertionError(f"moe: non-finite loss: {losses}")
+    first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
+    if not last < first:
+        raise AssertionError(f"moe: loss did not fall: first 8 {first}, last 8 {last}")
+    aux, n_params = moe_step_metrics(cfg)
+    profile_lm(cfg=cfg, name="moe")
+    phase("moe", f"{steps} steps, {res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+          f"{1e3 * res['wall_s'] / steps:.3f} ms/step (run), {ms:.3f} ms/step (2 timed "
+          f"steps); peak device memory of a training "
+          f"step {peak:.1f} MiB; {n_params} parameters; losses first 8 {first:.4f}, last 8 "
+          f"{last:.4f}; eval accuracy {res['accuracy']:.4f}, eval loss "
+          f"{res['eval_loss']:.4f}; first step moe_balance {aux['moe_balance']:.6f}, "
+          f"moe_zloss {aux['moe_zloss']:.6f}, moe_dropped_frac {aux['moe_dropped_frac']:.6f}")
+    phase("moe", f"flash launches {json.dumps(launches)} = {steps} steps x {LM_LAYERS} "
+          f"layers (+ {LM_LAYERS} x {evals} eval forwards)")
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 31, (8, 64)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+
+    def make(dev):
+        model = TransformerLM(31, num_layers=2, d_model=32, num_heads=4, max_len=64,
+                              compute_dtype=torch.float32, moe_experts=8, moe_axis="dp",
+                              moe_top_k=2, moe_capacity_factor=1.5, moe_balance_weight=0.1,
+                              moe_zloss_weight=0.01, device=dev)
+        return MoEParallelTrainer(model, optim.SGD(0.1, momentum=0.9), Topology(WORKERS, dev))
+
+    loss_err, param_err = narrow_vs_cpu("moe", make, x, y)
+    phase("moe", f"f32 2-layer MoE LM (8 experts, top-2, aux weights 0.1 / 0.01), one step, "
+          f"card vs CPU: |loss diff| {loss_err:.3g}, max |param diff| {param_err:.3g} "
+          f"(limit {UNIT_TOL})")
+    return launches
+
+
+def pp_config(schedule: str, **over):
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    return dataclasses.replace(
+        TrainConfig().apply_preset("ptb-transformer-large"), algo="pp-sync", pp=2,
+        n_micro=4, global_batch=32, epochs=1, train_size=PP_STEPS * 32,
+        pp_schedule=schedule, **over)
+
+
+def pp_path(card_line: str) -> None:
+    """``ptb-transformer-large --algo pp-sync`` at full width (6 layers, d
+    768, f32, pp 2, 4 microbatches, global batch 32): gpipe, 1f1b and
+    interleaved (3 virtual chunks), PP_STEPS steps each through ``run()``;
+    losses finite and equal across schedules within PP_TOL; ms a step,
+    tokens/s, ticks, peak memory of a training step; then one f32 step of a
+    narrow pipeline, card vs CPU."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
+    from mpit_tpu_torch.run import run
+
+    base = pp_config("gpipe")
+    phase("pp", f"preset ptb-transformer-large, algo pp-sync: layers {base.layers}, d_model "
+          f"{base.d_model}, heads {base.heads}, T {base.seq_len}, f32 dense attention, "
+          f"(dp, pp) = ({WORKERS // base.pp}, {base.pp}), {base.n_micro} microbatches, global "
+          f"batch {base.global_batch}, {base.optimizer}; {card_line}")
+    runs = {}
+    for sched, over in PP_SCHEDULES:
+        cfg = pp_config(sched, **over)
+        # the warm-up: a shorter run's validation split holds no eval batch
+        peak, ms = train_peak(cfg)
+        for k in fa.launches:
+            fa.launches[k] = 0
+        res = run(cfg)
+        if any(fa.launches.values()):
+            raise AssertionError(f"pp-sync launched {fa.launches}: its attention is dense")
+        losses, steps = res["round_losses"], res["trained_units"]
+        if steps != PP_STEPS or not finite(losses) or not finite([res["eval_loss"]]):
+            raise AssertionError(f"pp {sched}: {steps} steps, losses {losses}")
+        tr = PipelineParallelTrainer(
+            vocab_size=10_000, num_layers=cfg.layers, d_model=cfg.d_model,
+            num_heads=cfg.heads, seq_len=cfg.seq_len, topo=Topology(
+                WORKERS, torch.device(CARD), axis_names=("dp", "pp"),
+                mesh_shape=(WORKERS // cfg.pp, cfg.pp)),
+            n_micro=cfg.n_micro, schedule=sched, virtual=cfg.pp_virtual)
+        phase("pp", f"{sched}{'' if sched != 'interleaved' else f' (virtual {cfg.pp_virtual})'}"
+              f": {tr.ticks} ticks, {steps} steps, "
+              f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+              f"{1e3 * res['wall_s'] / steps:.3f} ms/step (run), {ms:.3f} ms/step "
+              f"(2 timed steps); peak device memory of a training step {peak:.1f} MiB; "
+              f"losses first {losses[0]:.6f}, last {losses[-1]:.6f}; eval loss "
+              f"{res['eval_loss']:.6f}")
+        runs[sched] = (losses, peak)
+    ref = runs["gpipe"][0]
+    for sched in ("1f1b", "interleaved"):
+        err = max(abs(a - b) / abs(b) for a, b in zip(runs[sched][0], ref))
+        if not err <= PP_TOL:
+            raise AssertionError(f"pp {sched} vs gpipe: losses differ by {err} relative "
+                                 f"(limit {PP_TOL}): {runs[sched][0]} vs {ref}")
+        phase("pp", f"{sched} against gpipe: max relative |loss difference| over "
+              f"{PP_STEPS} f32 steps {err:.3g} (limit {PP_TOL})")
+    phase("pp", f"peak of a training step: 1f1b {runs['1f1b'][1]:.1f} MiB, gpipe "
+          f"{runs['gpipe'][1]:.1f} MiB: 1f1b {'below' if runs['1f1b'][1] < runs['gpipe'][1] else 'NOT below'} gpipe")
+
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 23, (8, 16)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+
+    def make(dev):
+        return PipelineParallelTrainer(
+            vocab_size=23, num_layers=8, d_model=32, num_heads=4, seq_len=16,
+            topo=Topology(WORKERS, dev, axis_names=("dp", "pp"), mesh_shape=(2, 4)),
+            n_micro=4, schedule="1f1b")
+
+    loss_err, param_err = narrow_vs_cpu("pp", make, x, y)
+    phase("pp", f"f32 narrow 1f1b pipeline (8 layers, d 32, (2, 4)), one step, card vs "
+          f"CPU: |loss diff| {loss_err:.3g}, max |param diff| {param_err:.3g} "
+          f"(limit {UNIT_TOL})")
+
+
+def tp_trainers(dtype, attn: str, dev, opt):
+    """The sync, tp (2, 4) and composed (2, 2, 2) trainers of
+    ptb-transformer-large's model in ``dtype``, each with ``opt()``: name ->
+    trainer."""
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models.transformer import TransformerLM
+    from mpit_tpu_torch.parallel import (
+        ComposedParallelTrainer, DataParallelTrainer, TensorParallelTrainer,
+    )
+
+    def model(**kw):
+        return TransformerLM(SERVE_VOCAB, num_layers=LM_LAYERS, d_model=768, num_heads=12,
+                             max_len=512, compute_dtype=dtype, device=dev, **kw)
+
+    return {
+        "sync": DataParallelTrainer(model(attn_impl=attn), opt(), Topology(WORKERS, dev)),
+        "tp (2, 4)": TensorParallelTrainer(model(attn_impl=attn), opt(), Topology(
+            WORKERS, dev, axis_names=("dp", "tp"), mesh_shape=(2, 4))),
+        "composed (2, 2, 2)": ComposedParallelTrainer(model(seq_axis="sp"), opt(), Topology(
+            WORKERS, dev, axis_names=("dp", "tp", "sp"), mesh_shape=(2, 2, 2))),
+    }
+
+
+def tp_path(card_line: str, served: dict) -> None:
+    """The tp (2, 4) and composed (2, 2, 2) trainers against the sync
+    trainer at ptb-transformer-large's full width: two f32 steps from one
+    init (losses and params within TP_F32_TOL of sync's), then TP_STEPS
+    bf16 steps each (ms a step); ``generate_tp`` at (1, 4) against
+    ``generate_batch`` on the serving model, 8 greedy prompts, under the
+    near-tie rule (ms a token)."""
+    import numpy as np
+
+    from mpit_tpu_torch import optim
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models import generate_batch, generate_tp
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    dev = torch.device(CARD)
+    rng = np.random.default_rng(SERVE_SEED)
+    x = rng.integers(0, SERVE_VOCAB, (WORKERS, 512)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+    init = None
+    results = {}
+    # SGD for the comparison: Adam's g / sqrt(v) would magnify the last
+    # bits of a near-zero gradient element into a whole step
+    sgd = lambda: optim.SGD(0.1, momentum=0.9)  # noqa: E731
+    for name, tr in tp_trainers(torch.float32, "xla", dev, sgd).items():
+        state = tr.init_state(torch.Generator().manual_seed(0), params=init)
+        init = init if init is not None else state.params
+        losses = []
+        for _ in range(2):
+            state, m = tr.step(state, x, y)
+            losses.append(float(m["loss"]))
+        results[name] = losses, tree_leaves(state.params)
+        del state
+    sync_losses, sync_params = results["sync"]
+    for name in ("tp (2, 4)", "composed (2, 2, 2)"):
+        losses, params = results[name]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, sync_losses))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(params, sync_params))
+        if not (loss_err <= TP_F32_TOL and param_err <= TP_F32_TOL):
+            raise AssertionError(f"{name} vs sync, f32: loss {loss_err}, params {param_err} "
+                                 f"(limit {TP_F32_TOL})")
+        phase("tp", f"{name} vs sync, f32 full width, 2 steps from one init: max relative "
+              f"|loss diff| {loss_err:.3g}, max |param diff| {param_err:.3g} (limit "
+              f"{TP_F32_TOL})")
+    del results, init, sync_params
+    batches = [rng.integers(0, SERVE_VOCAB, (WORKERS, 512)).astype(np.int64)
+               for _ in range(TP_STEPS + 2)]
+    adamw = lambda: optim.AdamW(3e-4, weight_decay=1e-4)  # noqa: E731
+    for name, tr in tp_trainers(torch.bfloat16, "xla", dev, adamw).items():
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        losses = []
+        for i, xb in enumerate(batches):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = tr.step(state, xb, np.roll(xb, -1, axis=1))
+            losses.append(float(m["loss"]))
+        ms = 1e3 * (time.perf_counter() - t0) / TP_STEPS
+        if not finite(losses):
+            raise AssertionError(f"{name}: non-finite losses {losses}")
+        phase("tp", f"{name}, bf16 full width (6 layers, d 768, T 512, global batch "
+              f"{WORKERS}, AdamW, dense attention; composed: ring over sp): {ms:.3f} ms/step "
+              f"over {TP_STEPS} steps ({WORKERS * 512 * 1e3 / ms:.1f} tokens/s); losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        del state
+
+    model, params = served["model"], served["params"]
+    prompts = [p for p, _ in served["reqs"]]
+    topo = Topology(4, dev, axis_names=("dp", "tp"), mesh_shape=(1, 4))
+    want = generate_batch(model, params, prompts, SERVE_NEW, device=SERVE_DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = generate_tp(model, params, prompts, SERVE_NEW, topo=topo)
+    wall = time.perf_counter() - t0
+    diverged = []
+    for i, (w, g) in enumerate(zip(want, got)):
+        j = first_divergence(w, g)
+        if j is not None:
+            diverged.append((i, j - len(prompts[i]), divergence_gap(model, params, w, j, g[j])))
+    check_near_ties("tp", diverged)
+    phase("tp", f"generate_tp at (dp, tp) = (1, 4), the serving model, {SERVE_REQS} greedy "
+          f"prompts x {SERVE_NEW} tokens: {SERVE_REQS - len(diverged)} of {SERVE_REQS} equal "
+          f"generate_batch's, divergences (request, generated token, gap) {diverged}; "
+          f"{1e3 * wall / SERVE_NEW:.3f} ms a token (a batch tick, prefill included), "
+          f"{wall:.3f} s; {card_line}")
+
+
+def tour_path() -> None:
+    """The port's parallelism tour on the card: one step of each strategy
+    of a tiny f32 LM, every first loss finite."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "mpit_tpu_torch", "examples"))
+    import parallelism_tour
+
+    losses = parallelism_tour.main(["--device", CARD])
+    if len(losses) != 10 or not finite(losses.values()):
+        raise AssertionError(f"tour: {losses}")
+    phase("tour", f"{len(losses)} sections, first losses " + ", ".join(
+        f"{k}: {v:.4f}" for k, v in losses.items()))
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3457,6 +3838,13 @@ def main() -> int:
     timed("fleet", fleet_path, card_line, served)
     flash["flash_forward_sm90"]["launches"] += timed("generate-flash", generate_flash, served)
     timed("conv-determinism", conv_determinism)
+    moe = timed("moe", moe_path, card_line)
+    for name in flash:
+        if name.endswith("_sm90"):
+            flash[name]["launches"] += moe[name]
+    timed("pp", pp_path, card_line)
+    timed("tp", tp_path, card_line, served)
+    timed("tour", tour_path)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = [kernel, *flash.values()]

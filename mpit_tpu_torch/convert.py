@@ -9,10 +9,16 @@ The trees have the same keys. Leaves differ in one layout only:
 - a Dense ``kernel`` is ``(in, out)`` in both (the port computes
   ``x @ kernel``), and biases, LayerNorm scales, embeddings and the
   transformer's ``pos_embedding`` are the same arrays. The transformer's
-  tree has no 4-D leaf, so every leaf carries across unchanged.
+  tree (MoE blocks included) has no 4-D leaf, so every leaf carries across
+  unchanged.
 
-No model of either package has a 3-D leaf, so a 4-D leaf is always an
-unstacked conv kernel and a 5-D one a stacked conv kernel. The optimizer
+The 3-D leaves are the same arrays in both: an MoE block's expert kernels
+``moe_w_up`` ``(E, D, F)`` and ``moe_w_down`` ``(E, F, D)`` (its router
+and biases are 2-D), and the pipeline's stacked Block leaves (``{"blocks":
+(L, ...) leaves, "rest": {"embed", "pos", "lnf_s", "lnf_b"}}``, a Dense
+kernel ``(L, in, out)``). No model has a 4-D leaf but a conv, so a 4-D
+leaf is always an unstacked conv kernel and a 5-D one a stacked conv
+kernel. The optimizer
 states' trees (momentum trace, Adam's moments) have the params' shapes and
 carry across the same way. A decode model's cache tree carries across unchanged
 (:func:`cache_from_flax`).

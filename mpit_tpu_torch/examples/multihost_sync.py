@@ -13,7 +13,11 @@ mean) reduce the local workers first, then cross the processes. ``--algo
 zero`` runs ZeRO-1 with Adam: each rank holds its workers' share of the
 optimizer state. The world has
 ``--local-devices`` × N workers, as the reference's mesh spans its
-processes. Every rank feeds the same global batch stream and takes its
+processes. ``--algo moe`` trains a small MoE LM (8 experts, top-2, the
+balance and z losses on) by expert parallelism: each rank holds its
+workers' experts, and the tokens cross the processes by
+``all_to_all_single`` both ways (the backward's too); ``--out`` then also
+carries every step's loss. Every rank feeds the same global batch stream and takes its
 own workers' rows. With ``--ckpt-dir`` the run ends with a checkpoint that
 every rank gathers, rank 0 writes and every rank restores; ``--out``
 writes ``<out>.rank<i>.json`` with the reference's keys; the round
@@ -33,7 +37,7 @@ sys.path.insert(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--algo", choices=("sync", "zero", "easgd", "downpour"),
+    ap.add_argument("--algo", choices=("sync", "zero", "easgd", "downpour", "moe"),
                     default="sync")
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--local-devices", type=int, default=1,
@@ -46,16 +50,20 @@ def main():
                     help="save + restore a checkpoint at the end (rank 0 "
                          "writes what every rank gathers; every rank restores)")
     ns = ap.parse_args()
+    if ns.algo == "moe" and ns.ckpt_dir:
+        ap.error("--ckpt-dir is not supported with --algo moe (each rank holds "
+                 "only its workers' experts, and the checkpoint does not gather them)")
 
     import numpy as np
     import torch
 
     import mpit_tpu_torch
     from mpit_tpu_torch.data import load_mnist
-    from mpit_tpu_torch.models import MLP
+    from mpit_tpu_torch.models import MLP, TransformerLM
     from mpit_tpu_torch.optim import SGD, Adam
     from mpit_tpu_torch.parallel import (
-        DataParallelTrainer, DownpourTrainer, EASGDTrainer, ZeroDataParallelTrainer,
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer, MoEParallelTrainer,
+        ZeroDataParallelTrainer,
     )
 
     topo = mpit_tpu_torch.init(num_workers=ns.local_devices, device=ns.device)
@@ -74,17 +82,28 @@ def main():
         trainer = DataParallelTrainer(model, SGD(0.2), topo)
     elif ns.algo == "zero":
         trainer = ZeroDataParallelTrainer(model, Adam(1e-3), topo)
+    elif ns.algo == "moe":
+        # a small MoE LM on random tokens: vocab 31, T = 16
+        x = np.random.default_rng(0).integers(0, 31, (2048, 16)).astype(np.int32)
+        y = np.roll(x, -1, axis=1).astype(np.int32)
+        model = TransformerLM(31, num_layers=2, d_model=32, num_heads=4, max_len=16,
+                              compute_dtype=torch.float32, moe_experts=8, moe_axis="dp",
+                              moe_top_k=2, moe_capacity_factor=1.5,
+                              moe_balance_weight=0.1, moe_zloss_weight=0.01,
+                              device=topo.device)
+        trainer = MoEParallelTrainer(model, SGD(0.2, momentum=0.9), topo)
     elif ns.algo == "easgd":
         trainer = EASGDTrainer(model, SGD(0.2, momentum=0.9), topo, tau=4)
     else:
         trainer = DownpourTrainer(model, SGD(0.2), topo, tau=4)
     state = trainer.init_state(torch.Generator().manual_seed(0))
-    gb = 16 * w
+    gb = (2 if ns.algo == "moe" else 16) * w
     tau = getattr(trainer, "tau", 1)
     first = last = None
+    losses = []
     for step in range(ns.steps):
         idx = np.random.default_rng(step).integers(0, len(x), tau * gb)
-        if ns.algo in ("sync", "zero"):
+        if ns.algo in ("sync", "zero", "moe"):
             state, m = trainer.step(state, x[idx], y[idx])
         else:  # one whole τ-round per step
             state, m = trainer.step(
@@ -93,6 +112,7 @@ def main():
                 y[idx].reshape(tau, gb),
             )
         loss = float(m["loss"])
+        losses.append(loss)
         if first is None:
             first = loss
         last = loss
@@ -124,6 +144,7 @@ def main():
                     "first_loss": first,
                     "last_loss": last,
                     "ckpt_roundtrip": ckpt_roundtrip,
+                    "losses": losses,
                 },
                 f,
             )

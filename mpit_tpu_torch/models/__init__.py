@@ -4,8 +4,8 @@ and ResNet-50 (ImageNet), the LSTM LM and the transformer LM (PTB), and
 the serving tier: the decoding recipes (``generate``, ``generate_fast``,
 ``generate_batch``, ``beam_search``, ``generate_rnn``, the speculative
 pair) and the continuous-batching ``Server`` and ``RNNServer``.
-Counterpart of ``mpit_tpu/models/__init__.py`` (``generate_tp`` waits for
-tensor parallelism, ROADMAP.md item A11)."""
+Counterpart of ``mpit_tpu/models/__init__.py``, with ``generate_tp`` under
+a tensor-parallel split."""
 
 from mpit_tpu_torch.models.lenet import LeNet  # noqa: F401
 from mpit_tpu_torch.models.mlp import MLP  # noqa: F401
@@ -14,6 +14,7 @@ from mpit_tpu_torch.models.sampling import (  # noqa: F401
     generate,
     generate_batch,
     generate_fast,
+    generate_tp,
 )
 from mpit_tpu_torch.models.rnn_sampling import generate_rnn  # noqa: F401
 from mpit_tpu_torch.models.serving import RNNServer, Server  # noqa: F401

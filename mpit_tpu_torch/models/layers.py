@@ -345,19 +345,20 @@ def params_tree(module: nn.Module) -> dict:
     return tree
 
 
-def rematerialized(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``module(x)`` with its activations recomputed on the backward pass
-    (``torch.utils.checkpoint``, non-reentrant), flax's ``nn.remat``.
-    The tensors the module holds now are passed to the checkpoint
-    explicitly: inside :meth:`Model.apply` they are the caller's params,
-    swapped in only while the forward runs, and a recompute that read the
-    module's attributes later would use others."""
+def rematerialized(module: nn.Module, x: torch.Tensor, **kwargs):
+    """``module(x, **kwargs)`` with its activations recomputed on the
+    backward pass (``torch.utils.checkpoint``, non-reentrant), flax's
+    ``nn.remat``. The tensors the module holds now are passed to the
+    checkpoint explicitly: inside :meth:`Model.apply` they are the caller's
+    params, swapped in only while the forward runs, and a recompute that
+    read the module's attributes later would use others."""
     from torch.utils.checkpoint import checkpoint
 
     names, tensors = zip(*module.named_parameters())
 
     def run(x, *tensors):
-        return torch.func.functional_call(module, dict(zip(names, tensors)), (x,))
+        return torch.func.functional_call(module, dict(zip(names, tensors)), (x,),
+                                          kwargs)
 
     return checkpoint(run, x, *tensors, use_reentrant=False)
 

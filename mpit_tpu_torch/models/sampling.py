@@ -1,6 +1,5 @@
 """Autoregressive decoding for :class:`TransformerLM`; counterpart of
-``mpit_tpu/models/sampling.py`` (all of it but ``generate_tp``, which waits
-for tensor parallelism, ROADMAP.md item A11).
+``mpit_tpu/models/sampling.py``.
 
 Two recipes with the same sampling semantics:
 
@@ -12,6 +11,11 @@ Two recipes with the same sampling semantics:
   — the serving recipe: a decode-mode clone with an explicit K/V cache
   tree; each row's whole prompt enters the cache as one ``head=False``
   chunk (:func:`_prefill_chunk`), then every generated token is one tick.
+- :func:`generate_tp` — :func:`generate_batch` under the Megatron split of
+  a ``tp`` axis: the params and the head-sharded K/V cache stay whole, and
+  the row-parallel products sum their shards in order (``parallel/
+  tensor.py``), so its tokens are ``generate_batch``'s up to the order of
+  those sums.
 
 What the reference compiles, the port runs eagerly, but the decisions that
 shape the results are the reference's: the power-of-two buckets of the
@@ -458,6 +462,52 @@ def generate_batch(
         model, params, prompts, steps, temperature, seed, rng,
         top_k, top_p, weights_dtype=weights_dtype, eos_id=eos_id,
         min_p=min_p, device=device,
+    )
+
+
+@torch.no_grad()
+def generate_tp(
+    model,
+    params,
+    prompts: "Sequence[Sequence[int]]",
+    steps: int,
+    topo=None,
+    temperature: float = 0.0,
+    seed: int = 0,
+    rng=None,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    weights_dtype=None,
+    eos_id: Optional[int] = None,
+    min_p: Optional[float] = None,
+    device=None,
+) -> "list[list]":
+    """Tensor-parallel batched decode (``mpit_tpu/models/sampling.py:799``):
+    :func:`generate_batch`'s loop, same key streams, under the Megatron
+    split of ``topo``'s ``tp`` axis (default: the current topology).
+    ``num_heads`` (and d_model, d_ff) must divide by the tp extent; the
+    params must match the strict rule table (``tp_state_specs``). The
+    params and the K/V cache (head-sharded over tp in the reference) stay
+    whole; the row-parallel products (the attention output and the MLP
+    down projection) sum their tp shards in order, as GSPMD's psum does,
+    each through ``matmul_rows`` (the decode path's fixed row blocks). Runs
+    on ``device``, else the topology's device."""
+    from mpit_tpu_torch.comm.topology import topology as _current_topology
+    from mpit_tpu_torch.parallel.tensor import check_tp_divisibility, tp_state_specs
+
+    topo = topo if topo is not None else _current_topology()
+    if "tp" not in topo.axis_names:
+        raise ValueError(
+            f"generate_tp needs a mesh with a 'tp' axis; got "
+            f"{topo.axis_names}"
+        )
+    tp = topo.mesh_shape[topo.axis_names.index("tp")]
+    check_tp_divisibility(model, tp)
+    tp_state_specs(params)
+    return _batch_impl(
+        model.clone(tp=tp), params, prompts, steps, temperature, seed, rng,
+        top_k, top_p, weights_dtype=weights_dtype, eos_id=eos_id, min_p=min_p,
+        device=device if device is not None else topo.device,
     )
 
 

@@ -32,8 +32,27 @@ the trainers then take the gradient with ``torch.autograd.grad``
 
 Parameter names are flax's: ``Embed_0``, ``pos_embedding``,
 ``Block_i/{LayerNorm_0, Dense_0, Dense_1, LayerNorm_1, Dense_2, Dense_3}``,
-``LayerNorm_0``, with or without remat. The MoE FFN is not ported yet and
-raises.
+``LayerNorm_0``, with or without remat.
+
+The MoE FFN (``moe_experts > 0``, the reference's ``Block._moe``) replaces
+``Dense_2``/``Dense_3`` with the leaves ``moe_router`` ``(D, E)``,
+``moe_w_up`` ``(E, D, F)``, ``moe_b_up`` ``(E, F)``, ``moe_w_down`` ``(E,
+F, D)`` and ``moe_b_down`` ``(E, D)``. With ``moe_axis=None`` the block
+runs :func:`~mpit_tpu_torch.ops.moe.moe_ffn_dense_reference` on all the
+tokens; with ``moe_axis`` set (the expert-parallel trainer) the model takes
+the stacked workers ``(W, b, T)`` → ``(W, b, T, vocab)`` and each block runs
+:func:`~mpit_tpu_torch.ops.moe.moe_ffn`, each worker routing its own
+tokens. flax's ``sow("moe_losses")`` becomes an explicit return:
+``apply(params, x, with_aux=True)`` gives ``(logits, {"Block_i":
+{"balance", "zloss", "dropped_frac"}})``, and :func:`aggregate_moe_losses`
+averages it over the blocks.
+
+``tp`` (set by the tensor-parallel trainers and ``generate_tp`` through
+:meth:`TransformerLM.clone`): the params stay whole, and the row-parallel
+products of the Megatron split (``Dense_1`` and ``Dense_3``, whose kernels
+``parallel/tensor.py`` shards on their input dim) are computed as the sum,
+in shard order, of ``x[..., shard_i] @ kernel[shard_i]`` (the psum GSPMD
+inserts), the bias added after it. Every other product is one product.
 
 Decode mode (``decode=True``, the serving path of ``models/sampling.py``):
 the model takes a T-token chunk ``(B, T)`` and a cache tree and returns
@@ -73,7 +92,9 @@ from mpit_tpu_torch.models.layers import (
     ROW_BLOCK, Dense, Embed, LayerNorm, Model, matmul_rows, pad_rows, rematerialized,
     reset_children,
 )
+from mpit_tpu_torch.models.layers import lecun_normal_
 from mpit_tpu_torch.ops.flash_attention import flash_attention
+from mpit_tpu_torch.ops.moe import moe_ffn, moe_ffn_dense_reference
 from mpit_tpu_torch.ops.ring_attention import dense_attention, ring_attention
 from mpit_tpu_torch.ops.ulysses import ulysses_attention
 
@@ -81,38 +102,58 @@ ATTN_IMPLS = ("xla", "flash", "flash_force")
 SEQ_IMPLS = ("ring", "ulysses")
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to mpit_tpu_torch yet (ROADMAP.md, {item})"
-    )
+MOE_LEAVES = ("moe_router", "moe_w_up", "moe_b_up", "moe_w_down", "moe_b_down")
 
 
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, compute_dtype,
-                 attn_impl: str, device, seq_axis=None, seq_impl: str = "ring"):
+                 attn_impl: str, device, seq_axis=None, seq_impl: str = "ring",
+                 moe_experts: int = 0, moe_capacity_factor: float = 2.0,
+                 moe_top_k: int = 1):
         super().__init__()
         dt = compute_dtype
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor, self.moe_top_k = moe_capacity_factor, moe_top_k
         self.LayerNorm_0 = LayerNorm(d_model, dt, device)
         self.Dense_0 = Dense(d_model, 3 * d_model, dt, device, use_bias=False)
         self.Dense_1 = Dense(d_model, d_model, dt, device, use_bias=False)
         self.LayerNorm_1 = LayerNorm(d_model, dt, device)
-        self.Dense_2 = Dense(d_model, d_ff, dt, device)
-        self.Dense_3 = Dense(d_ff, d_model, dt, device)
+        if moe_experts:
+            e, f = moe_experts, d_ff
+            self.moe_router = nn.Parameter(torch.zeros(d_model, e, device=device))
+            self.moe_w_up = nn.Parameter(torch.zeros(e, d_model, f, device=device))
+            self.moe_b_up = nn.Parameter(torch.zeros(e, f, device=device))
+            self.moe_w_down = nn.Parameter(torch.zeros(e, f, d_model, device=device))
+            self.moe_b_down = nn.Parameter(torch.zeros(e, d_model, device=device))
+        else:
+            self.Dense_2 = Dense(d_model, d_ff, dt, device)
+            self.Dense_3 = Dense(d_ff, d_model, dt, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         reset_children(self, generator)
+        if self.moe_experts:
+            # lecun-normal router; the experts' dim is a batch axis of the
+            # init (fan_in = the kernel's input dim), as in the reference
+            lecun_normal_(self.moe_router, self.moe_router.shape[0], generator)
+            lecun_normal_(self.moe_w_up, self.moe_w_up.shape[1], generator)
+            lecun_normal_(self.moe_w_down, self.moe_w_down.shape[1], generator)
+            with torch.no_grad():
+                self.moe_b_up.zero_()
+                self.moe_b_down.zero_()
 
-    def forward(self, x, cache=None):
-        """``x`` is ``(B, T, d_model)``, or the stacked ring ``(sp, B, T_l,
-        d_model)`` with ``seq_axis`` set. With ``cache`` (this block's
+    def forward(self, x, cache=None, tp: int = 1, moe_axis=None):
+        """``x`` is ``(B, T, d_model)``, the stacked ring ``(sp, B, T_l,
+        d_model)`` with ``seq_axis`` set, or the stacked workers ``(W, b,
+        T, d_model)`` with ``moe_axis`` set. With ``cache`` (this block's
         ``cached_key``, ``cached_value``, ``cache_index`` for the first of
         ``x``'s rows; the rest are pad rows) the block runs a decode chunk,
-        writing the chunk's K/V into the cache in place."""
+        writing the chunk's K/V into the cache in place. An MoE block
+        returns ``(x, aux)``."""
         if cache is not None:
-            return self._decode(x, cache)
+            return self._decode(x, cache, tp)
         d_model, h = x.shape[-1], self.num_heads
         qkv = self.Dense_0(self.LayerNorm_0(x))
         q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
@@ -121,31 +162,65 @@ class Block(nn.Module):
             att = ulysses_attention(q, k, v, causal=True, axis_name=self.seq_axis)
         elif self.seq_axis is not None:
             att = ring_attention(q, k, v, causal=True)
-        elif self.attn_impl == "xla":
-            att = dense_attention(q, k, v, causal=True)
         else:
-            att = flash_attention(
-                q, k, v, causal=True,
-                use_kernel=True if self.attn_impl == "flash_force" else None,
-            )
-        x = x + self.Dense_1(att.reshape(x.shape))
-        y = F.gelu(self.Dense_2(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.Dense_3(y)
+            # the stacked workers (W, b, ...) attend as one batch of W·b rows
+            q, k, v = (a.reshape(-1, *a.shape[-3:]) for a in (q, k, v))
+            if self.attn_impl == "xla":
+                att = dense_attention(q, k, v, causal=True)
+            else:
+                att = flash_attention(
+                    q, k, v, causal=True,
+                    use_kernel=True if self.attn_impl == "flash_force" else None,
+                )
+        x = x + row_parallel(self.Dense_1, att.reshape(x.shape), tp)
+        y = self.LayerNorm_1(x)
+        if self.moe_experts:
+            out, aux = self._moe(y, moe_axis)
+            return x + out, aux
+        y = F.gelu(self.Dense_2(y), approximate="tanh")
+        return x + row_parallel(self.Dense_3, y, tp)
 
-    def _decode(self, x, cache):
+    def _moe(self, y, moe_axis):
+        """The GShard MoE FFN (``mpit_tpu.ops.moe``): the dense reference
+        over all of ``y``'s tokens when ``moe_axis`` is None, else the
+        expert-parallel op over the stacked workers. Returns ``(out, aux)``."""
+        params = {name.removeprefix("moe_"): getattr(self, name) for name in MOE_LEAVES}
+        kw = dict(capacity_factor=self.moe_capacity_factor, top_k=self.moe_top_k,
+                  with_aux=True)
+        if moe_axis is not None:
+            return moe_ffn(params, y, axis=moe_axis, **kw)
+        return moe_ffn_dense_reference(params, y, **kw)
+
+    def _decode(self, x, cache, tp: int = 1):
         d_model, h = x.shape[-1], self.num_heads
         qkv = _dense(self.Dense_0, self.LayerNorm_0(x))
         q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
                    for a in qkv.split(d_model, -1))
         att = _cached_attention(q, k, v, cache)
-        x = x + _dense(self.Dense_1, att.reshape(x.shape))
+        x = x + row_parallel(self.Dense_1, att.reshape(x.shape), tp, matmul_rows)
         y = F.gelu(_dense(self.Dense_2, self.LayerNorm_1(x)), approximate="tanh")
-        return x + _dense(self.Dense_3, y)
+        return x + row_parallel(self.Dense_3, y, tp, matmul_rows)
 
 
 def _dense(layer: Dense, x):
     """``layer(x)`` with its product through :func:`matmul_rows`."""
     y = matmul_rows(x, layer.kernel.to(layer.dtype))
+    return y if layer.bias is None else y + layer.bias.to(layer.dtype)
+
+
+def row_parallel(layer: Dense, x, tp: int, matmul=torch.matmul):
+    """``layer(x)`` as the tensor-parallel row split computes it: the sum in
+    shard order of ``x[..., shard_i] @ kernel[shard_i]`` over ``tp`` shards
+    of the kernel's input dim, then the bias (what GSPMD's psum gives).
+    ``tp = 1`` is one product."""
+    kernel = layer.kernel.to(layer.dtype)
+    if tp == 1:
+        y = matmul(x, kernel)
+    else:
+        n = kernel.shape[0] // tp
+        y = matmul(x[..., :n], kernel[:n])
+        for i in range(1, tp):
+            y = y + matmul(x[..., i * n:(i + 1) * n], kernel[i * n:(i + 1) * n])
     return y if layer.bias is None else y + layer.bias.to(layer.dtype)
 
 
@@ -191,7 +266,8 @@ def _cache_rows(cache, start: int, stop: int) -> dict:
 class TransformerLM(Model):
     """Next-token LM over ``(B, T)`` integer tokens → f32 logits
     ``(B, T, vocab_size)``; with ``seq_axis`` set, over the stacked ring
-    ``(sp, B, T_l)`` → ``(sp, B, T_l, vocab_size)``."""
+    ``(sp, B, T_l)`` → ``(sp, B, T_l, vocab_size)``; with ``moe_axis`` set,
+    over the stacked workers ``(W, b, T)`` → ``(W, b, T, vocab_size)``."""
 
     def __init__(
         self,
@@ -205,11 +281,17 @@ class TransformerLM(Model):
         seq_axis=None,
         remat: bool = False,
         moe_experts: int = 0,
+        moe_axis=None,
+        moe_capacity_factor: float = 2.0,
+        moe_top_k: int = 1,
+        moe_balance_weight: float = 0.0,
+        moe_zloss_weight: float = 0.0,
         attn_impl: str = "xla",
         seq_impl: str = "ring",
         decode: bool = False,
         head: bool = True,
         head_dtype=None,
+        tp: int = 1,
         device=None,
     ):
         super().__init__()
@@ -217,8 +299,6 @@ class TransformerLM(Model):
             raise ValueError(
                 f"seq_impl={seq_impl!r} must be 'ring' or 'ulysses'"
             )
-        if moe_experts:
-            raise _not_ported("the MoE FFN (moe_experts)", "item A11")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}; have {ATTN_IMPLS}")
         if d_model % num_heads:
@@ -235,14 +315,20 @@ class TransformerLM(Model):
         self.attn_impl = attn_impl
         self.seq_axis, self.seq_impl = seq_axis, seq_impl
         self.remat = remat
+        self.moe_experts, self.moe_axis = moe_experts, moe_axis
+        self.moe_capacity_factor, self.moe_top_k = moe_capacity_factor, moe_top_k
+        self.moe_balance_weight = moe_balance_weight
+        self.moe_zloss_weight = moe_zloss_weight
         self.decode, self.head, self.head_dtype = decode, head, head_dtype
+        self.tp = tp
         self._check_settings()
         self.Embed_0 = Embed(vocab_size, d_model, dt, device)
         self.pos_embedding = nn.Parameter(torch.zeros(max_len, d_model, device=device))
         for i in range(num_layers):
             setattr(self, f"Block_{i}",
                     Block(d_model, num_heads, self.d_ff, dt, attn_impl, device,
-                          seq_axis, seq_impl))
+                          seq_axis, seq_impl, moe_experts, moe_capacity_factor,
+                          moe_top_k))
         self.LayerNorm_0 = LayerNorm(d_model, dt, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -251,11 +337,21 @@ class TransformerLM(Model):
         with torch.no_grad():
             self.pos_embedding.copy_(draw * 0.02)
 
-    _CLONE_FIELDS = ("decode", "head", "head_dtype")
+    _CLONE_FIELDS = ("decode", "head", "head_dtype", "tp", "moe_axis")
 
     def _check_settings(self) -> None:
         if self.decode and self.seq_axis is not None:
             raise ValueError("decode mode requires seq_axis=None")
+        if self.decode and self.moe_experts:
+            raise ValueError(
+                "decode mode is single-device dense-FFN only "
+                "(seq_axis=None, moe_experts=0)"
+            )
+        if self.moe_axis is not None and self.seq_axis is not None:
+            raise ValueError(
+                "the port stacks one mesh axis on the model's input: "
+                "moe_axis and seq_axis cannot both be set"
+            )
 
     def init_cache(self, batch: int, device=None) -> dict:
         """A zero decode cache for ``batch`` rows (flax's initial ``cache``
@@ -292,7 +388,9 @@ class TransformerLM(Model):
                for blk in h.to(hdt).float().split(ROW_BLOCK)]
         return out[0] if len(out) == 1 else torch.cat(out)
 
-    def forward(self, tokens: torch.Tensor, cache=None):
+    def forward(self, tokens: torch.Tensor, cache=None, with_aux: bool = False):
+        """Logits; with ``with_aux`` (an MoE model) ``(logits, {"Block_i":
+        aux})``, the reference's ``moe_losses`` collection."""
         if self.decode:
             if cache is None:
                 raise ValueError("a decode model takes a cache (init_cache)")
@@ -309,15 +407,19 @@ class TransformerLM(Model):
             # block r of the ring holds global positions [r·T_l, (r+1)·T_l)
             pos = pos.reshape(sp, 1, t_local, -1)
         x = self.Embed_0(tokens) + pos.to(self.compute_dtype)
+        kw = dict(tp=self.tp, moe_axis=self.moe_axis)
+        aux = {}
         for i in range(self.num_layers):
             block = getattr(self, f"Block_{i}")
-            x = rematerialized(block, x) if self.remat else block(x)
+            x = rematerialized(block, x, **kw) if self.remat else block(x, **kw)
+            if self.moe_experts:
+                x, aux[f"Block_{i}"] = x
         x = self.LayerNorm_0(x)
-        if not self.head:
-            return x
-        hdt = self._head_operand_dtype
-        table = self.Embed_0.embedding.to(hdt).float()
-        return torch.matmul(x.to(hdt).float(), table.t())
+        if self.head:
+            hdt = self._head_operand_dtype
+            table = self.Embed_0.embedding.to(hdt).float()
+            x = torch.matmul(x.to(hdt).float(), table.t())
+        return (x, aux) if with_aux else x
 
     def _decode(self, tokens, cache):
         """One decode chunk: ``(B, T)`` tokens at each row's ``pos_index``
@@ -350,10 +452,21 @@ class TransformerLM(Model):
              + self.pos_embedding[pos].to(self.compute_dtype))
         for i in range(self.num_layers):
             name = f"Block_{i}"
-            x = getattr(self, name)(x, cache[name])
+            x = getattr(self, name)(x, cache[name], tp=self.tp)
         x = self.LayerNorm_0(x)
         if self.head:
             hdt = self._head_operand_dtype
             table = self.Embed_0.embedding.to(hdt).float()
             x = matmul_rows(x.to(hdt).float(), table.t())
         return x[:n]
+
+
+def aggregate_moe_losses(collection: dict) -> dict:
+    """Mean each MoE stat over the blocks that returned it: ``{"Block_i":
+    {name: scalar}}`` (``apply(..., with_aux=True)``'s second output) →
+    ``{name: scalar}``."""
+    per_name: dict = {}
+    for block_vals in collection.values():
+        for name, val in block_vals.items():
+            per_name.setdefault(name, []).append(val)
+    return {name: sum(vals) / len(vals) for name, vals in per_name.items()}

@@ -158,17 +158,50 @@ def check_clip_norm(clip_norm):
     return clip_norm
 
 
-def clip_by_global_norm_in_mesh(chunks: torch.Tensor, max_norm: float):
-    """Global-norm clipping of a flat gradient held as stacked chunks
-    ``(W_local, chunk)`` (``mpit_tpu/parallel/common.py:119``): each
-    worker's chunk sum of squares, summed over the workers (and across
-    processes) as the reference's ``psum`` sums them, is the norm of the
-    whole vector; the scale is ``max_norm / norm`` above ``max_norm``.
-    Returns ``(clipped chunks, norm)``."""
+def clip_by_global_norm_in_mesh(grads, max_norm: float, axis: Optional[str] = None,
+                                is_sharded: Optional[Callable] = None):
+    """Global-norm clipping whose norm is the whole model's
+    (``mpit_tpu/parallel/common.py:119``). Returns ``(clipped, norm)``.
+
+    Tree form (``grads`` a tree): leaves for which ``is_sharded(path)``
+    holds (``path`` the tuple of the leaf's keys) are this process's share
+    of a leaf sharded over ``axis`` (expert shards, pipeline stages): their
+    sums of squares are summed across the world's processes, as the
+    reference's ``psum`` sums them; every other leaf is replicated and
+    counts once. ``is_sharded=None`` treats every leaf as sharded. The
+    scale is ``max_norm / norm`` above ``max_norm``, multiplied in.
+
+    Chunk form (``grads`` a tensor, ZeRO's flat gradient held as stacked
+    chunks ``(W_local, chunk)``): each worker's chunk sum of squares,
+    summed over the workers and across processes, is the norm of the whole
+    vector."""
+    if not isinstance(grads, torch.Tensor):
+        return _clip_tree_in_mesh(grads, max_norm, is_sharded)
+    chunks = grads
     sq = world_sum(chunks.to(torch.float32).square().sum(1))
     norm = sq.sqrt()
     scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
     return (chunks * scale).to(chunks.dtype), norm
+
+
+def _clip_tree_in_mesh(grads, max_norm: float, is_sharded):
+    from mpit_tpu_torch.utils.params import tree_leaves_with_path
+
+    leaves = tree_leaves_with_path(grads)
+    if not leaves:
+        return grads, torch.zeros(())
+    dev = leaves[0][1].device
+    shard_sq = torch.zeros((), dtype=torch.float32, device=dev)
+    repl_sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for path, g in leaves:
+        sq = g.to(torch.float32).square().sum()
+        if is_sharded is None or is_sharded(path):
+            shard_sq = shard_sq + sq
+        else:
+            repl_sq = repl_sq + sq
+    norm = torch.sqrt(world_sum(shard_sq[None]) + repl_sq)
+    scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
 def accumulated_value_and_grad(loss_fn: Callable, accum: int,

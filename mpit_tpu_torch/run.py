@@ -14,6 +14,9 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   ``seq_impl``), each with SGD, Adam or AdamW under a constant, cosine or
   warmup-cosine schedule, and ``clip_norm``; ``remat`` on the transformer
   and ResNet-50;
+- ``moe-sync`` (the MoE transformer, experts sharded over the worker axis,
+  ``--moe-experts``) and ``pp-sync`` (the transformer's layers over a
+  ``(W/pp, pp)`` world, ``--pp-schedule gpipe | 1f1b | interleaved``);
 - ``ps-easgd``/``ps-eamsgd``/``ps-downpour``: the host-async parameter
   server, servers and clients as threads over the message plane
   ``transport`` names (``auto``: the C++ broker where it builds;
@@ -26,9 +29,8 @@ Counterpart of ``mpit_tpu/run.py`` for the algos and models the port has:
   package's files, and a resumed run re-enters the same data order;
   ``profile_dir``: a ``torch.profiler`` trace of the loop.
 
-Everything else raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it. Flags that do not apply to the chosen algo or model warn,
-with the reference's wording, as the reference does.
+Flags that do not apply to the chosen algo or model warn, with the
+reference's wording, as the reference does.
 
     python -m mpit_tpu_torch.run --preset mnist-easgd
     python -m mpit_tpu_torch.run --preset cifar-vgg-sync
@@ -39,13 +41,16 @@ with the reference's wording, as the reference does.
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --sp 4 --seq-impl ulysses
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo sync --attn-impl flash --remat
     python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo zero-sync --attn-impl flash
+    python -m mpit_tpu_torch.run --preset ptb-transformer-large --algo moe-sync --moe-experts 8 --attn-impl flash
+    python -m mpit_tpu_torch.run --preset ptb-transformer-pp --pp-schedule 1f1b
     MPIT_DP_QUANT=int8 python -m mpit_tpu_torch.run --preset resnet50-sync
     python -m mpit_tpu_torch.run --preset mnist-ps
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 1
     python -m mpit_tpu_torch.run --preset mnist-easgd --ckpt-dir ck --epochs 2 --resume
 
 run on the card, with W = 8 workers stacked on it (easgd, downpour) or
-sharing its global batch (sync; seq-sync as ``(W/sp, sp)``) unless the
+sharing its global batch (sync, moe-sync; seq-sync as ``(W/sp, sp)``,
+pp-sync as ``(W/pp, pp)``) unless the
 topology was initialized otherwise, or with ``clients`` client threads and
 ``servers`` server threads (ps-*), and print the results dict as one JSON
 line.
@@ -65,22 +70,21 @@ import torch
 from mpit_tpu_torch.models import REMAT_MODELS
 from mpit_tpu_torch.utils.config import TrainConfig
 
-_ALGOS = ("easgd", "downpour", "sync", "zero-sync", "seq-sync", "ps-easgd",
-          "ps-downpour")
-# the per-step (no τ-round) algos the port has
-SYNC_ALGOS = ("sync", "zero-sync", "seq-sync")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to mpit_tpu_torch yet (ROADMAP.md, {item})"
-    )
+_ALGOS = ("easgd", "downpour", "sync", "zero-sync", "seq-sync", "moe-sync",
+          "pp-sync", "ps-easgd", "ps-downpour")
+# the per-step (no τ-round) algos
+SYNC_ALGOS = ("sync", "zero-sync", "seq-sync", "moe-sync", "pp-sync")
+# the algos whose trainer takes clip_norm itself (its update runs on
+# device-varying gradients in the reference, where the chain is refused)
+TRAINER_CLIPS = ("moe-sync", "zero-sync", "pp-sync")
+# algo -> (second mesh axis, the config field of its extent)
+SECOND_AXIS = {"seq-sync": ("sp", "sp"), "pp-sync": ("pp", "pp")}
 
 
 def _check_supported(cfg: TrainConfig) -> None:
     algo = cfg.resolved_algo()
     if algo not in _ALGOS:
-        raise _not_ported(f"algo={cfg.algo!r}", "item A11")
+        raise ValueError(f"unknown algo {cfg.algo!r}")
     if cfg.optimizer not in ("sgd", "adam", "adamw"):
         raise ValueError(
             f"unknown optimizer {cfg.optimizer!r}; have: sgd, adam, adamw"
@@ -192,6 +196,19 @@ def build_model(cfg: TrainConfig, device, meta: dict | None = None):
             remat=cfg.remat,
             attn_impl=cfg.attn_impl,
             device=device,
+            # moe-sync shards the experts over the worker axis
+            **(
+                {
+                    "moe_experts": cfg.moe_experts,
+                    "moe_axis": "dp",
+                    "moe_capacity_factor": cfg.moe_capacity_factor,
+                    "moe_top_k": cfg.moe_top_k,
+                    "moe_balance_weight": cfg.moe_balance_weight,
+                    "moe_zloss_weight": cfg.moe_zloss_weight,
+                }
+                if algo == "moe-sync"
+                else {}
+            ),
         )
     if name in ("lstm", "lstm_lm", "ptb_lstm"):
         return get_model(cfg.model, vocab_size=meta.get("vocab_size", 10_000),
@@ -213,8 +230,9 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
     decays over ``total_updates``. With ``clip_norm`` the clip is chained in
     front: under easgd, downpour and ps-* each worker clips its own local
     gradient (the reference's "async semantics"), under sync the reduced
-    one. zero-sync takes ``clip_norm`` in its trainer instead (its update
-    runs on chunks, where the chain is refused)."""
+    one. zero-sync, moe-sync and pp-sync take ``clip_norm`` in their
+    trainers instead (:data:`TRAINER_CLIPS`: the reference's update runs on
+    chunks, expert shards or stages there, where the chain is refused)."""
     from mpit_tpu_torch import optim
 
     _check_supported(cfg)
@@ -237,7 +255,7 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
         opt = optim.Adam(lr)
     else:
         opt = optim.AdamW(lr, weight_decay=cfg.weight_decay)
-    if cfg.clip_norm is not None and cfg.resolved_algo() != "zero-sync":
+    if cfg.clip_norm is not None and cfg.resolved_algo() not in TRAINER_CLIPS:
         opt = optim.chain(optim.clip_by_global_norm(cfg.clip_norm), opt)
     return opt
 
@@ -246,8 +264,8 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     """The trainer for ``cfg.algo`` (the kernels on by default for CUDA
     tensors)."""
     from mpit_tpu_torch.parallel import (
-        DataParallelTrainer, DownpourTrainer, EASGDTrainer, SeqParallelTrainer,
-        ZeroDataParallelTrainer,
+        DataParallelTrainer, DownpourTrainer, EASGDTrainer, MoEParallelTrainer,
+        SeqParallelTrainer, ZeroDataParallelTrainer,
     )
 
     _check_supported(cfg)
@@ -273,6 +291,15 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
                                        clip_norm=cfg.clip_norm)
     if algo == "seq-sync":
         return SeqParallelTrainer(model, opt, topo)
+    if algo == "moe-sync":
+        if not cfg.moe_experts:
+            raise ValueError(
+                "algo='moe-sync' needs --moe-experts > 0 (and model="
+                "transformer)"
+            )
+        return MoEParallelTrainer(model, opt, topo, clip_norm=cfg.clip_norm)
+    if algo == "pp-sync":
+        return _pipeline_trainer(cfg, model, opt, topo)
     if algo == "downpour":
         return DownpourTrainer(model, opt, topo, tau=cfg.tau,
                                staleness=cfg.staleness)
@@ -282,28 +309,67 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
     )
 
 
+def _pipeline_trainer(cfg: TrainConfig, model, opt, topo):
+    """pp-sync's trainer (``mpit_tpu/run.py:279-320``): the pipeline builds
+    its own f32 dense-attention stacked-layer params, its shapes read off
+    the transformer ``build_model`` made; it takes the optimizer every algo
+    gets (elementwise, probed) and ``clip_norm``."""
+    from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
+
+    if cfg.model.lower() != "transformer":
+        raise ValueError(
+            "algo='pp-sync' is transformer-only (the pipeline stages "
+            f"a transformer layer stack); got model={cfg.model!r}"
+        )
+    ignored = [f for f, on in (("attn_impl", cfg.attn_impl != "xla"),
+                               ("remat", cfg.remat)) if on]
+    if ignored:
+        warnings.warn(
+            f"pp-sync builds its own f32 dense-attention pipeline model; "
+            f"{ignored} do not apply and are ignored",
+            stacklevel=3,
+        )
+    return PipelineParallelTrainer(
+        vocab_size=model.vocab_size, num_layers=model.num_layers,
+        d_model=model.d_model, num_heads=model.num_heads, seq_len=model.max_len,
+        d_ff=model.d_ff, topo=topo, n_micro=cfg.n_micro, optimizer=opt,
+        clip_norm=cfg.clip_norm, schedule=cfg.pp_schedule, virtual=cfg.pp_virtual,
+    )
+
+
 def _world_for(cfg: TrainConfig, topo):
     """The world ``cfg`` needs over ``topo``'s stacked workers
     (``mpit_tpu/run.py:324-360``): seq-sync a 2-D ``(W/sp, sp)`` mesh over
-    ``("dp", "sp")``, everything else the 1-D worker mesh."""
+    ``("dp", "sp")``, pp-sync ``(W/pp, pp)`` over ``("dp", "pp")``,
+    everything else the 1-D worker mesh."""
     n = topo.num_workers
-    if cfg.resolved_algo() != "seq-sync":
+    algo = cfg.resolved_algo()
+    if algo not in SECOND_AXIS:
         return dataclasses.replace(topo, axis_names=("dp",), mesh_shape=(n,))
-    if n % cfg.sp:
-        raise ValueError(f"sp={cfg.sp} does not divide the {n} available workers")
-    return dataclasses.replace(topo, axis_names=("dp", "sp"),
-                               mesh_shape=(n // cfg.sp, cfg.sp))
+    ax, field = SECOND_AXIS[algo]
+    extent = getattr(cfg, field)
+    if n % extent:
+        raise ValueError(f"{ax}={extent} does not divide the {n} available workers")
+    return dataclasses.replace(topo, axis_names=("dp", ax),
+                               mesh_shape=(n // extent, extent))
 
 
 def _check_resume_layout(cfg: TrainConfig) -> None:
     """Refuse a resume whose checkpoint was written with another
-    optimizer-state structure (``mpit_tpu/run.py:384-416``): the optimizer
+    optimizer-state structure (``mpit_tpu/run.py:365-470``): the optimizer
     (Adam's moments or SGD's trace), a schedule or not (a count leaf or
     none) and clip_norm or not (the chain's tuple grows) change the
     layout; restoring across them would fail deep in the restore with an
     opaque structure error, so say it here. Value-only changes (lr, the
     clip threshold, cosine against warmup-cosine, momentum: a trace is kept
-    for any float, 0.0 included) keep the layout and resume."""
+    for any float, 0.0 included) keep the layout and resume.
+
+    pp-sync's params carry a LAYOUT as well: the pre-optax ``{params,
+    momentum, step}`` state is refused, and so are another ``layers``,
+    another schedule (unless both are gpipe/1f1b, which store alike) and,
+    under interleaving, another ``pp`` or ``pp_virtual`` (the chunk storage
+    permutation): shapes match, so a restore would load layers in the
+    wrong order with no error."""
     from mpit_tpu_torch.utils.checkpoint import latest_checkpoint
 
     step = latest_checkpoint(cfg.ckpt_dir)
@@ -317,7 +383,7 @@ def _check_resume_layout(cfg: TrainConfig) -> None:
     if saved.get("algo") != cfg.algo:
         return  # a restore across algos fails on the structure already
 
-    clip_chained = cfg.resolved_algo() != "zero-sync"  # its trainer clips
+    clip_chained = cfg.resolved_algo() not in TRAINER_CLIPS  # they clip
 
     def structure_of(opt, sched, clip):
         return {"optimizer": opt, "lr_is_schedule": sched != "constant",
@@ -338,6 +404,54 @@ def _check_resume_layout(cfg: TrainConfig) -> None:
             f"{diff} (saved, requested) — restore with the original "
             "optimizer/lr_schedule/clip_norm configuration or start fresh"
         )
+    if cfg.algo != "pp-sync":
+        return
+    _check_pipeline_layout(cfg, saved, step)
+
+
+def _check_pipeline_layout(cfg: TrainConfig, saved: dict, step: int) -> None:
+    """pp-sync's layout checks of :func:`_check_resume_layout`."""
+    from mpit_tpu_torch.utils.checkpoint import _ckpt_path, msgpack_restore
+
+    try:
+        with open(_ckpt_path(cfg.ckpt_dir, step), "rb") as f:
+            keys = set(msgpack_restore(f.read()))
+    except Exception:
+        keys = None
+    if keys is not None and "momentum" in keys and "opt_state" not in keys:
+        raise ValueError(
+            f"checkpoint step {step} in {cfg.ckpt_dir} stores the "
+            "pre-optax pipeline state layout {params, momentum, step}; "
+            "the current pp-sync trainer keeps {params, opt_state, "
+            "step}. Restart training (or restore with an old build) — "
+            "resuming across this layout change is not supported."
+        )
+    # only interleaving permutes storage: under gpipe/1f1b the stacked
+    # layers are in global order, and a gpipe<->1f1b flip stores alike
+    fields = ["layers", "pp_schedule"]
+    if "interleaved" in (saved.get("pp_schedule"), cfg.pp_schedule):
+        fields += ["pp", "pp_virtual"]
+    mismatched = {
+        f: (saved.get(f), getattr(cfg, f))
+        for f in fields
+        if f in saved and saved.get(f) != getattr(cfg, f)
+    }
+    if set(mismatched) == {"pp_schedule"} and "interleaved" not in (
+        saved.get("pp_schedule"), cfg.pp_schedule
+    ):
+        return
+    if mismatched:
+        raise ValueError(
+            f"resume layout mismatch: checkpoint in {cfg.ckpt_dir!r} was "
+            f"written with {mismatched} (saved, requested) — the pipeline "
+            "param/opt-state layout depends on these; restore with the "
+            "original config or start fresh"
+        )
+
+
+def _params_of(state):
+    """A sync trainer state's params (pp-sync's state is a dict)."""
+    return state["params"] if isinstance(state, dict) else state.params
 
 
 def deterministic_convolutions() -> None:
@@ -449,7 +563,7 @@ def run(cfg: TrainConfig, device=None) -> dict:
                 skip_rounds=skip_units, on_round=on_unit, prefetch=cfg.prefetch)
         if metrics is not None:
             force_completion(trainer.center_params(state) if not is_sync
-                             else state.params, metrics)
+                             else _params_of(state), metrics)
     wall = time.perf_counter() - t_start
     trained = unit - start_unit
     samples = trained * tau * gb
@@ -462,8 +576,10 @@ def run(cfg: TrainConfig, device=None) -> dict:
         results["eval_loss"] = eval_loss
     else:
         acc = trainer.evaluate(state, x_te, y_te)
-    if cfg.dataset == "ptb" and cfg.resolved_algo() != "seq-sync":
-        # eval counts correct *tokens* per window; seq-sync's per token
+    if cfg.dataset == "ptb" and cfg.resolved_algo() not in (
+            "seq-sync", "moe-sync", "pp-sync"):
+        # eval counts correct *tokens* per window; the seq/moe/pp-sync
+        # trainers count per token themselves
         acc = acc / cfg.seq_len
     results.update(
         accuracy=acc,
@@ -594,7 +710,8 @@ def main(argv=None) -> None:
         "resnet50-sync, --preset ptb-lstm-easgd, --preset alexnet-downpour, "
         "--preset ptb-transformer-large (--sp 4, --seq-impl ulysses, "
         "--remat), --preset ptb-transformer-large --algo sync|zero-sync "
-        "--attn-impl flash, or --preset mnist-ps)",
+        "--attn-impl flash, --algo moe-sync --moe-experts 8, --preset "
+        "ptb-transformer-pp --pp-schedule 1f1b, or --preset mnist-ps)",
     )
     print(json.dumps(run(cfg), default=repr))
 

@@ -31,6 +31,18 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> list:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order; a path is the
+    tuple of dict keys and sequence indices from the root."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in tree_leaves_with_path(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, t in enumerate(tree) for pl in tree_leaves_with_path(t, path + (i,))]
+    return [(path, tree)]
+
+
 def tree_unflatten(template: Any, leaves: list) -> Any:
     """A tree shaped like ``template`` with ``leaves`` in leaf order."""
     it = iter(leaves)

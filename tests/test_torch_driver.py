@@ -8,6 +8,7 @@ All on the CPU; the JAX side on the 8-device CPU mesh (``topo8``)."""
 import dataclasses
 import json
 import os
+import shutil
 
 import flax.serialization
 import jax
@@ -251,3 +252,100 @@ def test_run_takes_every_optimizer_under_every_schedule_with_clip_and_checkpoint
     assert np.isfinite(r["round_losses"]).all()
     again = _port_run(dataclasses.replace(cfg, epochs=2, resume=True))
     assert again["resumed_from"] == r["trained_units"] == again["trained_units"]
+
+
+# -------------------------------------------- moe-sync and pp-sync (A11)
+
+# the bf16 trajectory tolerance of tests/test_torch_seq.py
+BF16_TRAJ_TOL = dict(rtol=0, atol=5e-3)
+
+
+def test_run_moe_sync_resumes_the_references_checkpoint(tmp_path):
+    """``run()`` of ``--algo moe-sync`` as ``tests/test_run_presets.py:84``
+    runs it (16 experts over the 8 workers, bf16): the reference trains the
+    first epoch and checkpoints; both packages resume from copies for the
+    second. The reference's keys and counts; losses and params within the
+    bf16 trajectory tolerance."""
+    from mpit_tpu.run import run as ref_run
+    from mpit_tpu_torch.run import run as port_run
+
+    base = dataclasses.replace(
+        TrainConfig().apply_preset("ptb-transformer-seq"), algo="moe-sync",
+        moe_experts=16, moe_capacity_factor=8.0, train_size=32, global_batch=8, seq_len=32)
+    ref_run(dataclasses.replace(base, epochs=1, ckpt_dir=str(tmp_path / "first")))
+    for name in ("ref", "port"):
+        shutil.copytree(tmp_path / "first", tmp_path / name)
+    resumed = dataclasses.replace(base, epochs=2, resume=True)
+    r = ref_run(dataclasses.replace(resumed, ckpt_dir=str(tmp_path / "ref")))
+    p = port_run(dataclasses.replace(resumed, ckpt_dir=str(tmp_path / "port")), device="cpu")
+    assert set(r) <= set(p)
+    for key in ("workers", "trained_units", "samples", "resumed_from", "last_checkpoint"):
+        assert p[key] == r[key], key
+    assert p["workers"] == 8 and p["trained_units"] == 4
+    for key in ("final_loss", "eval_loss", "accuracy"):
+        np.testing.assert_allclose(p[key], r[key], **BF16_TRAJ_TOL, err_msg=key)
+    want, got = (ckpt.msgpack_restore(open(tmp_path / d / "ckpt_00000008.msgpack",
+                                           "rb").read()) for d in ("ref", "port"))
+    for a, b in zip(jax.tree.leaves(want["params"]), jax.tree.leaves(got["params"]),
+                    strict=True):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), **BF16_TRAJ_TOL)
+    with pytest.raises(ValueError, match="moe-experts"):
+        port_run(dataclasses.replace(base, moe_experts=0), device="cpu")
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
+def test_run_pp_sync_matches_the_reference(schedule, tmp_path):
+    """``run()`` of the ``ptb-transformer-pp`` preset as
+    ``tests/test_run_presets.py:67`` runs it (a (2, 4) world: pp 4, 4
+    layers, 2 microbatches; interleaved at pp 2 with 2 virtual chunks, a
+    (4, 2) world), f32: the reference trains the first epoch and
+    checkpoints, both packages resume from copies for the second; the
+    reference's keys and counts (``workers`` the dp extent), and losses,
+    evaluation and params within 1e-5."""
+    from mpit_tpu.run import run as ref_run
+    from mpit_tpu_torch.run import run as port_run
+
+    over = dict(pp=4) if schedule != "interleaved" else dict(pp=2, pp_virtual=2)
+    base = _cfg("ptb-transformer-pp", layers=4, n_micro=2, train_size=64, global_batch=16,
+                seq_len=32, pp_schedule=schedule, **over)
+    ref_run(dataclasses.replace(base, epochs=1, ckpt_dir=str(tmp_path / "first")))
+    for name in ("ref", "port"):
+        shutil.copytree(tmp_path / "first", tmp_path / name)
+    resumed = dataclasses.replace(base, epochs=2, resume=True)
+    r = ref_run(dataclasses.replace(resumed, ckpt_dir=str(tmp_path / "ref")))
+    p = port_run(dataclasses.replace(resumed, ckpt_dir=str(tmp_path / "port")), device="cpu")
+    assert set(r) <= set(p)
+    for key in ("workers", "trained_units", "samples", "resumed_from", "last_checkpoint"):
+        assert p[key] == r[key], key
+    assert p["workers"] == 8 // base.pp and p["trained_units"] == 4
+    for key in ("final_loss", "eval_loss", "accuracy"):
+        np.testing.assert_allclose(p[key], r[key], rtol=1e-5, atol=1e-6, err_msg=key)
+    want, got = (ckpt.msgpack_restore(open(tmp_path / d / "ckpt_00000008.msgpack",
+                                           "rb").read()) for d in ("ref", "port"))
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got), strict=True):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-5)
+
+
+def test_pp_sync_resume_layout_checks(tmp_path):
+    """``_check_resume_layout``'s pipeline checks
+    (``mpit_tpu/run.py:430-470``), in the reference's words: another
+    ``layers``, another schedule or, under interleaving, another
+    ``pp_virtual`` refuses the resume; gpipe <-> 1f1b (the same storage)
+    resumes; pp-sync refuses a LeNet (transformer-only)."""
+    go = _port_run
+    base = _cfg("ptb-transformer-pp", pp=2, layers=4, n_micro=2, train_size=32,
+                global_batch=16, seq_len=32, epochs=1, pp_schedule="interleaved",
+                pp_virtual=2, ckpt_dir=str(tmp_path / "ck"))
+    go(base)
+    resumed = dataclasses.replace(base, resume=True, epochs=2)
+    for change in (dict(layers=8), dict(pp_virtual=1), dict(pp_schedule="gpipe")):
+        with pytest.raises(ValueError, match="resume layout mismatch"):
+            go(dataclasses.replace(resumed, **change))
+    flip = dataclasses.replace(base, pp_schedule="gpipe", ckpt_dir=str(tmp_path / "g"))
+    go(flip)
+    r = go(dataclasses.replace(flip, resume=True, epochs=2, pp_schedule="1f1b"))
+    assert r["resumed_from"] == 2 and r["trained_units"] == 2
+    with pytest.raises(ValueError, match="transformer-only"):
+        go(_cfg("ptb-transformer-pp", model="lenet", dataset="mnist", train_size=32,
+                global_batch=8, epochs=1))
+

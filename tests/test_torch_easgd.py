@@ -129,9 +129,10 @@ def test_run_trains_preset_on_cpu():
     dict(lr_schedule="cosine"), dict(ckpt_dir="ckpt"), dict(profile_dir="prof"),
 ])
 def test_run_refuses_what_is_not_ported(change, tmp_path):
-    """moe-sync (item A11) raises naming the ROADMAP; zero-sync, which
-    raised until item A6 landed, trains the preset's LeNet by ZeRO-1 (8
-    steps of 64); run()'s flags of item A5b (Adam, a schedule,
+    """moe-sync, which raised until item A11 landed, refuses the preset's
+    LeNet without ``--moe-experts`` with the reference's ValueError;
+    zero-sync, which raised until item A6 landed, trains the preset's LeNet
+    by ZeRO-1 (8 steps of 64); run()'s flags of item A5b (Adam, a schedule,
     checkpoints, a profiler trace), which raised until A5b landed, now
     train under easgd."""
     from mpit_tpu_torch.run import run
@@ -139,7 +140,7 @@ def test_run_refuses_what_is_not_ported(change, tmp_path):
 
     cfg = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), **change)
     if change.get("algo") == "moe-sync":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="moe-experts"):
             run(cfg, device="cpu")
         return
     if "algo" in change:

@@ -251,3 +251,82 @@ def test_the_serving_tour_runs_on_the_cpu():
                        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-2000:]
     assert "speculative" in r.stdout and r.stdout.count("served") == 3
+
+
+# --------------------------------------------------------- tensor-parallel
+
+
+def _tp_world(shape):
+    from mpit_tpu_torch.comm.topology import Topology
+
+    return Topology(8, torch.device("cpu"), axis_names=("dp", "tp"), mesh_shape=shape)
+
+
+def _ref_tp_world(shape):
+    import mpit_tpu
+
+    mpit_tpu.finalize()
+    return mpit_tpu.init(axis_names=("dp", "tp"), mesh_shape=shape)
+
+
+def test_tp_decode_matches_plain(lm):
+    """``generate_tp`` under a (2, 4) dp × tp world: tokens equal to the
+    reference's ``generate_tp`` and to the port's ``generate_batch``,
+    greedy and sampled with a filter (``tests/test_generate.py:635``)."""
+    import mpit_tpu
+    from mpit_tpu.models import generate_tp as j_tp
+
+    from mpit_tpu_torch.models import generate_tp
+
+    jm, pm, params, tp = lm
+    topo = _ref_tp_world((2, 4))
+    prompts = [[3, 1, 4, 1, 5], [2], [7, 7, 7]]
+    for kw in ({}, dict(temperature=0.9, seed=3, top_k=5)):
+        want = j_tp(jm, params, prompts, steps=6, topo=topo, **kw)
+        got = generate_tp(pm, tp, prompts, steps=6, topo=_tp_world((2, 4)), **kw)
+        assert got == want, kw
+        assert got == generate_batch(pm, tp, prompts, steps=6, **kw, **CPU), kw
+    mpit_tpu.finalize()
+
+
+def test_tp_decode_serves_tp_trainer_state(lm):
+    """Train one step with the port's ``TensorParallelTrainer``, decode
+    from its ``state.params`` with ``generate_tp``: the reference's tokens
+    for the same trained params, and the port's ``generate_fast``'s
+    (``tests/test_generate.py:658``)."""
+    import mpit_tpu
+    from mpit_tpu.models import generate_tp as j_tp
+
+    from mpit_tpu_torch import optim
+    from mpit_tpu_torch.convert import to_flax
+    from mpit_tpu_torch.models import generate_tp
+    from mpit_tpu_torch.parallel import TensorParallelTrainer
+
+    jm, pm, _, tp = lm
+    world = _tp_world((2, 4))
+    tr = TensorParallelTrainer(pm, optim.SGD(0.1), world)
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, V, (8, L)).astype(np.int32)
+    state, _ = tr.step(tr.init_state(params=tp), x, np.roll(x, -1, axis=1).astype(np.int32))
+    got = generate_tp(pm, state.params, [[1, 2, 3]], steps=5, topo=world)
+    assert got[0] == generate_fast(pm, state.params, [1, 2, 3], 5, **CPU)
+    topo = _ref_tp_world((2, 4))
+    assert got == j_tp(jm, to_flax(state.params), [[1, 2, 3]], steps=5, topo=topo)
+    mpit_tpu.finalize()
+
+
+def test_tp_decode_validation(lm):
+    """No tp axis, or heads that tp does not divide, are refused with the
+    reference's messages (``tests/test_generate.py:681``); so is a tree the
+    strict rule table does not cover."""
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models import generate_tp
+
+    _, pm, _, tp = lm
+    with pytest.raises(ValueError, match="'tp' axis"):
+        generate_tp(pm, tp, [[1]], steps=2, topo=Topology(8, torch.device("cpu")))
+    with pytest.raises(ValueError, match="num_heads=4 not divisible by tp=8"):
+        generate_tp(pm, tp, [[1]], steps=2, topo=_tp_world((1, 8)))
+    bad = {**tp, "Block_0": {**tp["Block_0"], "Dense_9": tp["Block_0"]["Dense_0"]}}
+    with pytest.raises(ValueError, match="matched no rule"):
+        generate_tp(pm, bad, [[1]], steps=2, topo=_tp_world((2, 4)))

@@ -373,17 +373,23 @@ def test_run_trains_the_transformer_preset_on_cpu():
     dict(remat=True), dict(algo="pp-sync"),
 ])
 def test_run_refuses_transformer_options_not_ported(change):
-    """pp-sync (A11) raises naming the ROADMAP; SGD and clip_norm, which
-    raised until item A5b landed, and seq-sync and remat, which raised
-    until item A9 landed, train the flash LM's preset."""
+    """SGD and clip_norm, which raised until item A5b landed, seq-sync and
+    remat, which raised until item A9 landed, and pp-sync, which raised
+    until item A11 landed (two microbatches, the preset's pp of 2, the
+    reference's warning that attn_impl does not apply), train the flash
+    LM's preset."""
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
     cfg = dataclasses.replace(TrainConfig().apply_preset("ptb-transformer-large"),
                               **{"algo": "sync", **change})
     if change.get("algo") == "pp-sync":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run(cfg, device="cpu")
+        cfg = dataclasses.replace(cfg, n_micro=2)
+        with pytest.warns(UserWarning, match="attn_impl"):
+            res = run(dataclasses.replace(cfg, attn_impl="flash", layers=2, d_model=32,
+                                          heads=4, seq_len=64, train_size=64, lr=3e-3,
+                                          warmup_steps=2), device="cpu")
+        assert res["trained_units"] == 8 and np.isfinite(res["round_losses"]).all()
         return
     res = run(dataclasses.replace(cfg, attn_impl="flash", layers=2, d_model=32,
                                   heads=4, seq_len=64, train_size=64, lr=3e-3,
