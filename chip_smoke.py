@@ -182,7 +182,25 @@ non-zero before the result lines:
              rank on the card (NCCL) and two on the CPU (gloo), and ``--algo
              zero`` with one rank on the card: exit 0, the world's worker
              count, equal losses on every rank, a bit-exact checkpoint round
-             trip.
+             trip. Then the inner axes across two gloo ranks on the card
+             machine's CPU (``multihost_lm.py``), at ``ptb-transformer-large``'s
+             width (d_model 768, 12 heads, T = 512, vocab 10,000) cut to 2
+             layers, a batch of 2 and 2 steps: ``run()`` of seq-sync with
+             ``--sp 2`` (one worker a rank, so the ring spans the ranks),
+             ring then Ulysses; the tp trainer at (1, 2) and composed at
+             (1, 2, 2) (f32); ``run()`` of moe-sync with 8 experts (4 a
+             rank). Each leg: equal results on both ranks, equal to the
+             same world in one process (the initial logits within 2e-5,
+             losses and params within the limits printed), a bit-exact
+             checkpoint round trip, and the ranks' last checkpoint is, byte
+             for byte, what one process writes of its state; the moe-sync
+             file holds all 8 experts of each block with their AdamW
+             moments. Besides, at the toy width of ``multihost_sync.py``
+             (d_model 32, 4 heads, T = 16, vocab 31), ``--algo moe
+             --ckpt-dir`` over 2 ranks of 4 workers against 1 process of
+             8, held the same way. Each leg's wall seconds are the card
+             machine's CPU time; the ``multihost_sync.py`` legs run beside
+             the ``multihost_lm.py`` launches.
 25. serve  — ``ptb-transformer-large``'s model at full width (6 layers,
              d_model 768, 12 heads, max_len 512, vocab 10,000, bf16, seeded
              weights) served: 8 requests through ``Server(max_batch=8,
@@ -2572,45 +2590,282 @@ def dist_phase() -> None:
     and two ranks on the CPU (gloo) of ``--algo sync``; each exits 0 with
     the reference's worker count, the ranks' losses are equal and the
     checkpoint round trip is bit-exact. One card cannot run NCCL across
-    ranks."""
+    ranks, so the inner axes across processes run as gloo ranks on the CPU
+    (:func:`dist_axes`, :func:`dist_moe`). The ``multihost_sync.py`` legs
+    (one intra-op thread a process) run beside :func:`dist_axes`'s
+    launches, which run one after the other."""
     import tempfile
 
     script = os.path.join("mpit_tpu_torch", "examples", "multihost_sync.py")
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("MPIT_", "JAX_COORDINATOR", "CUDA_VISIBLE"))}
-    env["CUDA_VISIBLE_DEVICES"] = os.environ["CUDA_VISIBLE_DEVICES"]
+    legs = ((1, [], "nccl", "sync"), (1, [], "nccl", "zero"),
+            (2, ["--device", "cpu"], "gloo", "sync"))
     with tempfile.TemporaryDirectory(prefix="dist-") as tmp:
-        for n, extra, backend, algo in ((1, [], "nccl", "sync"), (1, [], "nccl", "zero"),
-                                        (2, ["--device", "cpu"], "gloo", "sync")):
-            out = os.path.join(tmp, f"n{n}-{algo}")
-            t0 = time.perf_counter()
-            r = subprocess.run(
-                [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n),
-                 "--jax-distributed", script, "--algo", algo, "--steps", "40",
-                 "--ckpt-dir", os.path.join(tmp, f"ck{n}-{algo}"), "--out", out, *extra],
-                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
-                capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
-            wall = time.perf_counter() - t0
-            if r.returncode != 0:
-                raise AssertionError(f"dist: -n {n} exited {r.returncode}:\n"
-                                     f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-            ranks = []
-            for i in range(n):
-                with open(f"{out}.rank{i}.json") as f:
-                    ranks.append(json.load(f))
-            if ([m["num_workers"] for m in ranks] != [n] * n
-                    or len({m["last_loss"] for m in ranks}) != 1
-                    or not all(m["ckpt_roundtrip"] for m in ranks)
-                    or not ranks[0]["last_loss"] < ranks[0]["first_loss"]):
-                raise AssertionError(f"dist: -n {n}: {ranks}")
-            device = "cuda" if n == 1 else "cpu"
-            if f"device={device}" not in r.stdout:
-                raise AssertionError(f"dist: -n {n} did not run on {device}:\n{r.stdout}")
-            phase("dist", f"launch -n {n} --jax-distributed multihost_sync.py --algo "
-                  f"{algo} ({backend}, {device}): exit 0 in {wall:.3f} s; num_workers "
-                  f"{ranks[0]['num_workers']}; loss {ranks[0]['first_loss']:.4f} -> "
-                  f"{ranks[0]['last_loss']:.4f} on every rank; checkpoint round trip "
-                  f"bit-exact on every rank")
+        jobs = [_spawn(tmp, n, [script, "--algo", algo, "--steps", "40", "--ckpt-dir",
+                                os.path.join(tmp, f"ck{n}-{algo}"), "--out",
+                                os.path.join(tmp, f"n{n}-{algo}"), *extra], 1)
+                for n, extra, _, algo in legs]
+        moe = dist_moe_start(tmp)
+        try:
+            dist_axes(tmp)
+            for (n, _, backend, algo), job in zip(legs, jobs):
+                stdout, wall = _finish(job)
+                ranks = []
+                for i in range(n):
+                    with open(os.path.join(tmp, f"n{n}-{algo}.rank{i}.json")) as f:
+                        ranks.append(json.load(f))
+                if ([m["num_workers"] for m in ranks] != [n] * n
+                        or len({m["last_loss"] for m in ranks}) != 1
+                        or not all(m["ckpt_roundtrip"] for m in ranks)
+                        or not ranks[0]["last_loss"] < ranks[0]["first_loss"]):
+                    raise AssertionError(f"dist: -n {n}: {ranks}")
+                device = "cuda" if n == 1 else "cpu"
+                if f"device={device}" not in stdout:
+                    raise AssertionError(f"dist: -n {n} did not run on {device}:\n{stdout}")
+                phase("dist", f"launch -n {n} --jax-distributed multihost_sync.py --algo "
+                      f"{algo} ({backend}, {device}): exit 0 in {wall:.3f} s (beside the "
+                      f"other legs, one thread a process); num_workers {ranks[0]['num_workers']}; loss "
+                      f"{ranks[0]['first_loss']:.4f} -> {ranks[0]['last_loss']:.4f} on "
+                      f"every rank; checkpoint round trip bit-exact on every rank")
+            dist_moe(tmp, moe)
+        finally:
+            for job in jobs + moe:
+                _stop(job)
+
+
+DIST_LM = ["--layers", "2", "--d-model", "768", "--heads", "12", "--seq-len", "512",
+           "--vocab", "10000", "--batch", "2", "--steps", "2"]
+DIST_LM_LEGS = ("run-seq-ring:2", "run-seq-ulysses:2", "tp:1,2", "composed:1,2,2",
+                "run-moe:8")
+# two processes against one: the initial logits (values moved, partials summed
+# in shard order: bit for bit in tests/test_torch_dist_axes.py; 2e-5 is the f32 flash and
+# ring tolerance), f32 trainer legs at tests/test_torch_seq.py's limits, the
+# bf16 run() legs' params at its BF16_TRAJ_TOL and their losses at UNIT_TOL
+DIST_LOGIT_TOL = 2e-5
+DIST_TOL = {"f32": dict(loss=1e-5, param=5e-5), "bf16": dict(loss=1e-4, param=5e-3)}
+DIST_MOE_TOL = 1e-4  # tests/test_torch_dist.py's TRAJ_TOL
+
+
+def _spawn(tmp: str, n: int, args: list, threads: int, distributed: bool = True):
+    """Start the launcher over ``n`` processes (gloo on the CPU, or NCCL on
+    the card where the script's ``--device`` says so), each with
+    ``threads`` intra-op threads, its output to a file under ``tmp``."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("MPIT_", "JAX_COORDINATOR"))}
+    env["OMP_NUM_THREADS"] = str(threads)
+    cmd = [sys.executable, "-m", "mpit_tpu_torch.launch", "-n", str(n)]
+    cmd += (["--jax-distributed"] if distributed else []) + args
+    import tempfile
+    import threading
+
+    fd, _ = tempfile.mkstemp(prefix="launch-", suffix=".log", dir=tmp)
+    log = open(fd, "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                            stdout=log, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    end: list = []  # the exit's time, for a wall that ends when the job does
+    watch = threading.Thread(target=lambda: (proc.wait(), end.append(time.perf_counter())),
+                             daemon=True)
+    watch.start()
+    return proc, log, t0, args[:3], watch, end
+
+
+def _stop(job) -> None:
+    """Kill a :func:`_spawn` job's launcher and its ranks, if still running."""
+    import signal
+
+    proc = job[0]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _finish(job) -> tuple:
+    """Wait for a :func:`_spawn` job; returns (its output, its wall s from
+    start to exit) and fails on a non-zero exit."""
+    proc, log, t0, what, watch, end = job
+    try:
+        rc = proc.wait(timeout=max(DIST_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        _stop(job)
+    watch.join()
+    wall = end[0] - t0
+    log.seek(0)
+    out = log.read()
+    log.close()
+    if rc != 0:
+        raise AssertionError(f"dist: {what} exited {rc}:\n{out[-6000:]}")
+    return out, wall
+
+
+def _cpu_launch(tmp: str, n: int, args: list, threads: int, distributed: bool = True):
+    """:func:`_spawn`, then :func:`_finish`."""
+    return _finish(_spawn(tmp, n, args, threads, distributed))
+
+
+def _ckpt_leaves(directory: str, which: int = -1) -> list:
+    import glob
+
+    import numpy as np
+
+    from mpit_tpu_torch.utils.checkpoint import msgpack_restore
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    path = sorted(glob.glob(os.path.join(directory, "ckpt_*.msgpack")))[which]
+    with open(path, "rb") as f:
+        return [np.asarray(a) for a in tree_leaves(msgpack_restore(f.read()))]
+
+
+def dist_axes(tmp: str) -> None:
+    """The inner axes across two gloo ranks on the CPU against one process
+    of the same world (see the phase's docstring line)."""
+    import numpy as np
+
+    script = os.path.join("mpit_tpu_torch", "examples", "multihost_lm.py")
+    cores = os.cpu_count() or 2
+    legs = [f"--leg={leg}" for leg in DIST_LM_LEGS]
+    base = [script, *legs, *DIST_LM, "--device", "cpu"]
+    _, wall2 = _cpu_launch(tmp, 2, base + ["--out", os.path.join(tmp, "two"),
+                                           "--ckpt-dir", os.path.join(tmp, "ck2")],
+                           max(cores // 2, 1))
+    _, wall1 = _cpu_launch(tmp, 1, base + ["--local-devices", "2", "--out",
+                                           os.path.join(tmp, "one"), "--ckpt-dir",
+                                           os.path.join(tmp, "ck1"), "--resave-from",
+                                           os.path.join(tmp, "ck2")], cores, distributed=False)
+    two = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"two.rank{i}.json")) as f:
+            two.append(json.load(f))
+    with open(os.path.join(tmp, "one.rank0.json")) as f:
+        one = json.load(f)
+    for leg in DIST_LM_LEGS:
+        key = leg.replace(":", "@").replace(",", "x")
+        a, b, o = two[0][key], two[1][key], one[key]
+        if dict(a, wall_s=None) != dict(b, wall_s=None):
+            raise AssertionError(f"dist {key}: the ranks differ: {a} {b}")
+        if not (a["ckpt_roundtrip"] and o["ckpt_roundtrip"] and o["resaved_bytes_equal"]):
+            raise AssertionError(f"dist {key}: checkpoint round trip, or the ranks' file "
+                                 f"against one process's: {a} {o}")
+        experts = ""
+        if key.startswith("run-moe"):
+            experts = _moe_experts(os.path.join(tmp, "ck2", key))
+            if set(experts.values()) != {8}:
+                raise AssertionError(f"dist {key}: experts in the file {experts}")
+            experts = f"the file holds all 8 experts ({len(experts)} leaves: params, mu, nu); "
+        losses = "round_losses" if key.startswith("run-") else "losses"
+        tol = DIST_TOL["bf16" if key.startswith("run-") else "f32"]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(a[losses], o[losses]))
+        param_err = max(float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
+                        for x, y in zip(_ckpt_leaves(os.path.join(tmp, "ck2", key)),
+                                        _ckpt_leaves(os.path.join(tmp, "ck1", key)),
+                                        strict=True))
+        if not (loss_err <= tol["loss"] and param_err <= tol["param"] and finite(a[losses])):
+            raise AssertionError(f"dist {key}: 2 ranks vs 1 process: loss {loss_err}, "
+                                 f"params {param_err} (limits {tol})")
+        logit = ""
+        if not key.startswith("run-"):
+            # dp = 1: each rank's share is the whole batch (tp shards
+            # the weights; composed keeps sp inside a rank)
+            want = np.load(os.path.join(tmp, f"one.{key}.rank0.npy"))
+            err = max(float(np.abs(np.load(os.path.join(tmp, f"two.{key}.rank{i}.npy"))
+                                   - want).max()) for i in range(2))
+            if err > DIST_LOGIT_TOL:
+                raise AssertionError(f"dist {key}: initial logits differ by {err}")
+            logit = f"initial logits max |diff| {err:.3g} (limit {DIST_LOGIT_TOL}); "
+        phase("dist", f"{key} over 2 gloo ranks (CPU, 2 layers, d 768, 12 heads, T 512, "
+              f"batch 2, 2 steps; {'bf16 run(), AdamW' if key.startswith('run-') else 'f32, SGD'}"
+              f"): losses {[round(v, 4) for v in a[losses]]} on both ranks; vs one process: "
+              f"{logit}max relative |loss diff| {loss_err:.3g}, max |param diff| "
+              f"{param_err:.3g} (limits {tol['loss']}, {tol['param']}); checkpoint round "
+              f"trip bit-exact; {experts}the ranks' file is one process's, byte for byte; "
+              f"card machine's CPU time {a['wall_s']:.3f} s (2 ranks) and "
+              f"{o['wall_s']:.3f} s (1 process)")
+    phase("dist", f"multihost_lm.py launches on the card machine's CPU: 2 ranks "
+          f"{wall2:.3f} s, 1 process {wall1:.3f} s (process start and imports included; "
+          "the multihost_sync.py legs ran beside them)")
+
+
+def _moe_experts(directory: str) -> dict:
+    """The leading (expert) dim of every expert leaf of the last checkpoint
+    in ``directory``, by its path (params and the AdamW moments)."""
+    import glob
+
+    import numpy as np
+
+    from mpit_tpu_torch.utils.checkpoint import msgpack_restore
+    from mpit_tpu_torch.utils.params import tree_leaves_with_path
+
+    path = sorted(glob.glob(os.path.join(directory, "ckpt_*.msgpack")))[-1]
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    return {"/".join(map(str, p)): np.asarray(a).shape[0]
+            for p, a in tree_leaves_with_path(tree)
+            if str(p[-1]).startswith(("moe_w_", "moe_b_"))}
+
+
+def dist_moe_start(tmp: str) -> list:
+    """Start ``multihost_sync.py --algo moe --ckpt-dir`` over two gloo ranks
+    of 4 workers and the same world in one process of 8 (ROADMAP C10), at
+    that script's toy width (d_model 32, 4 heads, T = 16)."""
+    script = os.path.join("mpit_tpu_torch", "examples", "multihost_sync.py")
+    common = [script, "--algo", "moe", "--steps", "6", "--device", "cpu"]
+    return [_spawn(tmp, 2, common + ["--local-devices", "4", "--ckpt-dir",
+                                     os.path.join(tmp, "ck-moe"), "--out",
+                                     os.path.join(tmp, "moe2")], 1),
+            _spawn(tmp, 1, common + ["--local-devices", "8", "--out",
+                                     os.path.join(tmp, "moe1")], 1, distributed=False)]
+
+
+def dist_moe(tmp: str, jobs: list) -> None:
+    """The moe legs :func:`dist_moe_start` started: equal losses on both
+    ranks and within the trajectory tolerance of one process's, a bit-exact
+    round trip, all 8 experts in the file, which is byte for byte the
+    one-process checkpoint of its state."""
+    import numpy as np
+
+    from mpit_tpu_torch.comm.topology import Topology
+    from mpit_tpu_torch.models import TransformerLM
+    from mpit_tpu_torch.optim import SGD
+    from mpit_tpu_torch.parallel import MoEParallelTrainer
+    from mpit_tpu_torch.utils.checkpoint import (
+        msgpack_restore, restore_checkpoint, save_checkpoint,
+    )
+
+    (_, wall2), (_, wall1) = (_finish(job) for job in jobs)
+    ck = os.path.join(tmp, "ck-moe")
+    ranks = []
+    for i in range(2):
+        with open(os.path.join(tmp, f"moe2.rank{i}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(tmp, "moe1.rank0.json")) as f:
+        solo = json.load(f)
+    err = max(abs(a - b) for a, b in zip(ranks[0]["losses"], solo["losses"]))
+    if (ranks[0]["losses"] != ranks[1]["losses"] or err > DIST_MOE_TOL
+            or not all(m["ckpt_roundtrip"] for m in ranks)):
+        raise AssertionError(f"dist moe: {ranks} vs {solo}")
+    path = os.path.join(ck, "ckpt_00000006.msgpack")
+    with open(path, "rb") as f:
+        raw = f.read()
+    experts = np.asarray(msgpack_restore(raw)["params"]["Block_0"]["moe_w_up"]).shape[0]
+    model = TransformerLM(31, num_layers=2, d_model=32, num_heads=4, max_len=16,
+                          compute_dtype=torch.float32, moe_experts=8, moe_axis="dp",
+                          moe_top_k=2, moe_capacity_factor=1.5, moe_balance_weight=0.1,
+                          moe_zloss_weight=0.01, device="cpu")
+    trainer = MoEParallelTrainer(model, SGD(0.2, momentum=0.9),
+                                 Topology(8, torch.device("cpu")))
+    state, _ = restore_checkpoint(ck, trainer.init_state(torch.Generator().manual_seed(1)))
+    again = save_checkpoint(os.path.join(tmp, "ck-moe-one"), state, step=6)
+    with open(again, "rb") as f:
+        same = f.read() == raw
+    if experts != 8 or not same:
+        raise AssertionError(f"dist moe: {experts} experts in the file, bytes equal {same}")
+    phase("dist", f"multihost_sync.py --algo moe --ckpt-dir over 2 gloo ranks x 4 workers "
+          f"(CPU; the script's toy width: d_model 32, 4 heads, T 16, vocab 31): losses "
+          f"{ranks[0]['losses'][0]:.4f} -> {ranks[0]['losses'][-1]:.4f} on both ranks, max |diff| {err:.3g} from 1 process x 8 (limit {DIST_MOE_TOL}); "
+          f"the file holds all {experts} experts and is, byte for byte, the one-process "
+          f"checkpoint of its state; round trip bit-exact on both ranks (each its own "
+          f"experts); card machine's CPU time {wall2:.3f} s (2 ranks), {wall1:.3f} s "
+          f"(1 process), beside the other legs")
 
 
 SERVE_SEED = 13

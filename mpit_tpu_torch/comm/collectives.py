@@ -12,6 +12,15 @@ reduces the local dim first, then makes one ``torch.distributed`` call
 across the processes. All functions take a tree (dict, list, tuple or
 tensor), as the reference's pytree-aware collectives do.
 
+The inner mesh axes (sp, tp) may span processes (``Topology.axis_span``):
+:func:`ring_hop` moves one edge block a hop to the neighbour process by
+point-to-point send and receive, as ``lax.ppermute`` moves it,
+:func:`line_all_to_all` and :func:`line_gather` exchange and gather over a
+line of processes, and :func:`line_sum_grad` is the identity whose
+backward sums the gradient over the line (Megatron's "f"). Each is a
+differentiable ``autograd.Function`` that ``torch.func`` takes; values
+cross as their bytes, so a move is exact.
+
 The quantized exchange (``allreduce(quant=...)``, ``quantized_allreduce``,
 ``quantized_psum_scatter``) is the reference's two-hop scheme: each worker's
 flat leaf cut into W destination rows, each row quantized against its own
@@ -32,7 +41,9 @@ from typing import Any, Optional
 import torch
 
 from mpit_tpu_torch import quant as _quant
-from mpit_tpu_torch.comm.topology import WORKER_DIM, current_process, in_process_group
+from mpit_tpu_torch.comm.topology import (
+    WORKER_DIM, AxisSpan, current_process, in_process_group, line_group,
+)
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
@@ -408,3 +419,183 @@ def ppermute_ring(tree: Any, shift: int = 1, axis_name: Optional[str] = None) ->
         return g.reshape(topo.num_workers, *g.shape[len(shape):])[mine]
 
     return tree_map(leaf, tree)
+
+
+# ------------------------------------------- the inner axes across processes
+
+
+def _bytes(a: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes, as gloo and NCCL move any dtype."""
+    return a.reshape(-1).view(torch.int8)
+
+
+def _ring_hop(a: torch.Tensor, shift: int, span: AxisSpan) -> torch.Tensor:
+    if span.local:
+        return torch.roll(a, shift, 0)
+    n = a.shape[0]
+    if n != span.count or not 0 < abs(shift) <= n:
+        raise ValueError(
+            f"a ring hop of {shift} over {n} stacked positions; this process "
+            f"holds {span.count} of the {span.size} on {span.name!r}"
+        )
+    import torch.distributed as dist
+
+    line, me = span.line, span.line.index(current_process()[0])
+    nxt, prv = line[(me + 1) % len(line)], line[(me - 1) % len(line)]
+    if shift > 0:  # the last `shift` blocks go on, the previous' arrive first
+        send, keep, dst, src = a[n - shift:], a[:n - shift], nxt, prv
+    else:
+        send, keep, dst, src = a[:-shift], a[-shift:], prv, nxt
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, _bytes(send), dst),
+                                       dist.P2POp(dist.irecv, _bytes(recv), src)]):
+        req.wait()
+    return torch.cat([recv, keep] if shift > 0 else [keep, recv])
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(a, shift, span):
+        return _ring_hop(a, shift, span)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.shift, ctx.span = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_hop(g.contiguous(), -ctx.shift, ctx.span), None, None
+
+
+def ring_hop(a: torch.Tensor, shift: int, span: Optional[AxisSpan] = None) -> torch.Tensor:
+    """``lax.ppermute`` by ``shift`` along a ring: ``a`` stacks this
+    process's positions ``[span.start, span.start + span.count)`` of the
+    ring on dim 0, and position ``i``'s block moves to ``i + shift``. A
+    ring inside the process (``span`` None or local) is ``torch.roll``;
+    across processes the ``|shift|`` edge blocks go to the neighbour on
+    the ring by one send while the neighbour's arrive by one receive, every
+    process posting both at once. Differentiable (the backward is the
+    reverse hop) and exact."""
+    if span is None or span.local:
+        return torch.roll(a, shift, 0)
+    return _RingHop.apply(a, shift, span)
+
+
+def _line_all_to_all(a: torch.Tensor, span: AxisSpan) -> torch.Tensor:
+    import torch.distributed as dist
+
+    send = a.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_bytes(recv), _bytes(send), group=line_group(span))
+    return recv
+
+
+class _LineAllToAll(torch.autograd.Function):
+    """Its own inverse, as ``ops/moe.py``'s ``_AllToAll``: the backward is
+    the same exchange of the cotangent."""
+
+    @staticmethod
+    def forward(a, span):
+        return _line_all_to_all(a, span)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.span = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _line_all_to_all(g, ctx.span), None
+
+
+def line_all_to_all(a: torch.Tensor, span: Optional[AxisSpan]) -> torch.Tensor:
+    """``lax.all_to_all`` over the processes of this process's line along
+    ``span``'s axis: row ``j`` of ``a`` (dim 0, one row per process of the
+    line, in its order) goes to process ``j``, which returns the rows it
+    received in the same order. Differentiable; the identity on a line of
+    one (or with ``span`` None: the axis inside this process)."""
+    if span is None or len(span.line) == 1:
+        return a
+    if a.shape[0] != len(span.line):
+        raise ValueError(
+            f"{a.shape[0]} rows for the {len(span.line)} processes along {span.name!r}"
+        )
+    return _LineAllToAll.apply(a, span)
+
+
+def _line_gather(a: torch.Tensor, span: AxisSpan) -> torch.Tensor:
+    import torch.distributed as dist
+
+    a = a.contiguous()
+    parts = [torch.empty_like(a) for _ in span.line]
+    dist.all_gather([_bytes(p) for p in parts], _bytes(a), group=line_group(span))
+    return torch.cat(parts)
+
+
+class _LineGather(torch.autograd.Function):
+    @staticmethod
+    def forward(a, span):
+        return _line_gather(a, span)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.span, ctx.n = inputs[1], inputs[0].shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        me = ctx.span.line.index(current_process()[0])
+        return g[me * ctx.n:(me + 1) * ctx.n], None
+
+
+def line_gather(a: torch.Tensor, span: AxisSpan) -> torch.Tensor:
+    """The line's stacks of ``a`` joined on dim 0 in the line's order
+    (every process of the line gets the same). What follows it must run
+    alike in every process of the line, so its backward keeps this
+    process's rows of the cotangent (Megatron's "g": the sum over the line
+    is the forward's). Differentiable; the identity on a line of one."""
+    if len(span.line) == 1:
+        return a
+    return _LineGather.apply(a, span)
+
+
+def _line_sum(a: torch.Tensor, span: AxisSpan) -> torch.Tensor:
+    import torch.distributed as dist
+
+    # half floats reduce in f32 (gloo reduces no bf16)
+    wide = a.dtype in (torch.bfloat16, torch.float16)
+    out = (a.to(torch.float32) if wide else a).contiguous().clone()
+    dist.all_reduce(out, group=line_group(span))
+    return out.to(a.dtype)
+
+
+class _LineSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(a, span):
+        return a.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.span = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _line_sum(g, ctx.span), None
+
+
+def line_sum_grad(a: torch.Tensor, span: AxisSpan) -> torch.Tensor:
+    """The identity, whose backward sums the cotangent over this process's
+    line along ``span``'s axis (Megatron's "f"): the input of a product
+    each process of the line computes a share of gets every share's
+    gradient. The identity on a line of one."""
+    if len(span.line) == 1:
+        return a
+    return _LineSumGrad.apply(a, span)
+
+
+def line_sum(a: torch.Tensor, span) -> torch.Tensor:
+    """The sum of ``a`` over this process's line (of a ``ProcessLine``,
+    an ``AxisSpan`` too); not differentiable, every process gets the same
+    bits."""
+    if len(span.line) == 1:
+        return a
+    return _line_sum(a, span)

@@ -25,8 +25,12 @@ A world has a mesh shape over named axes, as the reference's mesh has:
 ``("dp",)`` with ``(W,)`` by default, or ``("dp", "sp")`` with ``(dp, sp)``
 for sequence parallelism (``init(axis_names=..., mesh_shape=...)``). The
 stacked dim holds the workers in the mesh's row-major order, worker
-``d·sp + r`` at batch group ``d`` and sequence block ``r``. The sp ring
-lies inside one process's stacked workers; dp may span processes.
+``d·sp + r`` at batch group ``d`` and sequence block ``r``. Process ``p``
+holds the world's workers ``[p·W, (p+1)·W)``, so the inner axes (sp, tp)
+span processes where a process holds a share of one inner group: its W
+stacked workers cover either whole inner groups or an equal share of one.
+:meth:`Topology.axis_span` gives a process its place on an axis and the
+processes it shares the axis's lines with.
 
 Devices: an entry point runs on the card unless the caller passes
 ``device="cpu"``. Without CUDA, asking for the default device raises; the
@@ -60,6 +64,8 @@ DEFAULT_WORKERS = 8
 _lock = make_lock("topology._lock")
 _topology: Optional["Topology"] = None
 _distributed_initialized = False
+# lines of processes -> this process's torch.distributed group among them
+_line_groups: dict = {}
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -107,13 +113,13 @@ class Topology:
             raise ValueError(
                 f"mesh_shape {shape} does not cover {self.num_workers} workers"
             )
-        inner = math.prod(shape[1:])
-        if self.local_workers % inner:
+        inner, local = math.prod(shape[1:]), self.local_workers
+        if local % inner and inner % local:
             raise ValueError(
-                f"mesh_shape {shape}: the {names[1:]} extent {inner} must "
-                f"divide each process's {self.local_workers} stacked "
-                "workers (the sequence ring lies inside one process; only "
-                f"{names[0]!r} spans processes)"
+                f"mesh_shape {shape}: the {names[1:]} extent {inner} and each "
+                f"process's {local} stacked workers must divide one or the "
+                "other: a process holds whole groups of the inner axes or an "
+                "equal share of one, and cannot hold this mesh's"
             )
         object.__setattr__(self, "axis_names", names)
         object.__setattr__(self, "mesh_shape", shape)
@@ -140,6 +146,85 @@ class Topology:
         workers in order (a global batch, a stacked leaf)."""
         per = n // self.process_count
         return slice(self.process_index * per, (self.process_index + 1) * per)
+
+    def _box(self, process: int) -> tuple:
+        """``(start, count)`` on each mesh axis of ``process``'s workers,
+        which form a box of the mesh (raises where they do not)."""
+        shape, w0 = self.mesh_shape, process * self.local_workers
+        coords = [[] for _ in shape]
+        for w in range(w0, w0 + self.local_workers):
+            for i in reversed(range(len(shape))):
+                w, c = divmod(w, shape[i])
+                coords[i].append(c)
+        box = tuple((min(c), len(set(c))) for c in coords)
+        if math.prod(n for _, n in box) != self.local_workers or any(
+                max(c) - lo + 1 != n for c, (lo, n) in zip(coords, box)):
+            raise ValueError(
+                f"mesh_shape {shape}: process {process}'s {self.local_workers} "
+                "workers do not form a block of the mesh"
+            )
+        return box
+
+    def _lines(self, axis: str, along: bool) -> tuple:
+        """``(dim, boxes, line, lines)`` of the mesh axis ``axis``: every
+        process's box, and the processes grouped, in process order (which
+        is the axis's order within a group), by their boxes on the other
+        axes (``along``: a group lies along the axis) or on the axis."""
+        if axis not in self.axis_names:
+            raise ValueError(f"unknown mesh axis {axis!r}; have {self.axis_names}")
+        dim = self.axis_names.index(axis)
+        boxes = [self._box(p) for p in range(self.process_count)]
+        groups: dict = {}
+        for p, box in enumerate(boxes):
+            key = box[:dim] + box[dim + 1:] if along else box[dim]
+            groups.setdefault(key, []).append(p)
+        lines = tuple(tuple(g) for g in groups.values())
+        line = next(ln for ln in lines if self.process_index in ln)
+        return dim, boxes, line, lines
+
+    def axis_span(self, axis: str) -> "AxisSpan":
+        """This process's place on the mesh axis ``axis`` (see
+        :class:`AxisSpan`)."""
+        dim, boxes, line, lines = self._lines(axis, along=True)
+        start, count = boxes[self.process_index][dim]
+        return AxisSpan(line, lines, axis, self.mesh_shape[dim], start, count)
+
+    def peers(self, axis: str) -> "ProcessLine":
+        """The processes that hold this process's indices on the mesh axis
+        ``axis`` (all of them where each holds the whole axis): the group
+        a mean over the other axes runs in."""
+        _, _, line, lines = self._lines(axis, along=False)
+        return ProcessLine(line, lines)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessLine:
+    """A group of processes (``line``, this process's) and the partition of
+    the world into such groups (``lines``, alike in every process)."""
+
+    line: tuple
+    lines: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSpan(ProcessLine):
+    """A process's place on one mesh axis: it holds indices ``[start,
+    start + count)`` of the axis's ``size``; its ``line`` are the processes
+    that share its indices on every other axis, in the axis's order (one
+    for each ``count`` indices; just this process when it holds the whole
+    axis), and ``lines`` every process's line (the groups a collective over
+    the axis runs in)."""
+
+    name: str
+    size: int
+    start: int
+    count: int
+
+    @property
+    def local(self) -> bool:
+        """Whether this process holds the whole axis (no collective over it
+        crosses a process)."""
+        return self.count == self.size
 
 
 def _should_init_distributed() -> bool:
@@ -240,6 +325,7 @@ def finalize() -> None:
     global _topology, _distributed_initialized
     with _lock:
         _topology = None
+        _line_groups.clear()
         if _distributed_initialized:
             import torch.distributed as dist
 
@@ -292,6 +378,23 @@ def in_process_group() -> bool:
     """Whether :func:`init` joined a ``torch.distributed`` group, whose
     calls the collectives then make (in a world of one process too)."""
     return _distributed_initialized
+
+
+def line_group(span):
+    """The ``torch.distributed`` group of this process's line along
+    ``span``'s axis (a :class:`ProcessLine`, an :class:`AxisSpan` too): None
+    (the default group) when the line is the whole world. The first call
+    for a set of lines creates every line's group, so every process makes
+    it at the same point of its program."""
+    import torch.distributed as dist
+
+    if len(span.line) == dist.get_world_size():
+        return None
+    with _lock:
+        if span.lines not in _line_groups:
+            mine, _ = dist.new_subgroups_by_enumeration([list(ln) for ln in span.lines])
+            _line_groups[span.lines] = mine
+        return _line_groups[span.lines]
 
 # ---------------------------------------------------------------------------
 # Consistent-hash shard ring (sharded parameter servers).

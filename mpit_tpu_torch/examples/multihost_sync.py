@@ -19,7 +19,9 @@ workers' experts, and the tokens cross the processes by
 ``all_to_all_single`` both ways (the backward's too); ``--out`` then also
 carries every step's loss. Every rank feeds the same global batch stream and takes its
 own workers' rows. With ``--ckpt-dir`` the run ends with a checkpoint that
-every rank gathers, rank 0 writes and every rank restores; ``--out``
+every rank gathers, rank 0 writes and every rank restores (under ``--algo
+moe`` the file holds all the experts and their momentum traces, and each
+rank restores its own); ``--out``
 writes ``<out>.rank<i>.json`` with the reference's keys; the round
 trip is bit-exact when every leaf of the restored state (params and
 optimizer state, gathered) equals the trained one's.
@@ -50,9 +52,6 @@ def main():
                     help="save + restore a checkpoint at the end (rank 0 "
                          "writes what every rank gathers; every rank restores)")
     ns = ap.parse_args()
-    if ns.algo == "moe" and ns.ckpt_dir:
-        ap.error("--ckpt-dir is not supported with --algo moe (each rank holds "
-                 "only its workers' experts, and the checkpoint does not gather them)")
 
     import numpy as np
     import torch

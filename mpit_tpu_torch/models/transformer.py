@@ -25,6 +25,13 @@ positions and returns ``(sp, B, T_l, vocab)`` logits. Its attention is
 :func:`ulysses_attention` with ``seq_impl="ulysses"``; either is taken
 before ``attn_impl`` is read, as in the reference.
 
+A ring that spans processes (``seq_span``, set through
+:meth:`TransformerLM.clone` by the trainers: this process's place on the
+sp axis, ``comm/topology.py`` ``AxisSpan``): the tokens are this process's
+blocks ``[start, start + count)`` of the ring's ``size``, the positional
+rows are read at their global positions (the reference's ``axis_index``
+offset) and ``max_len`` bounds the whole ring's length.
+
 ``remat`` recomputes each block's activations on the backward pass
 (:func:`~mpit_tpu_torch.models.layers.rematerialized`, flax's ``nn.remat``);
 the trainers then take the gradient with ``torch.autograd.grad``
@@ -53,6 +60,17 @@ products of the Megatron split (``Dense_1`` and ``Dense_3``, whose kernels
 ``parallel/tensor.py`` shards on their input dim) are computed as the sum,
 in shard order, of ``x[..., shard_i] @ kernel[shard_i]`` (the psum GSPMD
 inserts), the bias added after it. Every other product is one product.
+With tp spanning processes (``tp_span``), a process computes only its
+shards: the qkv columns of its heads, their attention and its rows of
+``Dense_1``; its columns of ``Dense_2`` and its rows of ``Dense_3``. The
+row-parallel partial products are gathered over the tp processes
+(``comm.collectives.line_gather``) and summed in shard order, then the
+bias, so the sum's order is the stacked path's for any tp; the input of a
+column-parallel product goes through Megatron's "f"
+(``comm.collectives.line_sum_grad``), whose backward sums its gradient
+over the tp processes, so the LayerNorms, the embeddings and every
+earlier block get every shard's share. The params stay whole in each
+process; a sharded leaf's gradient there holds its shards' part only.
 
 Decode mode (``decode=True``, the serving path of ``models/sampling.py``):
 the model takes a T-token chunk ``(B, T)`` and a cache tree and returns
@@ -87,6 +105,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mpit_tpu_torch.comm.collectives import line_gather, line_sum_grad
 from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
     ROW_BLOCK, Dense, Embed, LayerNorm, Model, matmul_rows, pad_rows, rematerialized,
@@ -144,24 +163,27 @@ class Block(nn.Module):
                 self.moe_b_up.zero_()
                 self.moe_b_down.zero_()
 
-    def forward(self, x, cache=None, tp: int = 1, moe_axis=None):
+    def forward(self, x, cache=None, tp: int = 1, moe_axis=None, seq_span=None,
+                tp_span=None):
         """``x`` is ``(B, T, d_model)``, the stacked ring ``(sp, B, T_l,
         d_model)`` with ``seq_axis`` set, or the stacked workers ``(W, b,
         T, d_model)`` with ``moe_axis`` set. With ``cache`` (this block's
         ``cached_key``, ``cached_value``, ``cache_index`` for the first of
         ``x``'s rows; the rest are pad rows) the block runs a decode chunk,
         writing the chunk's K/V into the cache in place. An MoE block
-        returns ``(x, aux)``."""
+        returns ``(x, aux)``. ``seq_span`` and ``tp_span`` place a ring
+        and the tp shards that span processes."""
         if cache is not None:
             return self._decode(x, cache, tp)
         d_model, h = x.shape[-1], self.num_heads
-        qkv = self.Dense_0(self.LayerNorm_0(x))
-        q, k, v = (a.reshape(*x.shape[:-1], h, d_model // h)
-                   for a in qkv.split(d_model, -1))
+        qkv = column_parallel(self.Dense_0, self.LayerNorm_0(x), tp, tp_span, parts=3)
+        q, k, v = (a.reshape(*x.shape[:-1], -1, d_model // h)
+                   for a in qkv.split(qkv.shape[-1] // 3, -1))
         if self.seq_axis is not None and self.seq_impl == "ulysses":
-            att = ulysses_attention(q, k, v, causal=True, axis_name=self.seq_axis)
+            att = ulysses_attention(q, k, v, causal=True, axis_name=self.seq_axis,
+                                    span=seq_span)
         elif self.seq_axis is not None:
-            att = ring_attention(q, k, v, causal=True)
+            att = ring_attention(q, k, v, causal=True, span=seq_span)
         else:
             # the stacked workers (W, b, ...) attend as one batch of W·b rows
             q, k, v = (a.reshape(-1, *a.shape[-3:]) for a in (q, k, v))
@@ -172,13 +194,14 @@ class Block(nn.Module):
                     q, k, v, causal=True,
                     use_kernel=True if self.attn_impl == "flash_force" else None,
                 )
-        x = x + row_parallel(self.Dense_1, att.reshape(x.shape), tp)
+        x = x + row_parallel(self.Dense_1, att.reshape(*x.shape[:-1], -1), tp,
+                             span=tp_span)
         y = self.LayerNorm_1(x)
         if self.moe_experts:
             out, aux = self._moe(y, moe_axis)
             return x + out, aux
-        y = F.gelu(self.Dense_2(y), approximate="tanh")
-        return x + row_parallel(self.Dense_3, y, tp)
+        y = F.gelu(column_parallel(self.Dense_2, y, tp, tp_span), approximate="tanh")
+        return x + row_parallel(self.Dense_3, y, tp, span=tp_span)
 
     def _moe(self, y, moe_axis):
         """The GShard MoE FFN (``mpit_tpu.ops.moe``): the dense reference
@@ -208,19 +231,52 @@ def _dense(layer: Dense, x):
     return y if layer.bias is None else y + layer.bias.to(layer.dtype)
 
 
-def row_parallel(layer: Dense, x, tp: int, matmul=torch.matmul):
+def _shards(span, tp: int) -> tuple:
+    """``(first, count)`` of the ``tp`` shards this process computes: all of
+    them unless ``span`` (the tp axis's ``AxisSpan``) spans processes."""
+    return (0, tp) if span is None or span.local else (span.start, span.count)
+
+
+def column_parallel(layer: Dense, x, tp: int, span=None, parts: int = 1):
+    """``layer(x)``, or with the ``tp`` shards over processes (``span``)
+    this process's shards' columns of each of the kernel's ``parts`` equal
+    column blocks (q, k and v for ``Dense_0``), its input through
+    Megatron's "f" (the backward sums its gradient over the tp processes)."""
+    first, count = _shards(span, tp)
+    if count == tp:
+        return layer(x)
+    width = layer.kernel.shape[1] // parts
+    n = width // tp
+    cols = [slice(p * width + first * n, p * width + (first + count) * n)
+            for p in range(parts)]
+    y = line_sum_grad(x, span) @ torch.cat([layer.kernel[:, c] for c in cols], 1).to(
+        layer.dtype)
+    if layer.bias is None:
+        return y
+    return y + torch.cat([layer.bias[c] for c in cols]).to(layer.dtype)
+
+
+def row_parallel(layer: Dense, x, tp: int, matmul=torch.matmul, span=None):
     """``layer(x)`` as the tensor-parallel row split computes it: the sum in
     shard order of ``x[..., shard_i] @ kernel[shard_i]`` over ``tp`` shards
     of the kernel's input dim, then the bias (what GSPMD's psum gives).
-    ``tp = 1`` is one product."""
+    ``tp = 1`` is one product. With the shards over processes (``span``)
+    ``x`` holds this process's shards' slice of the input; their partial
+    products are gathered over the tp processes before the sum, so its
+    order is the same for any split."""
     kernel = layer.kernel.to(layer.dtype)
     if tp == 1:
         y = matmul(x, kernel)
     else:
         n = kernel.shape[0] // tp
-        y = matmul(x[..., :n], kernel[:n])
-        for i in range(1, tp):
-            y = y + matmul(x[..., i * n:(i + 1) * n], kernel[i * n:(i + 1) * n])
+        first, count = _shards(span, tp)
+        parts = (matmul(x[..., j * n:(j + 1) * n], kernel[(first + j) * n:(first + j + 1) * n])
+                 for j in range(count))
+        if count < tp:
+            parts = iter(line_gather(torch.stack(list(parts)), span))
+        y = next(parts)
+        for part in parts:
+            y = y + part
     return y if layer.bias is None else y + layer.bias.to(layer.dtype)
 
 
@@ -292,6 +348,8 @@ class TransformerLM(Model):
         head: bool = True,
         head_dtype=None,
         tp: int = 1,
+        seq_span=None,
+        tp_span=None,
         device=None,
     ):
         super().__init__()
@@ -321,6 +379,7 @@ class TransformerLM(Model):
         self.moe_zloss_weight = moe_zloss_weight
         self.decode, self.head, self.head_dtype = decode, head, head_dtype
         self.tp = tp
+        self.seq_span, self.tp_span = seq_span, tp_span
         self._check_settings()
         self.Embed_0 = Embed(vocab_size, d_model, dt, device)
         self.pos_embedding = nn.Parameter(torch.zeros(max_len, d_model, device=device))
@@ -337,7 +396,8 @@ class TransformerLM(Model):
         with torch.no_grad():
             self.pos_embedding.copy_(draw * 0.02)
 
-    _CLONE_FIELDS = ("decode", "head", "head_dtype", "tp", "moe_axis")
+    _CLONE_FIELDS = ("decode", "head", "head_dtype", "tp", "moe_axis", "seq_span",
+                     "tp_span")
 
     def _check_settings(self) -> None:
         if self.decode and self.seq_axis is not None:
@@ -397,17 +457,24 @@ class TransformerLM(Model):
             return self._decode(tokens, cache)
         t_local = tokens.shape[-1]
         sp = tokens.shape[0] if self.seq_axis is not None else 1
-        total_len = t_local * sp
+        # this process's blocks [start, start + sp) of a ring of `size`
+        span = self.seq_span if self.seq_axis is not None else None
+        size, start = (sp, 0) if span is None else (span.size, span.start)
+        total_len = t_local * size
         if total_len > self.max_len:
             raise ValueError(
                 f"sequence of {total_len} exceeds max_len={self.max_len}"
             )
-        pos = self.pos_embedding[:total_len]
+        pos = self.pos_embedding[start * t_local:(start + sp) * t_local]
         if self.seq_axis is not None:
             # block r of the ring holds global positions [r·T_l, (r+1)·T_l)
             pos = pos.reshape(sp, 1, t_local, -1)
         x = self.Embed_0(tokens) + pos.to(self.compute_dtype)
         kw = dict(tp=self.tp, moe_axis=self.moe_axis)
+        if span is not None:
+            kw["seq_span"] = span
+        if self.tp_span is not None:
+            kw["tp_span"] = self.tp_span
         aux = {}
         for i in range(self.num_layers):
             block = getattr(self, f"Block_{i}")

@@ -7,8 +7,11 @@ blocks rotate around the ring with ``lax.ppermute``, each device folding
 every visiting block into its queries' online-softmax accumulator. On one
 card the ring is stacked, as the port's workers are: the ``sp`` blocks lie
 on dim 0 of ``(sp, B, T_l, H, D)`` tensors, and a rotation is
-``torch.roll`` over that dim (the ring lies inside one process; see
-``comm/topology.py``). The fold order, the f32 accumulators and the
+``torch.roll`` over that dim. A ring that spans processes stacks each
+process's share of the blocks (``span``, ``comm/topology.py``
+``AxisSpan``), and a rotation passes the edge block to the next process
+(``comm.collectives.ring_hop``); the masks use the blocks' global
+positions. The fold order, the f32 accumulators and the
 ``-inf`` guards are the reference's, so the result is exact attention, not
 an approximation: only the order of the sums differs from
 :func:`dense_attention`.
@@ -21,6 +24,8 @@ operations. :func:`dense_attention` is also the transformer's
 from __future__ import annotations
 
 import torch
+
+from mpit_tpu_torch.comm.collectives import ring_hop
 
 
 def dense_attention(q, k, v, causal: bool = False):
@@ -61,34 +66,37 @@ def _online_block(m, l, acc, q, k, v, mask, scale):
     return m_new, l_new, acc_new
 
 
-def ring_attention(q, k, v, causal: bool = False):
+def ring_attention(q, k, v, causal: bool = False, span=None):
     """Exact attention over a stacked sequence ring: ``q``, ``k``, ``v``
     are ``(sp, B, T_l, H, D)``, block ``r`` the global positions ``[r·T_l,
     (r+1)·T_l)``. Returns the blocks of ``softmax(QKᵀ/√D)V``, same shape
     and dtype as ``q``. ``causal`` masks by global positions. At step
     ``i`` block ``r`` folds the K/V block that started at ``r − i``, as
-    the reference's ring does."""
+    the reference's ring does. With ``span`` (an ``AxisSpan`` of the sp
+    axis) the stack is this process's blocks ``[span.start, span.start +
+    span.count)`` of a ring of ``span.size`` that spans processes."""
     if q.dim() != 5:
         raise ValueError(f"expected (sp, B, T, H, D) inputs, got {tuple(q.shape)}")
     sp, b, t_q, h, d = q.shape
+    size, start = (sp, 0) if span is None else (span.size, span.start)
     t_k = k.shape[2]
     dev = q.device
     scale = 1.0 / (d ** 0.5)
     m = torch.full((sp, b, h, t_q), float("-inf"), device=dev)
     l = torch.zeros((sp, b, h, t_q), device=dev)
     acc = torch.zeros((sp, b, h, t_q, d), device=dev)
-    ranks = torch.arange(sp, device=dev)
+    ranks = torch.arange(start, start + sp, device=dev)
     q_pos = ranks[:, None] * t_q + torch.arange(t_q, device=dev)
-    for i in range(sp):
+    for i in range(size):
         mask = None
         if causal:
-            src = (ranks - i) % sp
+            src = (ranks - i) % size
             k_pos = src[:, None] * t_k + torch.arange(t_k, device=dev)
             # (sp, 1, 1, Tq, Tk): per block, over batch and heads
             mask = (k_pos[:, None, :] <= q_pos[:, :, None])[:, None, None]
         m, l, acc = _online_block(m, l, acc, q, k, v, mask, scale)
-        if i + 1 < sp:
-            k, v = torch.roll(k, 1, 0), torch.roll(v, 1, 0)
+        if i + 1 < size:
+            k, v = ring_hop(k, 1, span), ring_hop(v, 1, span)
     # causal rows always see >= 1 key (their own), so l > 0; the guard
     # keeps a fully masked row finite instead of 0/0
     out = acc / torch.clamp(l, min=torch.finfo(torch.float32).tiny)[..., None]

@@ -15,6 +15,13 @@ ring, and the row-parallel products sum their ``tp`` shards in order
 every token of every block, the reference's ``pmean`` over sp of the
 GSPMD mean over dp, and the update sees the whole gradient (cross-leaf
 transforms such as global-norm clipping are safe, as in the reference).
+
+tp, sp or both may span processes, where each process's workers form a
+block of the mesh (``Topology.axis_span``): the ring as in
+``parallel/seq.py``, the shards as in ``parallel/tensor.py``; the sharded
+gradients are summed over the tp processes, then everything is averaged
+over the processes that hold the same shards, and the evaluation counts
+are summed over those.
 """
 
 from __future__ import annotations
@@ -25,7 +32,9 @@ from mpit_tpu_torch.comm.topology import Topology
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.parallel.seq import SeqParallelTrainer
-from mpit_tpu_torch.parallel.tensor import check_tp_divisibility, tp_state_specs
+from mpit_tpu_torch.parallel.tensor import (
+    check_tp_divisibility, tp_across_processes, tp_state_specs,
+)
 
 
 class ComposedParallelTrainer(SeqParallelTrainer):
@@ -68,7 +77,10 @@ class ComposedParallelTrainer(SeqParallelTrainer):
             )
         check_tp_divisibility(model, self.tp_size)
         self.batch_axis, self.seq_axis = "dp", "sp"
-        self.model = model.clone(tp=self.tp_size)
+        self._place()
+        across = {k: span for k, span in (("seq_span", self._seq_span),
+                                          ("tp_span", self._tp_span)) if not span.local}
+        self.model = model.clone(tp=self.tp_size, **across)
         self.accum_steps = 1
         self.bucketed = False
         self.obs, self._tracer = None, None
@@ -78,6 +90,16 @@ class ComposedParallelTrainer(SeqParallelTrainer):
             self.loss_fn, 1, remat=getattr(model, "remat", False))
         self._eval = common.build_count_loss_eval(
             self.model, self.topo.device, split=self._blocks)
+
+    def _place(self) -> None:
+        super()._place()
+        self._tp_span = self.topo.axis_span("tp")
+        self._peers = self._tp_peers = self.topo.peers("tp")
+
+    def _across_processes(self, grads, loss):
+        if self._tp_span.local:
+            return super()._across_processes(grads, loss)
+        return tp_across_processes(self, grads, loss)
 
     @property
     def dp_size(self) -> int:

@@ -19,7 +19,12 @@ objective. In a world of several processes each holds its own workers'
 experts; the gradient of its own mean loss gives its experts ``P ·`` their
 share and the replicated leaves their process-local term, so expert leaves
 are divided by the process count P and replicated leaves averaged across
-the processes, the reference's rule with P for W.
+the processes, the reference's rule with P for W. The state is a
+:class:`MoETrainState`, whose ``process_cut`` tells the checkpoint to
+gather the expert leaves and their optimizer moments along the expert dim
+on save (process 0 writes all E experts, as the reference's
+``save_checkpoint`` gathers its non-addressable leaves) and to cut them
+back to each process's experts on restore.
 
 The balance and z terms enter as the reference's do: their statistics are
 averaged over the workers inside the op (the reference's ``pmean``, whose
@@ -31,6 +36,7 @@ with both weights nonzero against the reference's trainer.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -51,6 +57,19 @@ def _is_expert_leaf(path) -> bool:
     keys = [k for k in path if isinstance(k, str)]
     last = keys[-1] if keys else ""
     return last.startswith("moe_") and last != "moe_router"
+
+
+@dataclasses.dataclass
+class MoETrainState(common.TrainState):
+    """The reference's ``TrainState`` (params, opt_state, step); in a world
+    of several processes each holds its own workers' experts."""
+
+    @staticmethod
+    def process_cut(path) -> Optional[int]:
+        """The expert dim (0) of an expert leaf or its optimizer moment
+        (Adam's ``mu`` and ``nu``, SGD's trace mirror the param tree); None
+        for a replicated leaf."""
+        return 0 if _is_expert_leaf(path) else None
 
 
 class MoEParallelTrainer:
@@ -142,7 +161,7 @@ class MoEParallelTrainer:
         params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
         metrics = {"loss": loss}
         metrics.update((f"moe_{k}", v.detach()) for k, v in aux.items())
-        return common.TrainState(params, opt_state, state.step + 1), metrics
+        return MoETrainState(params, opt_state, state.step + 1), metrics
 
     # -- public interface ---------------------------------------------------
 
@@ -160,7 +179,7 @@ class MoEParallelTrainer:
             params = tree_unflatten(params, [
                 a.chunk(procs)[index].clone() if _is_expert_leaf(p) else a
                 for p, a in pairs])
-        return common.TrainState.create(params, self.optimizer)
+        return MoETrainState.create(params, self.optimizer)
 
     def _check(self, x) -> None:
         common.check_global_batch(len(x), self.topo.num_workers)

@@ -40,8 +40,10 @@ port's ``LayerNorm``. The optimizer is the built-in SGD with momentum
 (state ``{"params", "momentum", "step"}``) or an elementwise one of
 ``optim`` (``{"params", "opt_state", "step"}``), with the reference's
 ``clip_norm``. In a world of several processes pp lies inside each
-process, dp spans them: each takes its groups' rows and the gradient and
-loss are averaged across the processes before the update.
+process (the trainer refuses a ``pp`` wider than a process's stacked
+workers, which ``Topology`` admits for sp and tp), dp spans them: each
+takes its groups' rows and the gradient and loss are averaged across the
+processes before the update.
 
 :func:`schedule_1f1b`, :func:`schedule_pipeline` (``_schedule_cached``) and
 ``_F_POLICIES`` are the reference's code: the timetables are equal array
@@ -354,6 +356,12 @@ class PipelineParallelTrainer:
             )
         self.pp = self.topo.mesh_shape[1]
         self.dp = self.topo.mesh_shape[0]
+        if self.topo.local_workers % self.pp:
+            raise ValueError(
+                f"pp={self.pp} must divide each process's "
+                f"{self.topo.local_workers} stacked workers: the pipeline's "
+                "stages lie inside one process (only 'dp' spans processes)"
+            )
         if num_layers % self.pp:
             raise ValueError(
                 f"num_layers={num_layers} not divisible by pp={self.pp}"

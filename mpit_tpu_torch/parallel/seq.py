@@ -14,10 +14,17 @@ forward and backward over the blocks, then the optimizer update. The math
 is the same for every factorization of the world, (8, 1), (2, 4) or (1, 8),
 as the reference's (``tests/test_torch_seq.py``).
 
-In a world of several processes the sp ring lies inside each process
-(``Topology`` refuses a mesh where it would not), each process takes its
-dp groups' rows of the global batch, and the gradient and the loss are
-averaged across the processes, as ``DataParallelTrainer`` does.
+In a world of several processes each process takes its rows of the
+global batch (its indices on dp) and its sequence blocks (its indices on
+sp): all the blocks where it holds whole dp groups, a share of one ring
+where the ring spans processes. Such a ring passes its K/V blocks to the
+neighbour process (``ops/ring_attention.py``) or exchanges head groups by
+``all_to_all_single`` (``ops/ulysses.py``), both differentiable, so each
+process's gradient of its local mean loss carries its share of every
+other process's. The shards are equal, so the mean of the processes'
+losses and gradients, which ``DataParallelTrainer``'s step takes, is the
+reference's ``pmean`` over both axes. The evaluation cuts each eval batch
+the same way and sums the counts across the processes.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
-from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.comm.collectives import line_sum
+from mpit_tpu_torch.comm.topology import ProcessLine, Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.ops.ring_attention import to_blocks
 from mpit_tpu_torch.parallel import common
@@ -70,6 +78,9 @@ class SeqParallelTrainer(DataParallelTrainer):
                 f"sequence axis {self.seq_axis!r} (construct the model "
                 f"with seq_axis={self.seq_axis!r})"
             )
+        self._place()
+        if not self._seq_span.local:
+            self.model = model = model.clone(seq_span=self._seq_span)
         self.accum_steps = 1
         self.bucketed = False  # the reference's seq trainer has no exchange knobs
         self.obs, self._tracer = None, None  # ...and no obs journal
@@ -81,6 +92,14 @@ class SeqParallelTrainer(DataParallelTrainer):
         self._eval = common.build_count_loss_eval(
             model, self.topo.device, split=self._blocks)
 
+    def _place(self) -> None:
+        """This process's place on the batch and sequence axes, and the
+        processes its evaluation counts are summed over (the world)."""
+        self._row_span = self.topo.axis_span(self.batch_axis)
+        self._seq_span = self.topo.axis_span(self.seq_axis)
+        world = tuple(range(self.topo.process_count))
+        self._peers = ProcessLine(world, (world,))
+
     @property
     def dp_size(self) -> int:
         return self.topo.mesh_shape[0]
@@ -90,8 +109,19 @@ class SeqParallelTrainer(DataParallelTrainer):
         return self.topo.mesh_shape[1]
 
     def _blocks(self, a) -> torch.Tensor:
-        """``(B, T)`` tokens as the stacked ring ``(sp, B, T/sp)``."""
-        return to_blocks(torch.as_tensor(a), self.sp_size).contiguous()
+        """``(B, T)`` tokens as the stacked ring ``(sp, B, T/sp)``, this
+        process's blocks of it where the ring spans processes."""
+        blocks = to_blocks(torch.as_tensor(a), self.sp_size)
+        span = self._seq_span
+        if not span.local:
+            blocks = blocks[span.start:span.start + span.count]
+        return blocks.contiguous()
+
+    def _rows(self, a):
+        """This process's rows of a global batch: its dp groups'."""
+        per = len(a) // self.dp_size
+        span = self._row_span
+        return a[span.start * per:(span.start + span.count) * per]
 
     def _check(self, x) -> None:
         b, t = x.shape[:2]
@@ -102,9 +132,17 @@ class SeqParallelTrainer(DataParallelTrainer):
             )
 
     def _shard(self, x, y):
-        """This process's rows of a global batch, as sequence blocks."""
-        mine = self.topo.local_slice(len(x))
-        return self._blocks(x[mine]), self._blocks(y[mine])
+        """This process's rows of a global batch, as its sequence blocks."""
+        return self._blocks(self._rows(x)), self._blocks(self._rows(y))
+
+    def _eval_shard(self, params, x, y):
+        """The eval counts of this process's rows and blocks of a batch,
+        summed over the processes that hold the others."""
+        correct, loss_sum = self._eval(params, self._rows(x), self._rows(y))
+        if not in_process_group():
+            return correct, loss_sum
+        both = line_sum(torch.stack([correct.double(), loss_sum.double()]), self._peers)
+        return both[0], both[1]
 
     def evaluate(self, state, x, y, batch: int = 512):
         """Token-level accuracy and mean loss over an ``(N, T)`` eval set,
@@ -116,7 +154,7 @@ class SeqParallelTrainer(DataParallelTrainer):
                 f"sp={self.sp_size}"
             )
         correct, loss_sum, n = common.batched_count_eval(
-            self._eval, state.params, x, y, batch, self.dp_size
+            self._eval_shard, state.params, x, y, batch, self.dp_size
         )
         tokens = n * x.shape[1]
         return correct / tokens, loss_sum / tokens

@@ -144,15 +144,16 @@ class _BucketPlan:
         return sum(2 * b.hop_bytes for b in self.buckets)
 
 
-def _mean_across_processes(tree: Any, processes: int) -> Any:
-    """The mean of ``tree`` over the world's processes: one all-reduce of
-    the flat leaves, which returns the same bits on every process."""
+def _mean_across_processes(tree: Any, processes: int, group=None) -> Any:
+    """The mean of ``tree`` over the world's ``processes`` (or the
+    ``processes`` of ``group``): one all-reduce of the flat leaves, which
+    returns the same bits on every process."""
     import torch.distributed as dist
 
     from mpit_tpu_torch.utils.params import flatten_params, unflatten_params
 
     flat, spec = flatten_params(tree)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     return unflatten_params(spec, flat / processes)
 
 
@@ -235,10 +236,14 @@ class DataParallelTrainer:
         as the reference's pmean crosses its processes."""
         grads, loss = self._vg(state.params, x, y)
         if in_process_group():
-            grads, loss = _mean_across_processes((grads, loss),
-                                                 self.topo.process_count)
+            grads, loss = self._across_processes(grads, loss)
         params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
         return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
+
+    def _across_processes(self, grads, loss):
+        """The gradient and the loss averaged across the world's processes
+        (each holds its equal share of the batch)."""
+        return _mean_across_processes((grads, loss), self.topo.process_count)
 
     # -- observability --------------------------------------------------------
 

@@ -28,8 +28,18 @@ Sharding rules (first match wins, default replicated):
 - embeddings, positions, LayerNorms: replicated.
 
 The batch shards over ``dp``; the step is :class:`DataParallelTrainer`'s
-one pass over the global batch (dp may span processes; tp lies inside one,
-``comm/topology.py``).
+one pass over the global batch. dp and tp may span processes
+(``comm/topology.py``). Where tp does, each process keeps the whole tree
+but computes only its shards (``models/transformer.py``: the column
+products of its heads and MLP columns, the row-parallel partials gathered
+over the tp processes and summed in shard order, Megatron's "f" on the
+column products' input), so a sharded leaf's gradient holds its shards'
+part and zeros elsewhere: :func:`tp_across_processes` sums those over the
+tp processes (exact: one nonzero term an element) and averages the
+gradient and the loss over the processes that hold the same shards. Every
+process then runs the same update on the same whole gradient, so the
+copies of every leaf stay equal bit for bit, global-norm clipping sees the
+whole gradient and the checkpoint holds whole leaves, as the reference's.
 """
 
 from __future__ import annotations
@@ -37,10 +47,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.comm.collectives import line_sum
+from mpit_tpu_torch.comm.topology import Topology, line_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.parallel import common
-from mpit_tpu_torch.parallel.sync import DataParallelTrainer
+from mpit_tpu_torch.parallel.sync import DataParallelTrainer, _mean_across_processes
+from mpit_tpu_torch.utils.params import (
+    flatten_params, tree_leaves, tree_leaves_with_path, tree_unflatten, unflatten_params,
+)
 
 
 class P(tuple):
@@ -182,6 +196,23 @@ def check_tp_divisibility(model, tp: int) -> None:
             raise ValueError(f"{field}={need} not divisible by tp={tp}")
 
 
+def tp_across_processes(trainer, grads, loss):
+    """The step's gradient and loss of a trainer whose ``_tp_span`` spans
+    processes: the sharded leaves summed over the tp processes, then the
+    whole gradient and the loss averaged over ``_tp_peers``, the processes
+    that hold the same shards (the batch's other shares)."""
+    pairs = tree_leaves_with_path(grads)
+    sharded = ["tp" in _spec_for_path(path)[0] for path, _ in pairs]
+    flat, spec = flatten_params([g for (_, g), s in zip(pairs, sharded) if s])
+    summed = iter(tree_leaves(unflatten_params(spec, line_sum(flat, trainer._tp_span))))
+    grads = tree_unflatten(grads, [next(summed) if s else g
+                                   for (_, g), s in zip(pairs, sharded)])
+    peers = trainer._tp_peers
+    if len(peers.line) == 1:
+        return grads, loss
+    return _mean_across_processes((grads, loss), len(peers.line), line_group(peers))
+
+
 class TensorParallelTrainer(DataParallelTrainer):
     """dp × tp training for :class:`TransformerLM` (dense attention).
 
@@ -224,7 +255,10 @@ class TensorParallelTrainer(DataParallelTrainer):
             )
         check_tp_divisibility(model, self.tp_size)
         self.batch_axis = names[0]
-        self.model = model.clone(tp=self.tp_size)
+        self._row_span = self.topo.axis_span(self.batch_axis)
+        self._tp_span, self._tp_peers = self.topo.axis_span("tp"), self.topo.peers("tp")
+        across = {} if self._tp_span.local else {"tp_span": self._tp_span}
+        self.model = model.clone(tp=self.tp_size, **across)
         self.accum_steps = 1
         self.bucketed = False  # the reference's tp trainer has no exchange knobs
         self.obs, self._tracer = None, None
@@ -252,6 +286,17 @@ class TensorParallelTrainer(DataParallelTrainer):
             raise ValueError(
                 f"global batch {len(x)} not divisible by dp={self.dp_size}"
             )
+
+    def _shard(self, x, y):
+        """This process's rows of a global batch: its dp groups'."""
+        per, span = len(x) // self.dp_size, self._row_span
+        mine = slice(span.start * per, (span.start + span.count) * per)
+        return x[mine], y[mine]
+
+    def _across_processes(self, grads, loss):
+        if self._tp_span.local:
+            return super()._across_processes(grads, loss)
+        return tp_across_processes(self, grads, loss)
 
     def evaluate(self, state, x, y, batch: int = 512):
         """Token-level accuracy and mean loss over an ``(N, T)`` eval set."""

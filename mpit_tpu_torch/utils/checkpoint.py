@@ -19,6 +19,13 @@ same values, so either package resumes from the other's files:
 In a world of several processes every process gathers the stacked worker
 fields (a collective), process 0 writes, and all wait at a barrier before
 the save returns; every process restores, keeping its own workers' rows.
+A state cut across the processes says how: ``process_sharded`` names whole
+fields cut on dim 0 (ZeRO's optimizer state), and ``process_cut(path)``
+gives, for a leaf's path (its field, keys and indices), the dim along
+which the processes hold equal shares of it, or None (the expert leaves of
+an MoE state and their optimizer moments, cut on the expert dim). Such a
+leaf is gathered whole for the file and cut back to this process's share
+on restore.
 
 The reference writes with ``flax.serialization``; the machine with the
 card has neither flax nor ``msgpack``, so this module carries the small
@@ -403,13 +410,25 @@ def _tensor_leaves(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-def _gathered(t: torch.Tensor) -> torch.Tensor:
+def _gathered(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The world's processes' shares of ``t`` joined along ``dim`` in
+    process order."""
     from mpit_tpu_torch.comm.collectives import _gather
 
-    return _gather(t)
+    if dim == 0:
+        return _gather(t)
+    return _gather(t.movedim(dim, 0).contiguous()).movedim(0, dim)
 
 
-def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False) -> Any:
+def _leaf_cut(obj, cut, procs: int):
+    """The per-leaf cut in force below the dataclass ``obj``: its own
+    ``process_cut`` in a world of several processes, else the one it
+    inherits."""
+    return getattr(obj, "process_cut", cut) if procs > 1 else None
+
+
+def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False,
+                        cut=None, path: tuple = ()) -> Any:
     """The reference's ``flax.serialization.to_state_dict`` of the state
     ``obj`` stands for, as host numpy (tensors in the flax layout), in the
     reference's order: a dataclass's fields as declared, dict keys sorted,
@@ -417,30 +436,37 @@ def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False) -> Any
     ``lead`` is the shape of a count (``(W,)`` inside a stacked worker
     optimizer); ``gather`` gathers stacked tensors across processes, as it
     does the fields a state names in ``process_sharded`` (ZeRO's optimizer
-    state, cut on dim 0 across processes)."""
+    state, cut on dim 0 across processes); ``cut(path)`` is the dim along
+    which the processes share the leaf at ``path`` (None: whole in each),
+    the state's ``process_cut``."""
     from mpit_tpu_torch.comm.topology import current_process
     from mpit_tpu_torch.convert import leaf_to_flax
 
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         fields = _fields(obj)
         stacked, w = _worker_fields(obj, fields)
-        cut = stacked + getattr(obj, "process_sharded", ())
+        sharded = stacked + getattr(obj, "process_sharded", ())
         procs = current_process()[1]
+        cut = _leaf_cut(obj, cut, procs)
         return {
             k: state_to_state_dict(
                 v, (w * procs,) if k in stacked else lead,
-                gather or (k in cut and procs > 1),
+                gather or (k in sharded and procs > 1), cut, path + (k,),
             )
             for k, v in fields.items()
         }
     if isinstance(obj, (tuple, list)):
-        return {str(i): state_to_state_dict(v, lead, gather)
+        return {str(i): state_to_state_dict(v, lead, gather, cut, path + (i,))
                 for i, v in enumerate(obj)}
     if isinstance(obj, dict):
         # sorted, as jax's tree functions leave the reference's dicts
-        return {k: state_to_state_dict(obj[k], lead, gather) for k in sorted(obj)}
+        return {k: state_to_state_dict(obj[k], lead, gather, cut, path + (k,))
+                for k in sorted(obj)}
     if isinstance(obj, torch.Tensor):
-        return leaf_to_flax(_gathered(obj) if gather else obj)
+        if gather:
+            return leaf_to_flax(_gathered(obj))
+        dim = cut(path) if cut is not None else None
+        return leaf_to_flax(obj if dim is None else _gathered(obj, dim))
     if isinstance(obj, int) and not isinstance(obj, bool):
         return np.full(lead, obj, np.int32)
     return obj
@@ -453,12 +479,15 @@ def state_to_host(state: Any) -> Any:
     return state_to_state_dict(state)
 
 
-def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) -> Any:
+def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None,
+                          cut=None, path: tuple = ()) -> Any:
     """A state shaped like ``template`` with the values of the state dict
     ``sd`` (the inverse of :func:`state_to_state_dict`); tensors land on
     the template's devices with its dtypes. ``rows`` keeps this process's
-    workers of a stacked field. Raises ``ValueError`` where the structures
-    differ, as flax's ``from_state_dict`` does."""
+    workers of a stacked field, ``cut(path)`` (the state's ``process_cut``)
+    this process's share of a leaf cut across the processes. Raises
+    ``ValueError`` where the structures differ, as flax's
+    ``from_state_dict`` does."""
     from mpit_tpu_torch.comm.topology import current_process
     from mpit_tpu_torch.convert import leaf_from_flax
 
@@ -475,6 +504,7 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) 
         keys_match(fields, sd, type(template).__name__)
         stacked, w = _worker_fields(template, fields)
         index, procs = current_process()
+        cut = _leaf_cut(template, cut, procs)
 
         def mine(k, v):
             """This process's rows of a field cut across processes."""
@@ -487,24 +517,36 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None) 
             return rows
 
         return dataclasses.replace(template, **{
-            k: state_from_state_dict(v, sd[k], mine(k, v)) for k, v in fields.items()
+            k: state_from_state_dict(v, sd[k], mine(k, v), cut, path + (k,))
+            for k, v in fields.items()
         })
     if isinstance(template, (tuple, list)):
         keys_match([str(i) for i in range(len(template))], sd,
                    type(template).__name__)
-        return type(template)(state_from_state_dict(v, sd[str(i)], rows)
+        return type(template)(state_from_state_dict(v, sd[str(i)], rows, cut, path + (i,))
                               for i, v in enumerate(template))
     if isinstance(template, dict):
         keys_match(template, sd, "a dict")
-        return {k: state_from_state_dict(v, sd[k], rows)
+        return {k: state_from_state_dict(v, sd[k], rows, cut, path + (k,))
                 for k, v in template.items()}
     if isinstance(template, torch.Tensor):
         a = leaf_from_flax(sd)
+        dim = cut(path) if cut is not None else None
         if rows is _PROCESS_SHARE:
             n = template.shape[0]
             a = a[current_process()[0] * n:][:n]
         elif rows is not None:
             a = a[rows]
+        elif dim is not None:
+            index, procs = current_process()
+            n = template.shape[dim]
+            if a.ndim <= dim or a.shape[dim] != n * procs:
+                raise ValueError(
+                    f"the checkpoint holds an array of shape {tuple(a.shape)} where "
+                    f"{procs} processes' shares {tuple(template.shape)} along dim "
+                    f"{dim} make {n * procs}"
+                )
+            a = a.take(range(index * n, (index + 1) * n), axis=dim)
         if tuple(a.shape) != tuple(template.shape):
             raise ValueError(
                 f"the checkpoint holds an array of shape {tuple(a.shape)} "

@@ -115,11 +115,24 @@ def test_ppermute_ring_over_one_axis_of_a_2d_mesh(axis, port_world):
 def test_a_mesh_the_world_cannot_hold_is_refused():
     with pytest.raises(ValueError, match="does not cover"):
         Topology(8, CPU, axis_names=("dp", "sp"), mesh_shape=(2, 2))
-    # the sp ring must lie inside one process's stacked workers
-    with pytest.raises(ValueError, match="inside one process"):
-        Topology(8, CPU, process_count=4, axis_names=("dp", "sp"), mesh_shape=(2, 4))
+    # the sp ring may span processes: 4 processes of 2 workers hold half a
+    # ring each
+    topo = Topology(8, CPU, process_index=3, process_count=4, axis_names=("dp", "sp"),
+                    mesh_shape=(2, 4))
+    span = topo.axis_span("sp")
+    assert (topo.local_workers, span.start, span.count, span.line) == (2, 2, 2, (2, 3))
+    assert (topo.axis_span("dp").start, topo.peers("sp").line) == (1, (1, 3))
+    # ...but a process must hold whole inner groups or an equal share of one
+    with pytest.raises(ValueError, match="cannot hold"):
+        Topology(12, CPU, process_count=2, axis_names=("dp", "sp"), mesh_shape=(3, 4))
     assert Topology(8, CPU, process_count=2, axis_names=("dp", "sp"),
                     mesh_shape=(2, 4)).local_workers == 4
+    # the pipeline's stages stay inside one process
+    from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
+
+    with pytest.raises(ValueError, match="inside one process"):
+        PipelineParallelTrainer(31, 2, 32, 2, T, topo=Topology(
+            8, CPU, process_count=4, axis_names=("dp", "pp"), mesh_shape=(2, 4)))
 
 
 # --------------------------------------------------------------- attention
