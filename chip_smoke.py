@@ -189,9 +189,15 @@ non-zero before the result lines:
              ``--sp 2`` (one worker a rank, so the ring spans the ranks),
              ring then Ulysses; the tp trainer at (1, 2) and composed at
              (1, 2, 2) (f32); ``run()`` of moe-sync with 8 experts (4 a
-             rank). Each leg: equal results on both ranks, equal to the
-             same world in one process (the initial logits within 2e-5,
-             losses and params within the limits printed), a bit-exact
+             rank); the pipeline at (dp, pp) = (1, 2), a stage a rank, by
+             gpipe, 1f1b and interleaved (2 virtual chunks, 4 layers; f32,
+             2 microbatches), each rank holding its stage's half of every
+             ``blocks`` leaf; ``run()`` of pp-sync with ``--pp 2`` (f32,
+             1f1b, AdamW, ``clip_norm`` 1). Each leg: equal results on both
+             ranks, equal to the same world in one process (the initial
+             logits within 2e-5, or the pipeline's initial eval loss within
+             the f32 loss limit, losses and params within the limits
+             printed), a bit-exact
              checkpoint round trip, and the ranks' last checkpoint is, byte
              for byte, what one process writes of its state; the moe-sync
              file holds all 8 experts of each block with their AdamW
@@ -275,6 +281,10 @@ non-zero before the result lines:
              serving model's 8 greedy prompts under the near-tie rule (ms a
              token).
 33. tour     — ``mpit_tpu_torch/examples/parallelism_tour.py`` on the card.
+34. examples — ``mpit_tpu_torch/examples/ptest.py`` and ``train.py`` (the
+             reference's two top-level examples) as subprocesses on the card
+             at a tiny ``mnist-easgd``: exit 0, the ``[ptest]`` line and the
+             JSON line, finite losses.
 
 Each phase's seconds follow its lines. Then a JSON line ``{"kernels": [...]}`` and, last, the device line
 ``{"ok": true, "device": {...}}``. The script uses one card: it hides the
@@ -2635,11 +2645,13 @@ def dist_phase() -> None:
 DIST_LM = ["--layers", "2", "--d-model", "768", "--heads", "12", "--seq-len", "512",
            "--vocab", "10000", "--batch", "2", "--steps", "2"]
 DIST_LM_LEGS = ("run-seq-ring:2", "run-seq-ulysses:2", "tp:1,2", "composed:1,2,2",
-                "run-moe:8")
+                "run-moe:8", "pp-gpipe:1,2", "pp-1f1b:1,2", "pp-interleaved:1,2", "run-pp:2")
 # two processes against one: the initial logits (values moved, partials summed
 # in shard order: bit for bit in tests/test_torch_dist_axes.py; 2e-5 is the f32 flash and
 # ring tolerance), f32 trainer legs at tests/test_torch_seq.py's limits, the
-# bf16 run() legs' params at its BF16_TRAJ_TOL and their losses at UNIT_TOL
+# bf16 run() legs' params at its BF16_TRAJ_TOL and their losses at UNIT_TOL; the
+# pipeline legs (run-pp too) are f32, their initial eval loss at the f32 loss
+# limit (bit for bit in tests/test_torch_dist_pp.py, one thread a process)
 DIST_LOGIT_TOL = 2e-5
 DIST_TOL = {"f32": dict(loss=1e-5, param=5e-5), "bf16": dict(loss=1e-4, param=5e-3)}
 DIST_MOE_TOL = 1e-4  # tests/test_torch_dist.py's TRAJ_TOL
@@ -2746,14 +2758,14 @@ def dist_axes(tmp: str) -> None:
         if not (a["ckpt_roundtrip"] and o["ckpt_roundtrip"] and o["resaved_bytes_equal"]):
             raise AssertionError(f"dist {key}: checkpoint round trip, or the ranks' file "
                                  f"against one process's: {a} {o}")
-        experts = ""
+        experts, pp = "", key.startswith(("pp-", "run-pp"))
         if key.startswith("run-moe"):
             experts = _moe_experts(os.path.join(tmp, "ck2", key))
             if set(experts.values()) != {8}:
                 raise AssertionError(f"dist {key}: experts in the file {experts}")
             experts = f"the file holds all 8 experts ({len(experts)} leaves: params, mu, nu); "
         losses = "round_losses" if key.startswith("run-") else "losses"
-        tol = DIST_TOL["bf16" if key.startswith("run-") else "f32"]
+        tol = DIST_TOL["bf16" if key.startswith("run-") and not pp else "f32"]
         loss_err = max(abs(x - y) / abs(y) for x, y in zip(a[losses], o[losses]))
         param_err = max(float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max())
                         for x, y in zip(_ckpt_leaves(os.path.join(tmp, "ck2", key)),
@@ -2763,7 +2775,22 @@ def dist_axes(tmp: str) -> None:
             raise AssertionError(f"dist {key}: 2 ranks vs 1 process: loss {loss_err}, "
                                  f"params {param_err} (limits {tol})")
         logit = ""
-        if not key.startswith("run-"):
+        if key.startswith("pp-"):
+            # each rank holds its stage's rows of every blocks leaf (params
+            # and momentum), one process all of them
+            half = [a["layers"] // 2]
+            if a["block_rows"] != half or b["block_rows"] != half or o["block_rows"] != [
+                    a["layers"]]:
+                raise AssertionError(f"dist {key}: blocks rows {a['block_rows']} "
+                                     f"{b['block_rows']} {o['block_rows']}")
+            err = abs(a["eval0"][1] - o["eval0"][1]) / abs(o["eval0"][1])
+            if not err <= tol["loss"]:
+                raise AssertionError(f"dist {key}: initial eval loss {a['eval0']} vs "
+                                     f"{o['eval0']} (relative {err})")
+            logit = (f"each rank's blocks leaves {half[0]} rows (one process "
+                     f"{a['layers']}); initial eval loss relative |diff| {err:.3g} "
+                     f"(limit {tol['loss']}); ")
+        elif not key.startswith("run-"):
             # dp = 1: each rank's share is the whole batch (tp shards
             # the weights; composed keeps sp inside a rank)
             want = np.load(os.path.join(tmp, f"one.{key}.rank0.npy"))
@@ -2772,8 +2799,12 @@ def dist_axes(tmp: str) -> None:
             if err > DIST_LOGIT_TOL:
                 raise AssertionError(f"dist {key}: initial logits differ by {err}")
             logit = f"initial logits max |diff| {err:.3g} (limit {DIST_LOGIT_TOL}); "
-        phase("dist", f"{key} over 2 gloo ranks (CPU, 2 layers, d 768, 12 heads, T 512, "
-              f"batch 2, 2 steps; {'bf16 run(), AdamW' if key.startswith('run-') else 'f32, SGD'}"
+        kind = ("f32 run(), AdamW, clip_norm 1" if key.startswith("run-pp") else
+                "bf16 run(), AdamW" if key.startswith("run-") else
+                "f32, SGD, 2 microbatches" if pp else "f32, SGD")
+        phase("dist", f"{key} over 2 gloo ranks (CPU, {a.get('layers', 2)} layers, d 768, "
+              "12 heads, T 512, "
+              f"batch 2, 2 steps; {kind}"
               f"): losses {[round(v, 4) for v in a[losses]]} on both ranks; vs one process: "
               f"{logit}max relative |loss diff| {loss_err:.3g}, max |param diff| "
               f"{param_err:.3g} (limits {tol['loss']}, {tol['param']}); checkpoint round "
@@ -4022,6 +4053,55 @@ def tour_path() -> None:
         f"{k}: {v:.4f}" for k, v in losses.items()))
 
 
+EXAMPLE_ARGS = ["--preset", "mnist-easgd", "--epochs", "1", "--train-size", "512",
+                "--global-batch", "64"]
+EXAMPLES_TIMEOUT_S = 240
+
+
+def examples_phase() -> None:
+    """The reference's two top-level examples on the port (ROADMAP A13):
+    ``mpit_tpu_torch/examples/ptest.py`` and ``train.py`` side by side as
+    subprocesses on the card (their default device), at the smallest
+    ``mnist-easgd`` that trains (one epoch of 512 samples at a global
+    batch of 64: 2 EASGD rounds of W = 8): each exits 0 and prints its line
+    (the ``[ptest]`` line; ``run()``'s results as JSON) with a finite
+    loss, on the card."""
+    procs = {}
+    try:
+        for name in ("ptest.py", "train.py"):
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join("mpit_tpu_torch", "examples", name),
+                 *EXAMPLE_ARGS], cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True)
+        t0, outs = time.perf_counter(), {}
+        for name, proc in procs.items():
+            out, err = proc.communicate(
+                timeout=max(EXAMPLES_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if proc.returncode != 0:
+                raise AssertionError(f"examples: {name} exited {proc.returncode}:\n"
+                                     f"{out[-3000:]}{err[-3000:]}")
+            outs[name] = out.strip().splitlines()[-1]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    line = outs["ptest.py"]
+    m = re.fullmatch(r"\[ptest\] easgd: test acc=([\d.]+) loss=(\S+) wall=[\d.]+s "
+                     r"\(\d+ samples/sec, \d+ per worker\)", line)
+    if not m or not finite([float(m.group(2))]):
+        raise AssertionError(f"examples: ptest.py printed {line!r}")
+    res = json.loads(outs["train.py"])
+    if (res["platform"] != "cuda" or res["trained_units"] != 2
+            or not finite([res["final_loss"]] + res["round_losses"])):
+        raise AssertionError(f"examples: train.py printed {outs['train.py'][:2000]}")
+    phase("examples", f"ptest.py {' '.join(EXAMPLE_ARGS)} on the card: {line}")
+    phase("examples", f"train.py {' '.join(EXAMPLE_ARGS)} on the card: exit 0, platform "
+          f"{res['platform']}, {res['workers']} workers, {res['trained_units']} rounds, "
+          f"losses {[round(v, 4) for v in res['round_losses']]}, accuracy "
+          f"{res['accuracy']:.4f}, {res['wall_s']:.3f} s of training")
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4100,6 +4180,7 @@ def main() -> int:
     timed("pp", pp_path, card_line)
     timed("tp", tp_path, card_line, served)
     timed("tour", tour_path)
+    timed("examples", examples_phase)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     rows = [kernel, *flash.values()]

@@ -1,12 +1,14 @@
 """The transformer's inner mesh axes across the processes of a
 ``torch.distributed`` world: the sequence ring (ring and Ulysses), tensor
-parallelism and composed ``(dp, tp, sp)`` training, and ``run()`` of
-seq-sync and moe-sync, each as one leg of one launch.
+parallelism, composed ``(dp, tp, sp)`` training and the pipeline, and
+``run()`` of seq-sync, moe-sync and pp-sync, each as one leg of one launch.
 
     python -m mpit_tpu_torch.launch -n 2 --jax-distributed \\
         mpit_tpu_torch/examples/multihost_lm.py --device cpu \\
         --leg seq-ring:1,2 --leg seq-ulysses:2,2 --leg tp:1,2 --leg composed:1,2,2 \\
-        --leg run-seq-ring:2 --leg run-moe:4 --out /tmp/lm --ckpt-dir /tmp/lm-ck
+        --leg pp-gpipe:1,2 --leg pp-1f1b:1,2 --leg pp-interleaved:1,2 \\
+        --leg run-seq-ring:2 --leg run-moe:4 --leg run-pp:2 \\
+        --out /tmp/lm --ckpt-dir /tmp/lm-ck
 
 A trainer leg ``seq-ring|seq-ulysses|tp|composed:<mesh>`` builds the
 trainer over that mesh (``(dp, sp)``, ``(dp, tp)`` or ``(dp, tp, sp)``;
@@ -15,11 +17,18 @@ processes where a process holds less than one inner group) on an f32
 ``TransformerLM`` initialized from ``--seed``, and trains ``--steps`` SGD
 steps (lr 0.1, momentum 0.9) on one seeded ``(--batch, --seq-len)`` batch
 of tokens (``--remat``: each block recomputed on the backward, its hops
-with it). A ``run-*`` leg calls ``run()`` of ``ptb-transformer-large``
-(bf16, AdamW) narrowed by the same flags: ``run-seq-ring:<sp>`` and
-``run-seq-ulysses:<sp>`` under ``--algo seq-sync``, ``run-moe:<experts>``
-under ``--algo moe-sync``, over the world's workers (``--local-devices``
-in each process).
+with it). A pipeline leg ``pp-gpipe|pp-1f1b|pp-interleaved:<dp>,<pp>``
+builds ``PipelineParallelTrainer`` (f32, dense attention; 2 microbatches,
+interleaved with 2 virtual chunks a stage and its depth rounded up to a
+multiple of ``2·pp``) over the ``(dp, pp)`` mesh and trains the same SGD
+steps, saving a checkpoint after each; ``pp-clip`` is ``pp-1f1b`` with
+``clip_norm`` :data:`PP_CLIP`, low enough to bind. A ``run-*`` leg calls
+``run()`` of ``ptb-transformer-large`` (AdamW) narrowed by the same flags:
+``run-seq-ring:<sp>`` and ``run-seq-ulysses:<sp>`` under ``--algo
+seq-sync`` (bf16), ``run-moe:<experts>`` under ``--algo moe-sync`` (bf16),
+``run-pp:<pp>`` under ``--algo pp-sync`` (f32, 1f1b, 2 microbatches,
+``clip_norm`` 1), over the world's workers (``--local-devices`` in each
+process).
 
 Every process writes ``<out>.rank<i>.json``: for each leg its losses, its
 evaluation on the batch before and after training, whether the checkpoint
@@ -28,7 +37,9 @@ round trip was bit-exact (every process gathers, process 0 writes under
 gets, gathered, with the file) and its wall seconds, under the leg's key
 (``seq-ring:1,2`` is ``seq-ring@1x2``); a trainer leg also writes this
 process's logits of its share of the batch at the initial params to
-``<out>.<key>.rank<i>.npy`` and a step-0 checkpoint beside the last. Run
+``<out>.<key>.rank<i>.npy`` and a step-0 checkpoint beside the last (a
+pipeline leg: the leading dims of its ``blocks`` leaves, of the params
+and the momentum, as ``block_rows``, and no logits). Run
 the same legs in one process (``--local-devices`` = the world's workers,
 no ``--jax-distributed``) for the same world on one process; with
 ``--resave-from <the world's ckpt-dir>`` that process also restores each
@@ -48,7 +59,10 @@ sys.path.insert(
     0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 )
 
-AXES = {"seq": ("dp", "sp"), "tp": ("dp", "tp"), "composed": ("dp", "tp", "sp")}
+AXES = {"seq": ("dp", "sp"), "tp": ("dp", "tp"), "composed": ("dp", "tp", "sp"),
+        "pp": ("dp", "pp")}
+# the pp-clip leg's clip_norm: below the gradient norm of the first steps
+PP_CLIP = 0.05
 
 
 def _parse_leg(text: str):
@@ -74,7 +88,8 @@ def _roundtrip(directory: str, state, template) -> bool:
     from mpit_tpu_torch.utils.params import tree_leaves
 
     if state is not None:
-        save_checkpoint(directory, state, step=state.step)
+        step = state["step"] if isinstance(state, dict) else state.step
+        save_checkpoint(directory, state, step=step)
     step = latest_checkpoint(directory)
     restored, _ = restore_checkpoint(directory, template)
     with open(_ckpt_path(directory, step), "rb") as f:
@@ -152,6 +167,50 @@ def trainer_leg(ns, name: str, mesh: tuple, topo, key: str) -> dict:
     return res
 
 
+def pipeline_leg(ns, name: str, mesh: tuple, topo, key: str) -> dict:
+    """One pipeline leg over the ``(dp, pp)`` mesh (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
+    from mpit_tpu_torch.utils.checkpoint import save_checkpoint
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    schedule = name.removeprefix("pp-").replace("clip", "1f1b")
+    world = dataclasses.replace(topo, num_workers=int(np.prod(mesh)),
+                                axis_names=AXES["pp"], mesh_shape=mesh)
+    chunks = mesh[1] * (2 if schedule == "interleaved" else 1)
+    layers = -(-ns.layers // chunks) * chunks
+    trainer = PipelineParallelTrainer(
+        ns.vocab, layers, ns.d_model, ns.heads, ns.seq_len, topo=world, n_micro=2,
+        lr=0.1, momentum=0.9, schedule=schedule, virtual=2,
+        clip_norm=PP_CLIP if name == "pp-clip" else None)
+    state = trainer.init_state(torch.Generator().manual_seed(ns.seed))
+    rng = np.random.default_rng(ns.seed)
+    x = rng.integers(0, ns.vocab, (ns.batch, ns.seq_len)).astype(np.int64)
+    y = np.roll(x, -1, axis=1)
+    ck = os.path.join(ns.ckpt_dir, key) if ns.ckpt_dir else ""
+    if ck:
+        save_checkpoint(ck, state, step=0)
+    eval0 = trainer.evaluate(state, x, y)
+    losses = []
+    for _ in range(ns.steps):
+        state, m = trainer.step(state, x, y)
+        losses.append(float(m["loss"]))
+        if ck and state["step"] < ns.steps:
+            save_checkpoint(ck, state, step=state["step"])
+    res = {"losses": losses, "eval0": list(eval0),
+           "eval": list(trainer.evaluate(state, x, y)), "mesh": list(mesh),
+           "layers": layers,
+           "block_rows": sorted({int(a.shape[0]) for part in ("params", "momentum")
+                                 for a in tree_leaves(state[part]["blocks"])})}
+    if ck:
+        template = trainer.init_state(torch.Generator().manual_seed(ns.seed + 1))
+        _check_ckpt(ns, key, ck, state, template, res)
+    return res
+
+
 def run_leg(ns, name: str, arg: tuple, key: str) -> dict:
     """One ``run()`` leg (see the module docstring)."""
     import torch
@@ -164,6 +223,8 @@ def run_leg(ns, name: str, arg: tuple, key: str) -> dict:
 
     kind = name.removeprefix("run-")
     over = (dict(algo="moe-sync", moe_experts=arg[0]) if kind == "moe" else
+            dict(algo="pp-sync", pp=arg[0], n_micro=2, pp_schedule="1f1b", clip_norm=1.0)
+            if kind == "pp" else
             dict(algo="seq-sync", sp=arg[0], seq_impl=kind.removeprefix("seq-")))
     ck = os.path.join(ns.ckpt_dir, key) if ns.ckpt_dir else ""
     cfg = dataclasses.replace(
@@ -188,7 +249,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--leg", action="append", default=[],
                     help="seq-ring|seq-ulysses|tp|composed:<mesh>, "
-                         "run-seq-ring|run-seq-ulysses:<sp>, run-moe:<experts>")
+                         "pp-gpipe|pp-1f1b|pp-interleaved|pp-clip:<dp>,<pp>, "
+                         "run-seq-ring|run-seq-ulysses:<sp>, run-moe:<experts>, "
+                         "run-pp:<pp>")
     ap.add_argument("--local-devices", type=int, default=1,
                     help="workers stacked in each process for the run-* legs")
     ap.add_argument("--device", default=None, help="cpu, or the card (default)")
@@ -220,6 +283,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         if name.startswith("run-"):
             res = run_leg(ns, name, arg, key)
+        elif name.startswith("pp-"):
+            res = pipeline_leg(ns, name, arg, topo, key)
         else:
             res = trainer_leg(ns, name, arg, topo, key)
         res["wall_s"] = time.perf_counter() - t0

@@ -159,24 +159,26 @@ def check_clip_norm(clip_norm):
 
 
 def clip_by_global_norm_in_mesh(grads, max_norm: float, axis: Optional[str] = None,
-                                is_sharded: Optional[Callable] = None):
+                                is_sharded: Optional[Callable] = None, line=None):
     """Global-norm clipping whose norm is the whole model's
     (``mpit_tpu/parallel/common.py:119``). Returns ``(clipped, norm)``.
 
     Tree form (``grads`` a tree): leaves for which ``is_sharded(path)``
     holds (``path`` the tuple of the leaf's keys) are this process's share
     of a leaf sharded over ``axis`` (expert shards, pipeline stages): their
-    sums of squares are summed across the world's processes, as the
-    reference's ``psum`` sums them; every other leaf is replicated and
-    counts once. ``is_sharded=None`` treats every leaf as sharded. The
-    scale is ``max_norm / norm`` above ``max_norm``, multiplied in.
+    sums of squares are summed across the processes of ``line`` (a
+    ``ProcessLine``: the pipeline's pp line) or, with ``line`` None, the
+    world's (moe-sync's experts), as the reference's ``psum`` over
+    ``axis`` sums them; every other leaf is replicated and counts once.
+    ``is_sharded=None`` treats every leaf as sharded. The scale is
+    ``max_norm / norm`` above ``max_norm``, multiplied in.
 
     Chunk form (``grads`` a tensor, ZeRO's flat gradient held as stacked
     chunks ``(W_local, chunk)``): each worker's chunk sum of squares,
     summed over the workers and across processes, is the norm of the whole
     vector."""
     if not isinstance(grads, torch.Tensor):
-        return _clip_tree_in_mesh(grads, max_norm, is_sharded)
+        return _clip_tree_in_mesh(grads, max_norm, is_sharded, line)
     chunks = grads
     sq = world_sum(chunks.to(torch.float32).square().sum(1))
     norm = sq.sqrt()
@@ -184,7 +186,7 @@ def clip_by_global_norm_in_mesh(grads, max_norm: float, axis: Optional[str] = No
     return (chunks * scale).to(chunks.dtype), norm
 
 
-def _clip_tree_in_mesh(grads, max_norm: float, is_sharded):
+def _clip_tree_in_mesh(grads, max_norm: float, is_sharded, line):
     from mpit_tpu_torch.utils.params import tree_leaves_with_path
 
     leaves = tree_leaves_with_path(grads)
@@ -199,7 +201,13 @@ def _clip_tree_in_mesh(grads, max_norm: float, is_sharded):
             shard_sq = shard_sq + sq
         else:
             repl_sq = repl_sq + sq
-    norm = torch.sqrt(world_sum(shard_sq[None]) + repl_sq)
+    if line is None:
+        shard_sq = world_sum(shard_sq[None])
+    else:
+        from mpit_tpu_torch.comm.collectives import line_sum
+
+        shard_sq = line_sum(shard_sq, line)
+    norm = torch.sqrt(shard_sq + repl_sq)
     scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 

@@ -39,11 +39,29 @@ attention, as the reference runs flax's ``Block``; the final norm is the
 port's ``LayerNorm``. The optimizer is the built-in SGD with momentum
 (state ``{"params", "momentum", "step"}``) or an elementwise one of
 ``optim`` (``{"params", "opt_state", "step"}``), with the reference's
-``clip_norm``. In a world of several processes pp lies inside each
-process (the trainer refuses a ``pp`` wider than a process's stacked
-workers, which ``Topology`` admits for sp and tp), dp spans them: each
-takes its groups' rows and the gradient and loss are averaged across the
-processes before the update.
+``clip_norm``.
+
+In a world of several processes (``Topology``) a process holds either
+whole pp groups (pp inside the process: the dp groups' rows are cut
+across the processes and the gradient and loss averaged over them) or an
+equal share of one pp group's stages (pp spans processes,
+``Topology.axis_span("pp")``). Then each process keeps only its stages'
+rows ``[start·L/pp, (start+count)·L/pp)`` of every ``blocks`` leaf (in
+storage order: under interleaving a stage's chunks are contiguous) and
+of their momentum or optimizer state, and its dp group's rows of the
+batch; activations and cotangents cross between processes only at its
+edge stages, by send and receive on the pp line (:meth:`_exchange`: the
+reference's ring ``ppermute``, every message of a tick posted at once and
+paired by the same timetable on both sides). GPipe's backward is then
+written out (the transpose of a ppermute is the reverse ppermute): the
+forward keeps each local stage's graph per microbatch from a leaf input,
+and a reverse tick loop transposes them, the last stage opening with the
+head's loss. The ``rest`` gradient and the loss are summed over the pp
+line in stage order, then everything is averaged over ``peers("pp")``, the
+processes that hold the same stages; clipping sums the ``blocks`` leaves'
+squares over the pp line. The state is a :class:`PipelineState`, whose
+``process_cut`` makes a checkpoint gather the stages along the pp line
+(the file is the one-process file) and cut them back on restore.
 
 :func:`schedule_1f1b`, :func:`schedule_pipeline` (``_schedule_cached``) and
 ``_F_POLICIES`` are the reference's code: the timetables are equal array
@@ -60,12 +78,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mpit_tpu_torch.comm.topology import Topology, in_process_group
+from mpit_tpu_torch.comm.collectives import _bytes, line_gather
+from mpit_tpu_torch.comm.topology import AxisSpan, Topology, in_process_group, line_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.models.layers import LayerNorm, params_tree
 from mpit_tpu_torch.models.transformer import Block
 from mpit_tpu_torch.parallel import common
-from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
+from mpit_tpu_torch.utils.params import (
+    flatten_params, tree_leaves, tree_map, tree_unflatten, unflatten_params,
+)
 
 SCHEDULES = ("gpipe", "1f1b", "interleaved")
 
@@ -73,6 +94,27 @@ SCHEDULES = ("gpipe", "1f1b", "interleaved")
 def _is_blocks_leaf(path) -> bool:
     """Stage-sharded leaves live under the top-level ``blocks`` group."""
     return bool(path) and path[0] == "blocks"
+
+
+class PipelineState(dict):
+    """The trainer's state ``{"params", "momentum" | "opt_state", "step"}``
+    (a dict, as the reference's), which tells a checkpoint how the
+    processes hold it: where pp spans processes (``process_line`` not
+    local) each holds its stages' rows of every ``blocks`` leaf, of the
+    params and of their optimizer state, gathered along the line for the
+    file and cut back on restore (``utils/checkpoint.py``)."""
+
+    def __init__(self, items: dict, process_line: AxisSpan):
+        super().__init__(items)
+        self.process_line = process_line
+
+    def process_cut(self, path) -> Optional[int]:
+        """The stage dim (0) of a ``blocks`` leaf where the stages are cut
+        across processes; None for every other leaf."""
+        return 0 if not self.process_line.local and "blocks" in path else None
+
+    def with_items(self, items: dict) -> "PipelineState":
+        return PipelineState(items, self.process_line)
 
 
 def _modules(d_model: int, num_heads: int, d_ff: int):
@@ -356,12 +398,14 @@ class PipelineParallelTrainer:
             )
         self.pp = self.topo.mesh_shape[1]
         self.dp = self.topo.mesh_shape[0]
-        if self.topo.local_workers % self.pp:
-            raise ValueError(
-                f"pp={self.pp} must divide each process's "
-                f"{self.topo.local_workers} stacked workers: the pipeline's "
-                "stages lie inside one process (only 'dp' spans processes)"
-            )
+        # this process's stages and dp groups (raises where its workers
+        # form no block of the mesh), and the processes holding its stages
+        self._pp_span = self.topo.axis_span("pp")
+        self._dp_span = self.topo.axis_span("dp")
+        self._dp_peers = self.topo.peers("pp")
+        self._across = not self._pp_span.local
+        self._stages = list(range(self._pp_span.start,
+                                  self._pp_span.start + self._pp_span.count))
         if num_layers % self.pp:
             raise ValueError(
                 f"num_layers={num_layers} not divisible by pp={self.pp}"
@@ -433,13 +477,23 @@ class PipelineParallelTrainer:
             return int(schedule_pipeline(self.n_micro, self.pp, self.virtual)["ticks"])
         return self.n_micro + self.pp - 1
 
+    def _whole_blocks(self, params: dict) -> dict:
+        """Params with the whole stack of blocks: where pp spans processes,
+        the stages' rows gathered along the pp line (a collective)."""
+        if not self._across:
+            return params
+        return {"blocks": tree_map(lambda a: line_gather(a, self._pp_span), params["blocks"]),
+                "rest": params["rest"]}
+
     def init_state(self, generator: Optional[torch.Generator] = None,
-                   sample_x=None, params=None) -> dict:
+                   sample_x=None, params=None) -> PipelineState:
         """``{"params", "momentum" | "opt_state", "step"}`` from ``params``
         (in global layer order) or :func:`init_params`; under interleaving
         the layers are permuted into chunk storage order (checkpoints carry
-        this layout). ``sample_x`` is accepted and ignored, as in the
-        reference."""
+        this layout). Where pp spans processes the whole stack is drawn (or
+        given) and this process keeps its stages' rows, so every process
+        holds the one-process run's values. ``sample_x`` is accepted and
+        ignored, as in the reference."""
         if params is None:
             params = init_params(
                 generator, self.vocab_size, self.num_layers, self.d_model,
@@ -450,46 +504,107 @@ class PipelineParallelTrainer:
             perm = torch.as_tensor(self._perm, device=dev)
             params = {"blocks": tree_map(lambda a: a[perm], params["blocks"]),
                       "rest": params["rest"]}
+        if self._across:
+            k = self.num_layers // self.pp
+            mine = slice(self._stages[0] * k, (self._stages[-1] + 1) * k)
+            params = {"blocks": tree_map(lambda a: a[mine].clone(), params["blocks"]),
+                      "rest": params["rest"]}
         if self.optimizer is not None:
-            return {"params": params, "opt_state": self.optimizer.init(params), "step": 0}
-        return {"params": params, "momentum": tree_map(torch.zeros_like, params), "step": 0}
+            state = {"params": params, "opt_state": self.optimizer.init(params), "step": 0}
+        else:
+            state = {"params": params, "momentum": tree_map(torch.zeros_like, params),
+                     "step": 0}
+        return PipelineState(state, self._pp_span)
 
     # -- the schedules ------------------------------------------------------
 
     def _micro(self, a: torch.Tensor) -> torch.Tensor:
         """This process's rows ``(B_l, ...)`` as ``(M, R, ...)``: microbatch
-        ``i`` is each dp group's ``i``-th slice, in group order."""
+        ``i`` is each of its dp groups' ``i``-th slice, in group order."""
         m = self.n_micro
-        groups = self.dp // self.topo.process_count
+        groups = self._dp_span.count
         b = a.shape[0] // groups
         a = a.reshape(groups, m, b // m, *a.shape[1:]).transpose(0, 1)
         return a.reshape(m, -1, *a.shape[3:])
 
     def _stage_rows(self, s: int, cl: int) -> list:
+        """The rows of this process's ``blocks`` leaves that stage ``s``'s
+        local chunk ``cl`` runs."""
         k = self.num_layers // self.pp
         kc = k // self.virtual
-        return [s * k + cl * kc + j for j in range(kc)]
+        return [(s - self._stages[0]) * k + cl * kc + j for j in range(kc)]
 
-    def _gpipe_hidden(self, params, x_mb) -> torch.Tensor:
+    def _exchange(self, act_out, act_in: bool, ct_out, ct_in: bool, shape: tuple):
+        """One hop of the pp line's ring between this process's edge stages
+        and its neighbours: ``act_out`` (its last stage's output, or None)
+        goes to the next process and ``ct_out`` (its first stage's input
+        cotangent, or None) to the previous one; ``act_in``/``ct_in`` say
+        whether an activation arrives from the previous process and a
+        cotangent from the next (f32 of ``shape``). Both sides derive
+        the same pairs from the same timetable; every message of the hop is
+        posted at once (``batch_isend_irecv``, the bytes, tagged by kind)
+        and waited for. Returns the (activation, cotangent) received."""
+        import torch.distributed as dist
+
+        line = self._pp_span.line
+        me = line.index(self.topo.process_index)
+        nxt, prv = line[(me + 1) % len(line)], line[(me - 1) % len(line)]
+        ops, got = [], [None, None]
+        for kind, (out, into, dst, src) in enumerate(((act_out, act_in, nxt, prv),
+                                                      (ct_out, ct_in, prv, nxt))):
+            if out is not None:
+                ops.append(dist.P2POp(dist.isend, _bytes(out.detach().contiguous()), dst,
+                                      tag=kind))
+            if into:
+                got[kind] = torch.empty(shape, device=self.topo.device)
+                ops.append(dist.P2POp(dist.irecv, _bytes(got[kind]), src, tag=kind))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got[0], got[1]
+
+    def _gpipe_forward(self, params, x_mb, tail=None):
         """The pipelined forward: tick ``t`` runs microbatch ``t − s`` on
-        stage ``s``; stage ``s > 0`` takes stage ``s − 1``'s output of the
-        previous tick (the ppermute hop). Returns the last stage's outputs,
-        ``(M, R, T, D)`` in microbatch order. Layers in storage order."""
-        s_n, m = self.pp, self.n_micro
+        each of this process's stages ``s``; stage ``s > 0`` takes stage
+        ``s − 1``'s output of the previous tick (the ppermute hop: across
+        processes, :meth:`_exchange`). Returns the last stage's outputs in
+        microbatch order (none where another process holds it). With
+        ``tail(i, out)`` (the head's loss of the last stage's microbatch
+        ``i``) each stage's graph per microbatch is kept, from a leaf input
+        at its boundary: returns ``{(s, i): (input leaf or None, output)}``.
+        Layers in storage order."""
+        s_n, m, stages = self.pp, self.n_micro, self._stages
         rest, blocks = params["rest"], params["blocks"]
-        outs, prev = [], [None] * s_n
+        first, last = stages[0], stages[-1]
+        shape = (*x_mb.shape[1:], self.d_model)
+        outs, graphs, prev = [], {}, [None] * len(stages)
         for t in range(m + s_n - 1):
-            cur = [None] * s_n
-            for s in range(s_n):
+            recv = None
+            if self._across:
+                recv, _ = self._exchange(
+                    prev[-1] if last < s_n - 1 and 0 <= t - 1 - last < m else None,
+                    first > 0 and 0 <= t - first < m, None, False, shape)
+            cur = [None] * len(stages)
+            for ls, s in enumerate(stages):
                 i = t - s
                 if not 0 <= i < m:
                     continue
-                inp = _embed(rest, x_mb[i]) if s == 0 else prev[s - 1]
-                cur[s] = _hidden_rows(self._block, blocks, inp, self._stage_rows(s, 0))
+                inp = None
+                if s == 0:
+                    h = _embed(rest, x_mb[i])
+                else:
+                    h = prev[ls - 1] if ls else recv
+                    if tail is not None:
+                        h = inp = h.detach().requires_grad_()
+                h = cur[ls] = _hidden_rows(self._block, blocks, h, self._stage_rows(s, 0))
                 if s == s_n - 1:
-                    outs.append(cur[s])
+                    outs.append(h)
+                    if tail is not None:
+                        h = tail(i, h)
+                if tail is not None:
+                    graphs[s, i] = (inp, h)
             prev = cur
-        return torch.stack(outs)
+        return graphs if tail is not None else outs
 
     def _head_loss(self, rest, out, y_i):
         """Per-microbatch tail: final norm, tied head, mean CE over the
@@ -502,12 +617,54 @@ class PipelineParallelTrainer:
     def _gpipe_loss_and_grads(self, params, x_mb, y_mb):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         p = tree_unflatten(params, leaves)
-        h = self._gpipe_hidden(p, x_mb)
+        h = torch.stack(self._gpipe_forward(p, x_mb))
         rest = p["rest"]
         h = _final_norm(self._norm, h, rest["lnf_s"], rest["lnf_b"])
         loss = common.cross_entropy_loss(h @ rest["embed"].T, y_mb)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), tree_unflatten(params, list(grads))
+
+    def _gpipe_across(self, params, x_mb, y_mb):
+        """GPipe with the stages across processes: the forward keeps each
+        local stage's graph per microbatch (:meth:`_gpipe_forward`), then a
+        reverse tick loop transposes them, stage ``s`` taking microbatch
+        ``t − s``'s output cotangent from stage ``s + 1`` of the tick after
+        (the reverse hop) and the last stage opening with its loss. Returns
+        this process's loss share and gradient shares."""
+        s_n, m, stages = self.pp, self.n_micro, self._stages
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        graphs = self._gpipe_forward(
+            p, x_mb, tail=lambda i, out: self._head_loss(p["rest"], out, y_mb[i]))
+        first, last = stages[0], stages[-1]
+        loss = torch.zeros((), device=x_mb.device)
+        for i in range(m):
+            if (s_n - 1, i) in graphs:
+                loss = loss + graphs[s_n - 1, i][1].detach()
+        shape = (*x_mb.shape[1:], self.d_model)
+        grads = [None] * len(leaves)
+        pb = [None] * len(stages)
+        for t in reversed(range(m + s_n - 1)):
+            _, recv = self._exchange(
+                None, False, pb[0] if first > 0 and 0 <= t + 1 - first < m else None,
+                last < s_n - 1 and 0 <= t - last < m, shape)
+            cur = [None] * len(stages)
+            for ls, s in enumerate(stages):
+                i = t - s
+                if not 0 <= i < m:
+                    continue
+                inp, out = graphs.pop((s, i))
+                cot = None if s == s_n - 1 else (pb[ls + 1] if ls + 1 < len(stages) else recv)
+                wrt = leaves + ([inp] if inp is not None else [])
+                got = torch.autograd.grad(out, wrt, cot, allow_unused=True)
+                for j, g in enumerate(got[:len(leaves)]):
+                    if g is not None:
+                        grads[j] = g if grads[j] is None else grads[j] + g
+                if inp is not None:
+                    cur[ls] = got[-1]
+            pb = cur
+        grads = [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, grads)]
+        return loss, tree_unflatten(params, grads)
 
     def _scheduled_loss_and_grads(self, params, x_mb, y_mb):
         """1F1B / interleaved: :func:`schedule_pipeline`'s forwards and
@@ -516,55 +673,66 @@ class PipelineParallelTrainer:
         backward recomputes each layer under ``torch.func.vjp`` and
         transposes it, last to first; chunk 0 closes through the embedding
         at once, the last chunk opens with the head."""
-        s_n, m, v = self.pp, self.n_micro, self.virtual
+        s_n, m, v, stages = self.pp, self.n_micro, self.virtual, self._stages
+        n = len(stages)
         tabs = schedule_pipeline(m, s_n, v)
         ring_n = min(s_n, m)
         rest = {k: a.detach() for k, a in params["rest"].items()}
         blocks = tree_map(lambda a: a.detach(), params["blocks"])
         block = self._block
+        s_first, s_last = stages[0], stages[-1]
+        shape = (*x_mb.shape[1:], self.d_model)
 
         def slots():
-            return [[[None] * ring_n for _ in range(v)] for _ in range(s_n)]
+            return [[[None] * ring_n for _ in range(v)] for _ in range(n)]
 
         act, cot, ring = slots(), slots(), slots()
-        pf, pb = [None] * s_n, [None] * s_n
+        pf, pb = [None] * n, [None] * n
         gb = tree_map(torch.zeros_like, blocks)
-        gr = [tree_map(torch.zeros_like, rest) for _ in range(s_n)]
-        losses = [torch.zeros((), device=x_mb.device) for _ in range(s_n)]
+        gr = [tree_map(torch.zeros_like, rest) for _ in range(n)]
+        losses = [torch.zeros((), device=x_mb.device) for _ in range(n)]
         for tk in range(int(tabs["ticks"])):
-            # the hop: last tick's outputs land at their neighbours
-            recv_a = [pf[(s - 1) % s_n] for s in range(s_n)]
-            recv_c = [pb[(s + 1) % s_n] for s in range(s_n)]
-            for s in range(s_n):
+            # the hop: last tick's outputs land at their neighbours, the edge
+            # stages' from and to the neighbouring processes
+            recv_a, recv_c = pf[-1], pb[0]
+            if self._across:
+                recv_a, recv_c = self._exchange(
+                    pf[-1] if tabs["arr_act_mb"][tk, (s_last + 1) % s_n] >= 0 else None,
+                    tabs["arr_act_mb"][tk, s_first] >= 0,
+                    pb[0] if tabs["arr_ct_mb"][tk, (s_first - 1) % s_n] >= 0 else None,
+                    tabs["arr_ct_mb"][tk, s_last] >= 0, shape)
+            recv_a = [recv_a] + pf[:-1]
+            recv_c = pb[1:] + [recv_c]
+            for ls, s in enumerate(stages):
                 if tabs["arr_act_mb"][tk, s] >= 0:
                     i = int(tabs["arr_act_mb"][tk, s])
-                    act[s][int(tabs["arr_act_c"][tk, s])][i % ring_n] = recv_a[s]
+                    act[ls][int(tabs["arr_act_c"][tk, s])][i % ring_n] = recv_a[ls]
                 if tabs["arr_ct_mb"][tk, s] >= 0:
                     i = int(tabs["arr_ct_mb"][tk, s])
-                    cot[s][int(tabs["arr_ct_c"][tk, s])][i % ring_n] = recv_c[s]
-            for s in range(s_n):
+                    cot[ls][int(tabs["arr_ct_c"][tk, s])][i % ring_n] = recv_c[ls]
+            for ls, s in enumerate(stages):
                 op, cl, i = (int(tabs[k][tk, s]) for k in ("op", "chunk", "mb"))
                 rows = self._stage_rows(s, cl)
                 first = s == 0 and cl == 0
                 if op == 1:
                     with torch.no_grad():
-                        h = _embed(rest, x_mb[i]) if first else act[s][cl][i % ring_n]
+                        h = _embed(rest, x_mb[i]) if first else act[ls][cl][i % ring_n]
                         saved = [h]
                         for r in rows:
                             h = _block_apply(block, _layer(blocks, r), h)
                             saved.append(h)
-                    ring[s][cl][i % ring_n] = saved
-                    pf[s] = h
+                    ring[ls][cl][i % ring_n] = saved
+                    pf[ls] = h
                 elif op == 2:
-                    entry = ring[s][cl][i % ring_n]
+                    entry = ring[ls][cl][i % ring_n]
                     if s == s_n - 1 and cl == v - 1:
                         loss_i, head_vjp = torch.func.vjp(
                             lambda r, o: self._head_loss(r, o, y_mb[i]), rest, entry[-1])
                         g_head, cc = head_vjp(torch.ones_like(loss_i))
-                        gr[s] = tree_map(torch.add, gr[s], g_head)
-                        losses[s] = losses[s] + loss_i
+                        gr[ls] = tree_map(torch.add, gr[ls], g_head)
+                        losses[ls] = losses[ls] + loss_i
                     else:
-                        cc = cot[s][cl][i % ring_n]
+                        cc = cot[ls][cl][i % ring_n]
                     for j in reversed(range(len(rows))):
                         _, vjp = torch.func.vjp(
                             lambda p, xx: _block_apply(block, p, xx),
@@ -576,8 +744,8 @@ class PipelineParallelTrainer:
                     if first:
                         _, emb_vjp = torch.func.vjp(lambda r: _embed(r, x_mb[i]), rest)
                         (g_emb,) = emb_vjp(cc)
-                        gr[s] = tree_map(torch.add, gr[s], g_emb)
-                    pb[s] = cc
+                        gr[ls] = tree_map(torch.add, gr[ls], g_emb)
+                    pb[ls] = cc
         # each stage's share of the replicated rest, summed (psum over pp)
         g_rest = gr[0]
         for g in gr[1:]:
@@ -591,15 +759,26 @@ class PipelineParallelTrainer:
         """One step on this process's rows ``(B_l, T)`` (device tensors)."""
         x_mb, y_mb = self._micro(x), self._micro(y)
         params = state["params"]
-        if self.schedule == "gpipe":
-            loss, grads = self._gpipe_loss_and_grads(params, x_mb, y_mb)
-        else:
+        if self.schedule != "gpipe":
             loss, grads = self._scheduled_loss_and_grads(params, x_mb, y_mb)
-        if in_process_group():
+        elif self._across:
+            loss, grads = self._gpipe_across(params, x_mb, y_mb)
+        else:
+            loss, grads = self._gpipe_loss_and_grads(params, x_mb, y_mb)
+        if self._across:
+            grads, loss = self._reduce_across(grads, loss)
+        elif in_process_group():
             from mpit_tpu_torch.parallel.sync import _mean_across_processes
 
             grads, loss = _mean_across_processes((grads, loss), self.topo.process_count)
-        if self.clip_norm is not None:
+        if self.clip_norm is None:
+            pass
+        elif self._across:
+            # the blocks are the pp line's disjoint shares: their squares
+            # are summed over the line, the replicated rest counts once
+            grads, _ = common.clip_by_global_norm_in_mesh(
+                grads, self.clip_norm, "pp", is_sharded=_is_blocks_leaf, line=self._pp_span)
+        else:
             # every stage lives in this process: the blocks are whole here,
             # so each leaf counts once
             grads, _ = common.clip_by_global_norm_in_mesh(
@@ -612,7 +791,28 @@ class PipelineParallelTrainer:
             params = tree_map(lambda p, m_: p - self.lr * m_, params, mom)
             new = {"params": params, "momentum": mom}
         new["step"] = state["step"] + 1
-        return new, {"loss": loss}
+        return PipelineState(new, self._pp_span), {"loss": loss}
+
+    def _reduce_across(self, grads: dict, loss):
+        """The step's gradient and loss where pp spans processes (the
+        reference's ``psum`` over pp, then ``pmean`` over dp): the rest
+        gradient and the loss, each process's stages' shares, summed over
+        the pp line in stage order; then everything averaged over the
+        processes that hold the same stages."""
+        from mpit_tpu_torch.parallel.sync import _mean_across_processes
+
+        flat, spec = flatten_params((grads["rest"], loss))
+        parts = line_gather(flat[None], self._pp_span)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        g_rest, loss = unflatten_params(spec, total)
+        grads = {"blocks": grads["blocks"], "rest": g_rest}
+        peers = self._dp_peers
+        if len(peers.line) > 1:
+            grads, loss = _mean_across_processes((grads, loss), len(peers.line),
+                                                 line_group(peers))
+        return grads, loss
 
     # -- public interface ---------------------------------------------------
 
@@ -630,7 +830,11 @@ class PipelineParallelTrainer:
             )
 
     def _shard(self, x, y):
-        mine = self.topo.local_slice(len(x))
+        """This process's rows of a global batch: its dp groups' (the
+        processes of one pp line take the same rows)."""
+        per = len(x) // self.dp
+        mine = slice(self._dp_span.start * per,
+                     (self._dp_span.start + self._dp_span.count) * per)
         return x[mine], y[mine]
 
     def step(self, state, x_global, y_global):
@@ -653,25 +857,27 @@ class PipelineParallelTrainer:
     @torch.no_grad()
     def _eval_batch(self, params, x, y):
         """(correct tokens, CE sum) of a global eval batch: the pipelined
-        forward over the layers in global order (an interleaved state is
-        unpermuted first, as the reference gathers it), the head
-        ``EVAL_ROWS`` windows at a time."""
+        forward (across processes too), or under interleaving the whole
+        stack in global order as one stage of L (``params`` gathered and
+        unpermuted by :meth:`evaluate`, as the reference gathers them);
+        the head ``EVAL_ROWS`` windows at a time, where the last stage
+        lives. Summed over the world's processes (the others count 0)."""
         dev = self.topo.device
         x, y = self._shard(torch.as_tensor(x), torch.as_tensor(y))
         x, y = self._micro(x.to(dev)), self._micro(y.to(dev))
-        p = self._unpermute(params)
+        blocks, rest = params["blocks"], params["rest"]
+        owner = self._stages[-1] == self.pp - 1
         if self._permuted:
-            # the gathered stack in global order runs as one stage of L
-            blocks, rest = p["blocks"], p["rest"]
             h = torch.stack([_hidden_rows(self._block, blocks, _embed(rest, xi),
-                                          range(self.num_layers)) for xi in x])
+                                          range(self.num_layers)) for xi in x]) if owner else None
         else:
-            h = self._gpipe_hidden(p, x)
-        rest = p["rest"]
-        h, y = h.reshape(-1, *h.shape[2:]), y.reshape(-1, y.shape[-1])
+            outs = self._gpipe_forward(params, x)
+            h = torch.stack(outs) if owner else None
         correct = torch.zeros((), dtype=torch.int64, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for hs, ys in zip(h.split(common.EVAL_ROWS), y.split(common.EVAL_ROWS)):
+        hy = () if h is None else zip(h.reshape(-1, *h.shape[2:]).split(common.EVAL_ROWS),
+                                      y.reshape(-1, y.shape[-1]).split(common.EVAL_ROWS))
+        for hs, ys in hy:
             logits = _final_norm(self._norm, hs, rest["lnf_s"], rest["lnf_b"]) @ rest["embed"].T
             correct += (logits.argmax(-1) == ys).sum()
             loss_sum += common.cross_entropy_sum(logits, ys)
@@ -690,8 +896,11 @@ class PipelineParallelTrainer:
                 f"sequence of {x.shape[1]} exceeds the position "
                 f"table (seq_len={self.seq_len})"
             )
+        params = state["params"]
+        if self._permuted:
+            params = self._unpermute(self._whole_blocks(params))
         correct, loss_sum, n = common.batched_count_eval(
-            self._eval_batch, state["params"], x, y, batch, self.dp * self.n_micro
+            self._eval_batch, params, x, y, batch, self.dp * self.n_micro
         )
         tokens = n * x.shape[1]
         return correct / tokens, loss_sum / tokens

@@ -63,6 +63,7 @@ import json
 import os
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 import torch
@@ -700,12 +701,15 @@ def _run_async_ps(cfg, model, opt, x_tr, y_tr, x_te, y_te, log, results, device)
     return results
 
 
-def main(argv=None) -> None:
-    """CLI over the presets the port runs; prints the results dict as one
-    JSON line."""
+def main(argv=None, device=None, description: Optional[str] = None) -> None:
+    """CLI over the presets the port runs (installed as ``mpit-torch-train``;
+    ``mpit_tpu_torch/examples/train.py`` is the same entry run from a
+    checkout, passing its ``--device`` and its usage docstring as
+    ``description``); runs on ``device`` (default: the card) and prints the
+    results dict as one JSON line."""
     cfg = TrainConfig.from_args(
         argv,
-        description="mpit_tpu_torch training on one CUDA card (e.g. "
+        description=description or "mpit_tpu_torch training on one CUDA card (e.g. "
         "--preset mnist-easgd --epochs 1, --preset cifar-vgg-sync, --preset "
         "resnet50-sync, --preset ptb-lstm-easgd, --preset alexnet-downpour, "
         "--preset ptb-transformer-large (--sp 4, --seq-impl ulysses, "
@@ -713,7 +717,7 @@ def main(argv=None) -> None:
         "--attn-impl flash, --algo moe-sync --moe-experts 8, --preset "
         "ptb-transformer-pp --pp-schedule 1f1b, or --preset mnist-ps)",
     )
-    print(json.dumps(run(cfg), default=repr))
+    print(json.dumps(run(cfg, device=device), default=repr))
 
 
 if __name__ == "__main__":

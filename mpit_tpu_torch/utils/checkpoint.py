@@ -25,7 +25,10 @@ gives, for a leaf's path (its field, keys and indices), the dim along
 which the processes hold equal shares of it, or None (the expert leaves of
 an MoE state and their optimizer moments, cut on the expert dim). Such a
 leaf is gathered whole for the file and cut back to this process's share
-on restore.
+on restore: across the world's processes in process order, or, where the
+state names a ``process_line`` (a ``ProcessLine``: the pipeline's pp line,
+``parallel/pipeline.py`` ``PipelineState``, a dict), across that line's
+processes in its order, each line holding the whole leaf.
 
 The reference writes with ``flax.serialization``; the machine with the
 card has neither flax nor ``msgpack``, so this module carries the small
@@ -410,25 +413,31 @@ def _tensor_leaves(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-def _gathered(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-    """The world's processes' shares of ``t`` joined along ``dim`` in
-    process order."""
-    from mpit_tpu_torch.comm.collectives import _gather
+def _gathered(t: torch.Tensor, dim: int = 0, line=None) -> torch.Tensor:
+    """The world's processes' shares of ``t`` (or those of ``line``, a
+    ``ProcessLine``) joined along ``dim`` in process (line) order."""
+    from mpit_tpu_torch.comm.collectives import _gather, line_gather
+
+    def gather(a):
+        return _gather(a) if line is None else line_gather(a, line)
 
     if dim == 0:
-        return _gather(t)
-    return _gather(t.movedim(dim, 0).contiguous()).movedim(0, dim)
+        return gather(t)
+    return gather(t.movedim(dim, 0).contiguous()).movedim(0, dim)
 
 
-def _leaf_cut(obj, cut, procs: int):
-    """The per-leaf cut in force below the dataclass ``obj``: its own
-    ``process_cut`` in a world of several processes, else the one it
-    inherits."""
-    return getattr(obj, "process_cut", cut) if procs > 1 else None
+def _leaf_cut(obj, cut, line, procs: int) -> tuple:
+    """The per-leaf cut in force below the state ``obj`` (a dataclass or a
+    dict), and the processes it is cut across (None: the world): its own
+    ``process_cut`` and ``process_line`` in a world of several processes,
+    else the ones it inherits."""
+    if procs == 1:
+        return None, None
+    return getattr(obj, "process_cut", cut), getattr(obj, "process_line", line)
 
 
 def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False,
-                        cut=None, path: tuple = ()) -> Any:
+                        cut=None, path: tuple = (), line=None) -> Any:
     """The reference's ``flax.serialization.to_state_dict`` of the state
     ``obj`` stands for, as host numpy (tensors in the flax layout), in the
     reference's order: a dataclass's fields as declared, dict keys sorted,
@@ -437,8 +446,9 @@ def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False,
     optimizer); ``gather`` gathers stacked tensors across processes, as it
     does the fields a state names in ``process_sharded`` (ZeRO's optimizer
     state, cut on dim 0 across processes); ``cut(path)`` is the dim along
-    which the processes share the leaf at ``path`` (None: whole in each),
-    the state's ``process_cut``."""
+    which the processes (of ``line``, the state's ``process_line``, or the
+    world's) share the leaf at ``path`` (None: whole in each), the state's
+    ``process_cut``."""
     from mpit_tpu_torch.comm.topology import current_process
     from mpit_tpu_torch.convert import leaf_to_flax
 
@@ -447,26 +457,27 @@ def state_to_state_dict(obj: Any, lead: tuple = (), gather: bool = False,
         stacked, w = _worker_fields(obj, fields)
         sharded = stacked + getattr(obj, "process_sharded", ())
         procs = current_process()[1]
-        cut = _leaf_cut(obj, cut, procs)
+        cut, line = _leaf_cut(obj, cut, line, procs)
         return {
             k: state_to_state_dict(
                 v, (w * procs,) if k in stacked else lead,
-                gather or (k in sharded and procs > 1), cut, path + (k,),
+                gather or (k in sharded and procs > 1), cut, path + (k,), line,
             )
             for k, v in fields.items()
         }
     if isinstance(obj, (tuple, list)):
-        return {str(i): state_to_state_dict(v, lead, gather, cut, path + (i,))
+        return {str(i): state_to_state_dict(v, lead, gather, cut, path + (i,), line)
                 for i, v in enumerate(obj)}
     if isinstance(obj, dict):
+        cut, line = _leaf_cut(obj, cut, line, current_process()[1])
         # sorted, as jax's tree functions leave the reference's dicts
-        return {k: state_to_state_dict(obj[k], lead, gather, cut, path + (k,))
+        return {k: state_to_state_dict(obj[k], lead, gather, cut, path + (k,), line)
                 for k in sorted(obj)}
     if isinstance(obj, torch.Tensor):
         if gather:
             return leaf_to_flax(_gathered(obj))
         dim = cut(path) if cut is not None else None
-        return leaf_to_flax(obj if dim is None else _gathered(obj, dim))
+        return leaf_to_flax(obj if dim is None else _gathered(obj, dim, line))
     if isinstance(obj, int) and not isinstance(obj, bool):
         return np.full(lead, obj, np.int32)
     return obj
@@ -480,12 +491,13 @@ def state_to_host(state: Any) -> Any:
 
 
 def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None,
-                          cut=None, path: tuple = ()) -> Any:
+                          cut=None, path: tuple = (), line=None) -> Any:
     """A state shaped like ``template`` with the values of the state dict
     ``sd`` (the inverse of :func:`state_to_state_dict`); tensors land on
     the template's devices with its dtypes. ``rows`` keeps this process's
     workers of a stacked field, ``cut(path)`` (the state's ``process_cut``)
-    this process's share of a leaf cut across the processes. Raises
+    this process's share of a leaf cut across the processes (of ``line``,
+    or the world's); a dict template's type is kept (``with_items``). Raises
     ``ValueError`` where the structures differ, as flax's
     ``from_state_dict`` does."""
     from mpit_tpu_torch.comm.topology import current_process
@@ -504,7 +516,7 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None,
         keys_match(fields, sd, type(template).__name__)
         stacked, w = _worker_fields(template, fields)
         index, procs = current_process()
-        cut = _leaf_cut(template, cut, procs)
+        cut, line = _leaf_cut(template, cut, line, procs)
 
         def mine(k, v):
             """This process's rows of a field cut across processes."""
@@ -517,18 +529,21 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None,
             return rows
 
         return dataclasses.replace(template, **{
-            k: state_from_state_dict(v, sd[k], mine(k, v), cut, path + (k,))
+            k: state_from_state_dict(v, sd[k], mine(k, v), cut, path + (k,), line)
             for k, v in fields.items()
         })
     if isinstance(template, (tuple, list)):
         keys_match([str(i) for i in range(len(template))], sd,
                    type(template).__name__)
-        return type(template)(state_from_state_dict(v, sd[str(i)], rows, cut, path + (i,))
+        return type(template)(state_from_state_dict(v, sd[str(i)], rows, cut, path + (i,), line)
                               for i, v in enumerate(template))
     if isinstance(template, dict):
         keys_match(template, sd, "a dict")
-        return {k: state_from_state_dict(v, sd[k], rows, cut, path + (k,))
-                for k, v in template.items()}
+        cut, line = _leaf_cut(template, cut, line, current_process()[1])
+        items = {k: state_from_state_dict(v, sd[k], rows, cut, path + (k,), line)
+                 for k, v in template.items()}
+        rebuild = getattr(template, "with_items", None)
+        return items if rebuild is None else rebuild(items)
     if isinstance(template, torch.Tensor):
         a = leaf_from_flax(sd)
         dim = cut(path) if cut is not None else None
@@ -539,6 +554,8 @@ def state_from_state_dict(template: Any, sd: Any, rows: Optional[slice] = None,
             a = a[rows]
         elif dim is not None:
             index, procs = current_process()
+            if line is not None:
+                index, procs = line.line.index(index), len(line.line)
             n = template.shape[dim]
             if a.ndim <= dim or a.shape[dim] != n * procs:
                 raise ValueError(

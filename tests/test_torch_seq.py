@@ -127,12 +127,23 @@ def test_a_mesh_the_world_cannot_hold_is_refused():
         Topology(12, CPU, process_count=2, axis_names=("dp", "sp"), mesh_shape=(3, 4))
     assert Topology(8, CPU, process_count=2, axis_names=("dp", "sp"),
                     mesh_shape=(2, 4)).local_workers == 4
-    # the pipeline's stages stay inside one process
+    # the pipeline's stages may span processes too: each of 4 processes of
+    # 2 workers holds 2 of its dp group's 4 stages
     from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
 
-    with pytest.raises(ValueError, match="inside one process"):
-        PipelineParallelTrainer(31, 2, 32, 2, T, topo=Topology(
-            8, CPU, process_count=4, axis_names=("dp", "pp"), mesh_shape=(2, 4)))
+    for p in range(4):
+        world = Topology(8, CPU, process_index=p, process_count=4, axis_names=("dp", "pp"),
+                         mesh_shape=(2, 4))
+        tr = PipelineParallelTrainer(31, 4, 32, 2, T, topo=world)
+        span = world.axis_span("pp")
+        assert (span.start, span.count, span.line) == (2 * (p % 2), 2, (p - p % 2, p - p % 2 + 1))
+        assert tr._pp_span == span and tr._stages == [span.start, span.start + 1]
+        assert tr._dp_peers.line == (p % 2, p % 2 + 2)
+    # ...but a mesh whose process's workers form no block is still refused:
+    # 6 workers a process cover a row and a half of the (pp, sp) plane
+    with pytest.raises(ValueError, match="do not form a block"):
+        PipelineParallelTrainer(31, 3, 32, 2, T, topo=Topology(
+            12, CPU, process_count=2, axis_names=("dp", "pp", "sp"), mesh_shape=(1, 3, 4)))
 
 
 # --------------------------------------------------------------- attention
