@@ -87,6 +87,17 @@ non-zero before the result lines:
              per stream and message (send: serialize, queue_wait, write;
              receive: ``rx_phase_s`` transfer and deserialize); samples/s with
              obs on beside ps-proc's with it off.
+14d. analysis — ``python -m mpit_tpu_torch.analysis`` on this machine,
+             each leg a subprocess in which importing ``jax`` or
+             ``mpit_tpu`` fails (asserted absent from ``sys.modules``
+             after), the four started together: the lint of
+             ``mpit_tpu_torch/`` exits 0 against the port's baseline;
+             ``mcheck`` explores the five configurations (state counts
+             printed, equal to the reference's on the port); ``schema
+             --check`` exits 0 against the root lock; ``conform`` replays
+             obs-ps's journals of this run (three ranks of ``mnist-ps`` over
+             sockets) with 0 violations, its sends, recvs and fault records
+             printed.
 14c. rt    — the sanitizers: ``mnist-ps`` in threads on the card, 40 steps a
              client, in a process started with ``MPIT_RT_RACE=1
              MPIT_RT_NUMERICS=1``: no finding; one NaN planted into the numpy
@@ -1290,7 +1301,7 @@ def obs_cli(*args, process: bool = False) -> tuple[int, str]:
     return rc, out
 
 
-def obs_ps(card_line: str, off: dict) -> None:
+def obs_ps(card_line: str, off: dict) -> str:
     """Path 1 of the obs plane: the ps-proc run (``--preset mnist-ps``, three
     OS processes, full-width LeNet) again with ``MPIT_OBS_DIR``,
     ``MPIT_OBS_LIVE=1`` and the black box armed; every rank's journal,
@@ -1298,7 +1309,10 @@ def obs_ps(card_line: str, off: dict) -> None:
     directory (``merge``, ``summary``, ``roofline``, ``dynamics``, ``live``,
     and ``postmortem`` after a ``request_dump``), each rank's telemetry
     gives the exchange's phase split per stream, and the samples/s with obs
-    on stand beside the ps-proc phase's with obs off."""
+    on stand beside the ps-proc phase's with obs off. Returns a directory
+    holding a copy of the run's journals, for the analysis phase to replay
+    (it removes the directory)."""
+    import shutil
     import tempfile
 
     from mpit_tpu_torch.obs.blackbox import request_dump
@@ -1333,6 +1347,10 @@ def obs_ps(card_line: str, off: dict) -> None:
                 or snaps != [f"rank_{r}.json" for r in range(n)]):
             raise AssertionError(f"obs-ps: telemetry of ranks {sorted(tel)}, files {files}, "
                                  f"black box {boxes}, live {snaps}")
+        journals = tempfile.mkdtemp(prefix="obs-ps-journals-")
+        for f in files:
+            if f.endswith(".jsonl"):
+                shutil.copy(os.path.join(obs, f), journals)
         rc, merged = obs_cli("merge", obs, "-o", os.path.join(obs, "trace.json"))
         with open(os.path.join(obs, "trace.json")) as f:
             events = len(json.load(f)["traceEvents"])
@@ -1394,6 +1412,94 @@ def obs_ps(card_line: str, off: dict) -> None:
         f"pclient {c}: {off[int(c)]:.1f} -> {float(rate):.1f} "
         f"({100 * (float(rate) / off[int(c)] - 1):+.1f}%), exchange {x} ms per round"
         for c, _, _, rate, x in loops) + f"; {card_line}")
+    return journals
+
+
+ANALYSIS_SCRIPT = '''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+FORBIDDEN = ("jax", "jaxlib", "mpit_tpu")
+
+
+class Refuse:
+    """Importing JAX or the reference package fails in this process."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FORBIDDEN:
+            raise ImportError(f"{name} is refused: the port's analyzer stands without it")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+from mpit_tpu_torch.analysis.__main__ import main
+
+t0 = time.perf_counter()
+rc = main(sys.argv[2:])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+print(json.dumps({"rc": rc, "seconds": time.perf_counter() - t0, "leaked": leaked}))
+'''
+ANALYSIS_TIMEOUT_S = 300
+# `mcheck`'s state counts of the reference's analyzer on the port
+# (`python -m mpit_tpu.analysis mcheck --package mpit_tpu_torch`)
+MCHECK_STATES = {"easgd": 12134, "downpour": 20619, "easgd-elastic": 13648,
+                 "easgd-sharded": 107575, "fleet-route": 501}
+
+
+def analysis_phase(journals: str) -> None:
+    """The port's static analyzer on this machine (ROADMAP A14): the lint
+    gate, the model check, the wire-schema gate and the replay of obs-ps's
+    journals, each ``python -m mpit_tpu_torch.analysis`` in a subprocess
+    that refuses to import JAX and the reference package, all four started
+    together."""
+    import shutil
+
+    legs = {"lint": [], "mcheck": ["mcheck"], "schema": ["schema", "--check"],
+            "conform": ["conform", journals]}
+    procs, outs = {}, {}
+    try:
+        for name, args in legs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", ANALYSIS_SCRIPT, REPO, *args], cwd=REPO,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+        t0 = time.perf_counter()
+        for name, proc in procs.items():
+            out, err = proc.communicate(
+                timeout=max(ANALYSIS_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            lines = out.strip().splitlines()
+            res = json.loads(lines[-1]) if lines else {}
+            if proc.returncode != 0 or res.get("rc") != 0 or res.get("leaked") != []:
+                raise AssertionError(f"analysis: {name} exited {proc.returncode}, "
+                                     f"{res}:\n{out[-3000:]}{err[-3000:]}")
+            outs[name] = (lines[:-1], res["seconds"])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(journals, ignore_errors=True)
+    lint, secs = outs["lint"]
+    phase("analysis", f"lint of mpit_tpu_torch/ against its baseline, JAX and mpit_tpu "
+          f"refused: exit 0, {lint[-1]} ({secs:.3f} s)")
+    lines, secs = outs["mcheck"]
+    states = {}
+    for line in lines:
+        m = re.match(r"ok: ([\w-]+), .*: (\d+) states, (\d+) single-fault", line)
+        if m:
+            states[m.group(1)] = int(m.group(2))
+    if states != MCHECK_STATES:
+        raise AssertionError(f"analysis: mcheck explored {states}, not {MCHECK_STATES}:\n"
+                             + "\n".join(lines))
+    phase("analysis", "mcheck: " + "; ".join(f"{k} {v} states" for k, v in states.items())
+          + f" ({secs:.3f} s)")
+    lines, secs = outs["schema"]
+    phase("analysis", f"schema --check: exit 0, {lines[-1]} ({secs:.3f} s)")
+    lines, secs = outs["conform"]
+    m = re.fullmatch(r"0 violation\(s\) in (\d+) journal\(s\): (\d+) send\(s\), "
+                     r"(\d+) recv\(s\), (\d+) fault record\(s\)", lines[-1])
+    if not m or int(m.group(1)) != 3 or int(m.group(2)) == 0:
+        raise AssertionError(f"analysis: conform on obs-ps's journals: {lines[-5:]}")
+    phase("analysis", f"conform on obs-ps's journals: {lines[-1]} ({secs:.3f} s)")
 
 
 RT_SCRIPT = '''
@@ -4134,7 +4240,8 @@ def main() -> int:
     timed("ps", ps_path, card_line)
     timed("ps-chaos", ps_chaos, card_line)
     ps_off = timed("ps-proc", ps_proc, card_line)
-    timed("obs-ps", obs_ps, card_line, ps_off)
+    journals = timed("obs-ps", obs_ps, card_line, ps_off)
+    timed("analysis", analysis_phase, journals)
     timed("rt", rt_path, card_line)
     for name in BASELINE:
         kernel["launches"] += timed(name, baseline_path, name, card_line)

@@ -389,6 +389,7 @@ def quantized_psum_scatter(flat: torch.Tensor, mode: str = "int8") -> torch.Tens
     w = flat.shape[0] * current_process()[1]
     if flat.shape[1] % w:
         raise ValueError(f"flat size {flat.shape[1]} does not split over {w} workers")
+    # mpit-analysis: ef-off[ZeRO scatter is stateless by design]
     contrib, _ = _quantized_hop1(flat.to(torch.float32), mode)
     return _fold_sum(contrib, 1)
 

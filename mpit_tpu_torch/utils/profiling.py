@@ -55,7 +55,7 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-def force_completion(*results) -> float:
+def force_completion(*results) -> float:  # mpit-analysis: host-sync-barrier
     """Proof of execution of every argument; returns the fetched scalar.
 
     For EACH positional argument the smallest floating-point leaf is
