@@ -451,13 +451,19 @@ LSTM_LEAVES, LSTM_PARAMS = 27, 11_364_112  # ptb-lstm-easgd's tree at vocab 10,0
 
 def elastic_round_times(leaves, alpha: float) -> dict:
     """One round's elastic update over ``leaves`` (xs, cs, ds) as one
-    launch, one launch per leaf, the plain version and ``lerp`` + ``add``,
-    by CUDA events and by device time, beside the bound."""
+    launch written over its inputs (the main path's, since trainers donate
+    their state), as one launch into new tensors, one launch per leaf, the
+    plain version and ``lerp`` + ``add``, by CUDA events and by device
+    time, beside the bound. The in-place form runs on copies."""
     from mpit_tpu_torch.ops import elastic
 
     xs, cs, ds = leaves
+    ixs, ics = [x.clone() for x in xs], [c.clone() for c in cs]
     fns = dict(
-        ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True),
+        ms=lambda: elastic.elastic_update_leaves(ixs, ics, ds, alpha, use_kernel=True,
+                                                 inplace=True),
+        out_of_place_ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha,
+                                                              use_kernel=True),
         per_leaf_ms=lambda: [elastic.elastic_update(x, c, d, alpha, use_kernel=True)
                              for x, c, d in zip(xs, cs, ds)],
         plain_ms=lambda: elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False),
@@ -534,13 +540,43 @@ def kernels_vs_plain() -> dict:
               f"version (rtol=atol={TOL})")
     max_err = max(max_err, leaves_err)
 
+    # in place (the donated state's round): the launch that writes over x
+    # and c gives the bits of the launch into new tensors and of the plain
+    # version, in place or not, at the main path's leaf lists
+    for name, shapes in (("LeNet", lenet), ("LSTM", lstm)):
+        xs, cs, ds = leaf_list(WORKERS, shapes)
+        kxs, kcs = elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=True)
+        pxs, pcs = elastic.elastic_update_leaves(xs, cs, ds, alpha, use_kernel=False)
+        forms = {}
+        for kernel in (True, False):
+            ixs, ics = [x.clone() for x in xs], [c.clone() for c in cs]
+            ptrs = [t.data_ptr() for t in ixs + ics]
+            before = elastic.launches
+            gxs, gcs = elastic.elastic_update_leaves(ixs, ics, ds, alpha, use_kernel=kernel,
+                                                     inplace=True)
+            torch.cuda.synchronize()
+            if [t.data_ptr() for t in gxs + gcs] != ptrs:
+                raise AssertionError(f"in-place elastic update ({name}) moved its outputs")
+            if kernel and elastic.launches - before != -(-len(shapes) // elastic.MAX_LEAVES):
+                raise AssertionError(f"in-place {name} list: {elastic.launches - before} "
+                                     "launches")
+            forms[kernel] = gxs + gcs
+        for want in (kxs + kcs, pxs + pcs, forms[False]):
+            if not all(torch.equal(a, b) for a, b in zip(forms[True], want, strict=True)):
+                raise AssertionError(f"in-place elastic launch ({name}) is not bit-equal")
+        phase("kernels", f"elastic_update_leaves in place: {name} list, {len(shapes)} "
+              "leaves, W = 8: bit-equal to the launch into new tensors, to the plain "
+              "version and to the plain version in place; storage kept")
+
     # a round at each path's shapes (LeNet's 8 leaves, the LSTM's 27), W = 8,
-    # as one launch and, for comparison in this call, as one launch per leaf
+    # in place and into new tensors as one launch and, for comparison in this
+    # call, as one launch per leaf
     rows = {name: elastic_round_times(leaf_list(WORKERS, shapes), alpha)
             for name, shapes in (("LeNet", lenet), ("LSTM", lstm))}
     for name, row in rows.items():
         phase("kernels", f"elastic_update_leaves per round ({name}, W = 8; ms by CUDA "
-              "events, device_ms by the profiler): " + json.dumps(row))
+              "events, device_ms by the profiler; ms in place, out_of_place_ms into new "
+              "tensors): " + json.dumps(row))
     row = rows["LeNet"]
     return dict(
         name="elastic_update", route="cuda",
@@ -3954,6 +3990,53 @@ def moe_path(card_line: str) -> dict:
     return launches
 
 
+DONATE_STEPS = 8
+
+
+def donate_leg(card_line: str) -> None:
+    """moe-sync at full width (``moe_config``: 8 experts, flash), built as
+    ``run()`` builds it: DONATE_STEPS steps with ``donate_state=False``,
+    then as many with True, each from the same seed on the same batch.
+    The losses must be equal bit for bit; prints each form's peak device
+    memory above what was allocated before its trainer was built (state,
+    batch and the steps' temporaries) and its ms a step (the steps after
+    the first, host clock around a synchronise)."""
+    import gc
+
+    cfg = moe_config()
+    out = {}
+    for donate in (False, True):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, state, x, y = built_step(cfg)
+        trainer.donate_state = donate
+        losses = []
+        for i in range(DONATE_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, m = trainer._step(state, x, y)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (DONATE_STEPS - 1)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[donate] = dict(losses=[float(v) for v in losses], peak_mib=peak, ms=ms)
+        del trainer, state, x, y, m
+    if out[True]["losses"] != out[False]["losses"]:
+        raise AssertionError(f"donate: losses differ: {out}")
+    if not finite(out[True]["losses"]):
+        raise AssertionError(f"donate: non-finite loss: {out[True]['losses']}")
+    phase("donate", f"moe-sync, {cfg.moe_experts} experts, full width, {DONATE_STEPS} steps "
+          f"each from seed {cfg.seed}, {cfg.optimizer}; {card_line}")
+    for donate, r in out.items():
+        phase("donate", f"donate_state={donate}: peak device memory of the training "
+              f"{r['peak_mib']:.1f} MiB, {r['ms']:.3f} ms/step; losses {r['losses']}")
+    phase("donate", f"losses equal bit for bit; donation saves "
+          f"{out[False]['peak_mib'] - out[True]['peak_mib']:.1f} MiB of peak")
+
+
 def pp_config(schedule: str, **over):
     from mpit_tpu_torch.utils.config import TrainConfig
 
@@ -4071,7 +4154,7 @@ def tp_path(card_line: str, served: dict) -> None:
     from mpit_tpu_torch import optim
     from mpit_tpu_torch.comm.topology import Topology
     from mpit_tpu_torch.models import generate_batch, generate_tp
-    from mpit_tpu_torch.utils.params import tree_leaves
+    from mpit_tpu_torch.utils.params import tree_leaves, tree_map
 
     dev = torch.device(CARD)
     rng = np.random.default_rng(SERVE_SEED)
@@ -4084,7 +4167,8 @@ def tp_path(card_line: str, served: dict) -> None:
     sgd = lambda: optim.SGD(0.1, momentum=0.9)  # noqa: E731
     for name, tr in tp_trainers(torch.float32, "xla", dev, sgd).items():
         state = tr.init_state(torch.Generator().manual_seed(0), params=init)
-        init = init if init is not None else state.params
+        # a copy: the donated steps below write over the state's tensors
+        init = init if init is not None else tree_map(torch.clone, state.params)
         losses = []
         for _ in range(2):
             state, m = tr.step(state, x, y)
@@ -4284,6 +4368,7 @@ def main() -> int:
     for name in flash:
         if name.endswith("_sm90"):
             flash[name]["launches"] += moe[name]
+    timed("donate", donate_leg, card_line)
     timed("pp", pp_path, card_line)
     timed("tp", tp_path, card_line, served)
     timed("tour", tour_path)

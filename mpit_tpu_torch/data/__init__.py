@@ -11,7 +11,7 @@ from mpit_tpu_torch.data.datasets import (  # noqa: F401
     load_ptb,
     shard_for_worker,
 )
-from mpit_tpu_torch.data.prefetch import prefetch_to_device  # noqa: F401
+from mpit_tpu_torch.data.prefetch import DeviceBatches, prefetch_to_device  # noqa: F401
 from mpit_tpu_torch.data.synthetic import (  # noqa: F401
     synthetic_image_classification,
     synthetic_lm_corpus,

@@ -1,7 +1,7 @@
 """Device-prefetching input pipeline.
 
-Counterpart of ``mpit_tpu/data/prefetch.py``'s ``prefetch_to_device``.
-Upcoming items are staged on the device while the current step runs: each
+Counterpart of ``mpit_tpu/data/prefetch.py``: ``prefetch_to_device`` and
+:class:`DeviceBatches`. Upcoming items are staged on the device while the current step runs: each
 host array is copied into pinned (page-locked) memory and sent with
 ``non_blocking=True``, so the copy runs on the card's copy engine, ordered
 on the current stream before the step that reads it, while the host goes
@@ -12,7 +12,7 @@ buffer until its copy has finished.
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Iterable, Iterator
+from typing import Any, Callable, Iterable, Iterator, Optional
 
 import torch
 
@@ -47,3 +47,32 @@ def _prefetch_gen(it, device, depth) -> Iterator[Any]:
     while buf:
         yield buf.popleft()
 
+
+class DeviceBatches:
+    """A :class:`~mpit_tpu_torch.data.Batches`-shaped epoch iterator whose
+    batches arrive already on the trainer's device (``topo.device``),
+    ``depth`` ahead.
+
+    Wraps any object with ``epoch(i)`` / ``steps_per_epoch()`` (the Batches
+    protocol). An optional ``transform(x, y) -> item`` reshapes each host
+    batch before staging (e.g. a τ-round regrouping); by default items are
+    the ``(x, y)`` pairs unchanged.
+    """
+
+    def __init__(self, batches, topo, depth: int = 2,
+                 transform: Optional[Callable] = None):
+        if depth < 0:
+            raise ValueError(f"depth must be >= 0, got {depth}")
+        self.batches = batches
+        self.topo = topo
+        self.depth = int(depth)
+        self.transform = transform
+
+    def steps_per_epoch(self) -> int:
+        return self.batches.steps_per_epoch()
+
+    def epoch(self, epoch_index: int) -> Iterator[Any]:
+        it = self.batches.epoch(epoch_index)
+        if self.transform is not None:
+            it = (self.transform(x, y) for x, y in it)
+        return prefetch_to_device(it, self.topo.device, depth=self.depth)

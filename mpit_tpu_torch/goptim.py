@@ -62,6 +62,7 @@ def easgd_round(
     alpha: float,
     use_kernel: Optional[bool] = None,
     compress_dtype: Optional[torch.dtype] = None,
+    inplace: bool = False,
 ) -> tuple[Any, Any]:
     """One synchronous elastic-averaging exchange; returns
     ``(params, center)``.
@@ -70,12 +71,17 @@ def easgd_round(
     kernel (``ops.elastic_update_leaves``), one launch for all the leaves:
     True requires it, False takes the plain tree moves, None takes the
     kernel for CUDA tensors. The diff sum stays plain PyTorch either way,
-    as the reference's psum stays outside its kernel."""
+    as the reference's psum stays outside its kernel. ``inplace`` writes
+    the moved params and center over the given ones (the same bits)."""
     if use_kernel is False:
-        return (
-            elastic_client_move(params, center, alpha),
-            elastic_center_move(center, params, alpha, compress_dtype),
-        )
+        new_x = elastic_client_move(params, center, alpha)
+        new_c = elastic_center_move(center, params, alpha, compress_dtype)
+        if not inplace:
+            return new_x, new_c
+        with torch.no_grad():
+            torch._foreach_copy_(tree_leaves(params), tree_leaves(new_x))
+            torch._foreach_copy_(tree_leaves(center), tree_leaves(new_c))
+        return params, center
 
     from mpit_tpu_torch.ops import elastic_update_leaves
 
@@ -84,8 +90,10 @@ def easgd_round(
     # are tuples come back intact
     new_x, new_c = elastic_update_leaves(
         tree_leaves(params), tree_leaves(center), tree_leaves(total_diff), alpha,
-        use_kernel=use_kernel,
+        use_kernel=use_kernel, inplace=inplace,
     )
+    if inplace:
+        return params, center
     return tree_unflatten(params, new_x), tree_unflatten(center, new_c)
 
 

@@ -205,7 +205,7 @@ class Journal:
         self._footer_off: Optional[int] = None
         self._lock = make_lock("obs.Journal._lock")
         self._ring: Optional[list] = [] if mode == "ring" else None
-        self._m = MetricsLogger(path, tag="obs", echo=False)
+        self._m = MetricsLogger(path, tag="obs", echo=False, all_processes=True)
 
     # MetricsLogger owns these record keys; caller fields that collide
     # (e.g. a span arg named "step") are prefixed rather than rejected

@@ -40,6 +40,15 @@
 // parallel/ps_roles.py). The two EASGD runtimes then agree to the bit at the
 // exchange.
 //
+// In place: new_x == x and new_c == c are allowed (the trainers' donated
+// state; ops/elastic.py passes the input pointers as outputs). Each element
+// is read and written by one thread only, and that thread loads c[i..i+3]
+// into cv before it stores new_c, and loads each x row before it stores
+// that row, so no value is read after it was overwritten. Nothing here may
+// assume otherwise: the Leaf pointers carry no __restrict__, so the
+// compiler neither reorders a load past an aliasing store nor reads the
+// inputs through the read-only cache.
+//
 // alpha is a kernel argument (the TPU version folded it in as a static).
 // Launches go on the caller's stream and do not synchronise; each entry
 // returns cudaGetLastError() so a refused launch is reported.

@@ -15,6 +15,12 @@ shape, and ``new_c`` is written once, not W times.
 :func:`elastic_update_leaves` does the same for a list of leaves (a
 round's whole tree) in one launch per :data:`MAX_LEAVES` leaves.
 
+Each function takes ``inplace``: True writes ``new_x`` over ``x`` and
+``new_c`` over ``center`` and returns them (the trainers' ``donate_state``).
+The kernel then gets the input pointers as its outputs, which its source
+allows (see its header), and nothing is allocated; the plain version
+computes as out of place, then copies. The bits are the same either way.
+
 ``use_kernel`` has the meaning of the reference's ``use_pallas``: True
 requires the kernel (and raises for a CPU tensor), False is the plain
 version, None is the kernel for CUDA tensors and the plain version for CPU
@@ -34,9 +40,13 @@ launches = 0
 MAX_LEAVES = 32
 
 
-def elastic_update_plain(x, center, total_diff, alpha: float):
+def elastic_update_plain(x, center, total_diff, alpha: float, inplace: bool = False):
     """The plain PyTorch version; returns ``(new_x, new_center)``."""
-    return x - alpha * (x - center), center + alpha * total_diff
+    new_x, new_c = x - alpha * (x - center), center + alpha * total_diff
+    if not inplace:
+        return new_x, new_c
+    with torch.no_grad():
+        return x.copy_(new_x), center.copy_(new_c)
 
 
 def _workers(x: torch.Tensor, center: torch.Tensor, total_diff: torch.Tensor) -> int:
@@ -100,13 +110,13 @@ def _call(symbol: str, args, device) -> None:
         raise RuntimeError(f"elastic kernel launch failed: CUDA error {err}")
 
 
-def elastic_update_cuda(x, center, total_diff, alpha: float):
+def elastic_update_cuda(x, center, total_diff, alpha: float, inplace: bool = False):
     """Launch the kernel on the current stream; returns ``(new_x, new_c)``
     without synchronising."""
     global launches
     w = _check(x, center, total_diff)
-    new_x = torch.empty_like(x)
-    new_c = torch.empty_like(center)
+    new_x = x if inplace else torch.empty_like(x)
+    new_c = center if inplace else torch.empty_like(center)
     _call("mpit_elastic_update",
           (x.data_ptr(), center.data_ptr(), total_diff.data_ptr(), new_x.data_ptr(),
            new_c.data_ptr(), center.numel(), w, float(alpha)), x.device)
@@ -114,7 +124,7 @@ def elastic_update_cuda(x, center, total_diff, alpha: float):
     return new_x, new_c
 
 
-def elastic_update_leaves_cuda(xs, centers, diffs, alpha: float):
+def elastic_update_leaves_cuda(xs, centers, diffs, alpha: float, inplace: bool = False):
     """Launch the kernel once per :data:`MAX_LEAVES` non-empty leaves on
     the current stream; returns ``(new_xs, new_centers)`` without
     synchronising. Every leaf is checked, and all must share one W and one
@@ -131,8 +141,8 @@ def elastic_update_leaves_cuda(xs, centers, diffs, alpha: float):
         _check(x, c, d)
         if x.device != xs[0].device:
             raise ValueError("elastic kernel: leaves are on different devices")
-    new_xs = [torch.empty_like(x) for x in xs]
-    new_cs = [torch.empty_like(c) for c in centers]
+    new_xs = xs if inplace else [torch.empty_like(x) for x in xs]
+    new_cs = centers if inplace else [torch.empty_like(c) for c in centers]
     busy = sum(c.numel() > 0 for c in centers) if w > 0 else 0
     if busy:
         ptrs = [(ctypes.c_void_p * len(xs))(*(t.data_ptr() for t in ts))
@@ -144,16 +154,18 @@ def elastic_update_leaves_cuda(xs, centers, diffs, alpha: float):
     return new_xs, new_cs
 
 
-def elastic_update(x, center, total_diff, alpha: float, use_kernel=None):
+def elastic_update(x, center, total_diff, alpha: float, use_kernel=None,
+                   inplace: bool = False):
     """Fused elastic pair update; returns ``(new_x, new_center)``."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if not use_kernel:
-        return elastic_update_plain(x, center, total_diff, alpha)
-    return elastic_update_cuda(x, center, total_diff, alpha)
+        return elastic_update_plain(x, center, total_diff, alpha, inplace)
+    return elastic_update_cuda(x, center, total_diff, alpha, inplace)
 
 
-def elastic_update_leaves(xs, centers, diffs, alpha: float, use_kernel=None):
+def elastic_update_leaves(xs, centers, diffs, alpha: float, use_kernel=None,
+                          inplace: bool = False):
     """:func:`elastic_update` over lists of leaves, in one launch per
     :data:`MAX_LEAVES` leaves; returns ``(new_xs, new_centers)``.
     ``use_kernel`` as in :func:`elastic_update`, None deciding by the first
@@ -165,6 +177,7 @@ def elastic_update_leaves(xs, centers, diffs, alpha: float, use_kernel=None):
     if use_kernel is None:
         use_kernel = bool(xs) and xs[0].is_cuda
     if not use_kernel:
-        pairs = [elastic_update_plain(x, c, d, alpha) for x, c, d in zip(xs, centers, diffs)]
+        pairs = [elastic_update_plain(x, c, d, alpha, inplace)
+                 for x, c, d in zip(xs, centers, diffs)]
         return [x for x, _ in pairs], [c for _, c in pairs]
-    return elastic_update_leaves_cuda(xs, centers, diffs, alpha)
+    return elastic_update_leaves_cuda(xs, centers, diffs, alpha, inplace)

@@ -27,7 +27,11 @@ this function: it decays the weights before the moment step.
 
 The functions compute the same on every leaf of a tree, stacked ``(W,
 ...)`` leaves included, and return new tensors, leaving their inputs as
-they were. ``update(..., per_worker=True)`` says that dim 0 of every leaf
+they were; ``update(..., inplace=True)`` writes the new params and state
+into the given ones instead (the trainers' ``donate_state``), with the
+same operations in the same order, so the bits are the same. In place,
+a transform may also write over the gradient tensors it is handed (the
+step's own temporaries) and hand its update on in them. ``update(..., per_worker=True)`` says that dim 0 of every leaf
 indexes workers, as the τ-round trainers stack them: each worker's state
 and update stay its own (the reference's vmapped worker optimizer), and
 the clip's norm is taken per worker, over that worker's leaves only. The
@@ -153,7 +157,7 @@ class ClipByGlobalNorm:
     def init(self, params):
         return EmptyState()
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
         if not u:
             return u, state
         if per_worker:
@@ -170,6 +174,10 @@ class ClipByGlobalNorm:
         if per_worker:
             den = [den.view(-1, *[1] * (g.dim() - 1)) for g in u]
             mul = [mul.view(-1, *[1] * (g.dim() - 1)) for g in u]
+        if inplace:
+            fe._foreach_div_(u, den)
+            fe._foreach_mul_(u, mul)
+            return u, state
         return fe._foreach_mul(fe._foreach_div(u, den), mul), state
 
 
@@ -182,8 +190,14 @@ class Trace:
     def init(self, params):
         return TraceState(_zeros(params))
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
         t = tree_leaves(state.trace)
+        if inplace:
+            # t·decay + g is g + t·decay: one rounding each, as below
+            fe._foreach_mul_(t, self.decay)
+            fe._foreach_add_(t, u)
+            fe._foreach_copy_(u, t)
+            return u, TraceState(state.trace)
         t = fe._foreach_add(u, fe._foreach_mul(t, self.decay))
         return t, TraceState(tree_unflatten(state.trace, t))
 
@@ -200,7 +214,9 @@ class ScaleByAdam:
     def init(self, params):
         return ScaleByAdamState(0, _zeros(params), _zeros(params))
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
+        if inplace:
+            return self._transform_(u, state)
         b1, b2 = self.b1, self.b2
         mu = fe._foreach_add(fe._foreach_mul(u, 1 - b1),
                              fe._foreach_mul(tree_leaves(state.mu), b1))
@@ -215,6 +231,32 @@ class ScaleByAdam:
         return out, ScaleByAdamState(count, tree_unflatten(state.mu, mu),
                                      tree_unflatten(state.nu, nu))
 
+    def _transform_(self, u, state):
+        """:meth:`transform` into ``state``'s moments (``u`` is scratch).
+        The two divisions by a host scalar run on tensors laid out as the
+        moments, as above: PyTorch may divide by a scalar as a product
+        with its reciprocal for some layouts, which rounds otherwise."""
+        b1, b2 = self.b1, self.b2
+        mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
+        sq = fe._foreach_mul(u, u)
+        fe._foreach_mul_(sq, 1 - b2)
+        fe._foreach_mul_(nu, b2)
+        fe._foreach_add_(nu, sq)
+        del sq
+        fe._foreach_mul_(u, 1 - b1)
+        fe._foreach_mul_(mu, b1)
+        fe._foreach_add_(mu, u)
+        count = state.count + 1
+        bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
+        bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
+        den = fe._foreach_div(nu, bc2)
+        fe._foreach_add_(den, self.eps_root)
+        fe._foreach_sqrt_(den)
+        fe._foreach_add_(den, self.eps)
+        out = fe._foreach_div(mu, bc1)
+        fe._foreach_div_(out, den)
+        return out, ScaleByAdamState(count, state.mu, state.nu)
+
 
 @dataclasses.dataclass(frozen=True)
 class AddDecayedWeights:
@@ -225,7 +267,10 @@ class AddDecayedWeights:
     def init(self, params):
         return EmptyState()
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
+        if inplace:
+            fe._foreach_add_(u, fe._foreach_mul(p, self.weight_decay))
+            return u, state
         return fe._foreach_add(u, fe._foreach_mul(p, self.weight_decay)), state
 
 
@@ -239,11 +284,14 @@ class ScaleByLearningRate:
     def init(self, params):
         return ScaleByScheduleState(0) if callable(self.lr) else EmptyState()
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
         if callable(self.lr):
             lr, state = self.lr(state.count), ScaleByScheduleState(state.count + 1)
         else:
             lr = self.lr
+        if inplace:
+            fe._foreach_mul_(u, -lr)
+            return u, state
         return fe._foreach_mul(u, -lr), state
 
 
@@ -251,7 +299,10 @@ class Chain:
     """``optax.chain(*transforms)``: the state is the tuple of theirs.
 
     ``init(params)`` builds the state; ``update(params, grads, state,
-    per_worker=False)`` returns ``(new_params, new_state)``."""
+    per_worker=False, inplace=False)`` returns ``(new_params,
+    new_state)``: new tensors, or with ``inplace`` the given params and
+    state tensors written over (and the gradient tensors used as
+    scratch), under ``torch.no_grad()``."""
 
     def __init__(self, *transforms):
         self.transforms = tuple(transforms)
@@ -262,18 +313,23 @@ class Chain:
     def init(self, params: Any) -> tuple:
         return tuple(t.init(params) for t in self.transforms)
 
-    def transform(self, u, state, p, per_worker):
+    def transform(self, u, state, p, per_worker, inplace=False):
         new = []
         for t, s in zip(self.transforms, state, strict=True):
-            u, s = t.transform(u, s, p, per_worker)
+            u, s = t.transform(u, s, p, per_worker, inplace)
             new.append(s)
         return u, tuple(new)
 
     def update(self, params: Any, grads: Any, state: tuple,
-               per_worker: bool = False) -> tuple[Any, tuple]:
+               per_worker: bool = False, inplace: bool = False) -> tuple[Any, tuple]:
         p = tree_leaves(params)
-        u, state = self.transform(tree_leaves(grads), state, p, per_worker)
-        return tree_unflatten(params, fe._foreach_add(p, u)), state
+        if not inplace:
+            u, state = self.transform(tree_leaves(grads), state, p, per_worker)
+            return tree_unflatten(params, fe._foreach_add(p, u)), state
+        with torch.no_grad():
+            u, state = self.transform(tree_leaves(grads), state, p, per_worker, True)
+            fe._foreach_add_(p, u)
+        return params, state
 
 
 def chain(*transforms) -> Chain:

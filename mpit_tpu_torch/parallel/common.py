@@ -36,6 +36,26 @@ class TrainState:
         return cls(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def check_live(state, what: str = "step") -> None:
+    """Refuse a state that was handed to a donating step: its tensors now
+    hold the state that step returned, so reading it again would silently
+    read new values (JAX raises on a donated buffer in the same place)."""
+    if getattr(state, "_donated", False):
+        raise RuntimeError(
+            f"cannot {what} a state that was donated to a training step: the "
+            "step updated its tensors in place, so they now hold the state it "
+            "returned. Use that state, or build the trainer with "
+            "donate_state=False to keep every state it is given readable."
+        )
+
+
+def donated(state, donate: bool) -> None:
+    """Mark ``state`` consumed when its step donated it (the state the
+    step returns is a new object, unmarked)."""
+    if donate:
+        object.__setattr__(state, "_donated", True)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy over integer labels, the classes on the
     last dim, for logits of any rank (``optax.softmax_cross_entropy_with_
@@ -412,6 +432,7 @@ class RoundTrainer:
     def evaluate(self, state, x, y, batch: int = 1024) -> float:
         """Accuracy of the CENTER variable (the consensus model), over the
         same whole batches the reference counts."""
+        check_live(state, "evaluate")
         if self.model is None:
             raise ValueError(
                 "evaluate() requires a model; this trainer was built with "
@@ -437,7 +458,8 @@ class RoundTrainer:
 
 
 def synced_fit_loop(step_fn, batches, state, *, device, check, shard=None,
-                    epochs: int = 1, start_epoch: int = 0, skip_steps: int = 0,
+                    log_tag: str = "sync", epochs: int = 1, log_every: int = 0,
+                    start_epoch: int = 0, skip_steps: int = 0,
                     on_step=None, prefetch: int = 2):
     """The per-step fit loop of the synchronous trainers:
     ``on_step(steps, state, metrics)`` after every step; batches checked by
@@ -445,9 +467,14 @@ def synced_fit_loop(step_fn, batches, state, *, device, check, shard=None,
     and staged ``prefetch`` ahead on ``device``. A resume
     re-enters the deterministic data schedule at epoch ``start_epoch``
     (whose index seeds its permutation), drawing and dropping its first
-    ``skip_steps`` batches. Returns (state, last_metrics)."""
+    ``skip_steps`` batches. Every ``log_every`` steps (0: never) it prints
+    the reference's ``[log_tag] step=N loss=L`` line, N counting from the
+    state's step. Returns (state, last_metrics)."""
     metrics = None
     steps = 0
+    # the step count is a host int (a dict for the pipeline's state), so
+    # numbering the lines across a resume reads nothing from the device
+    base_step = (state["step"] if isinstance(state, dict) else state.step) if log_every else 0
 
     def step_batches(e, to_skip):
         for x, y in batches.epoch(e):
@@ -465,6 +492,12 @@ def synced_fit_loop(step_fn, batches, state, *, device, check, shard=None,
             steps += 1
             if on_step is not None:
                 on_step(steps, state, metrics)
+            # gated on the host counter: the loss is read only when due
+            if log_every and steps % log_every == 0:
+                print(
+                    f"[{log_tag}] step={base_step + steps} "
+                    f"loss={float(metrics['loss']):.4f}"
+                )
     return state, metrics
 
 

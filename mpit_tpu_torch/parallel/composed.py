@@ -54,7 +54,7 @@ class ComposedParallelTrainer(SeqParallelTrainer):
     """
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         names = self.topo.axis_names
@@ -82,6 +82,7 @@ class ComposedParallelTrainer(SeqParallelTrainer):
                                           ("tp_span", self._tp_span)) if not span.local}
         self.model = model.clone(tp=self.tp_size, **across)
         self.accum_steps = 1
+        self.donate_state = bool(donate_state)
         self.bucketed = False
         self.obs, self._tracer = None, None
         self.loss_fn = (loss_fn if loss_fn is not None

@@ -25,7 +25,7 @@ from mpit_tpu_torch.comm.topology import Topology
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.parallel.easgd import _stack
-from mpit_tpu_torch.utils.params import tree_map
+from mpit_tpu_torch.utils.params import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -56,6 +56,10 @@ class DownpourTrainer(common.RoundTrainer):
         model averaging (the center moves by the mean update).
       tau: push/pull period.
       staleness: rounds of center age the workers see on pull (0 = fresh).
+      donate_state: update each round's state in place (the worker stacks,
+        their optimizer state, the center, its ring and the server
+        optimizer state), consuming the given state, as
+        :class:`~mpit_tpu_torch.parallel.easgd.EASGDTrainer` does.
     """
 
     def __init__(
@@ -67,8 +71,10 @@ class DownpourTrainer(common.RoundTrainer):
         server_optimizer=None,
         tau: int = 4,
         staleness: int = 0,
+        donate_state: bool = True,
     ):
         self.model = model
+        self.donate_state = bool(donate_state)
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         self.tau = int(tau)
@@ -106,13 +112,17 @@ class DownpourTrainer(common.RoundTrainer):
         """τ local steps on x, y of shape (W, τ, B, ...), the push and the
         pull. Returns the new state and ``{"loss": mean over workers and
         steps}`` as a device scalar."""
+        common.check_live(state)
+        donate = self.donate_state
         start = state.worker_params
-        params, opt = start, state.worker_opt
+        # the local steps write over the worker stacks: keep the round's start
+        params = tree_map(torch.clone, start) if donate else start
+        opt = state.worker_opt
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
             params, opt = self.optimizer.update(params, grads, opt,
-                                                per_worker=True)
+                                                per_worker=True, inplace=donate)
             losses.append(loss)
         delta = tree_map(torch.sub, params, start)
         if self.server_optimizer is None:
@@ -121,19 +131,36 @@ class DownpourTrainer(common.RoundTrainer):
         else:
             pseudo_grad = tree_map(torch.neg, pmean(delta))
             center, server_opt = self.server_optimizer.update(
-                state.center, pseudo_grad, state.server_opt
+                state.center, pseudo_grad, state.server_opt, inplace=donate
             )
-        history = tree_map(lambda h, c: torch.cat([h[1:], c[None]]),
-                           state.center_history, center)
-        pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
+        if donate:
+            with torch.no_grad():
+                if self.server_optimizer is None:
+                    torch._foreach_copy_(tree_leaves(state.center), tree_leaves(center))
+                    center = state.center
+                history = state.center_history
+                for h, c in zip(tree_leaves(history), tree_leaves(center)):
+                    for i in range(h.shape[0] - 1):  # the ring moves one on
+                        h[i].copy_(h[i + 1])
+                    h[-1].copy_(c)
+                pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
+                for w, p in zip(tree_leaves(start), tree_leaves(pulled)):
+                    w.copy_(p.expand_as(w))
+            workers = start
+        else:
+            history = tree_map(lambda h, c: torch.cat([h[1:], c[None]]),
+                               state.center_history, center)
+            pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
+            workers = _stack(pulled, self.topo.local_workers)
         new = DownpourState(
-            worker_params=_stack(pulled, self.topo.local_workers),
+            worker_params=workers,
             worker_opt=opt,
             center=center,
             server_opt=server_opt,
             center_history=history,
             round=state.round + 1,
         )
+        common.donated(state, donate)
         loss = common.world_mean(torch.stack(losses).mean(), self.topo)
         return new, {"loss": loss}
 

@@ -52,6 +52,10 @@ class EASGDTrainer(common.RoundTrainer):
       topo: the topology (default: the current one).
       alpha: elastic coupling; default 0.9/W, the paper's β/W rule.
       tau: communication period (local steps per exchange round).
+      donate_state: update each round's state in place (the worker stacks,
+        their optimizer state and the center; the elastic kernel writes
+        over its inputs), consuming the given state: stepping, evaluating
+        or checkpointing it again raises. False leaves it as it was.
       use_kernel: the elastic update's kernel switch (``ops.elastic``):
         None = the CUDA kernel for CUDA tensors, plain PyTorch on the CPU.
       exchange_dtype: sum the client diffs in this dtype (e.g.
@@ -66,11 +70,13 @@ class EASGDTrainer(common.RoundTrainer):
         loss_fn: Optional[Callable] = None,
         alpha: Optional[float] = None,
         tau: int = 4,
+        donate_state: bool = True,
         use_kernel: Optional[bool] = None,
         exchange_dtype: Optional[torch.dtype] = None,
     ):
         self.model = model
         self.optimizer = optimizer
+        self.donate_state = bool(donate_state)
         self.use_kernel = use_kernel
         self.exchange_dtype = exchange_dtype
         self.topo = topo if topo is not None else _current_topology()
@@ -105,18 +111,22 @@ class EASGDTrainer(common.RoundTrainer):
         """τ local steps on x, y of shape (W, τ, B, ...), then the exchange.
         Returns the new state and ``{"loss": mean over workers and steps}``
         as a device scalar (no host sync)."""
+        common.check_live(state)
+        donate = self.donate_state
         params, opt = state.worker_params, state.worker_opt
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
             params, opt = self.optimizer.update(params, grads, opt,
-                                                per_worker=True)
+                                                per_worker=True, inplace=donate)
             losses.append(loss)
         params, center = goptim.easgd_round(
             params, state.center, self.alpha,
             use_kernel=self.use_kernel, compress_dtype=self.exchange_dtype,
+            inplace=donate,
         )
         new = EASGDState(params, opt, center, state.round + 1)
+        common.donated(state, donate)
         loss = common.world_mean(torch.stack(losses).mean(), self.topo)
         return new, {"loss": loss}
 

@@ -87,13 +87,18 @@ class MoEParallelTrainer:
     :func:`common.assert_elementwise_optimizer`); for global-norm clipping
     pass ``clip_norm=c``: :func:`common.clip_by_global_norm_in_mesh` over
     the reduced gradients, expert shards summing their squares across
-    processes, replicated leaves counted once.
+    processes, replicated leaves counted once. ``donate_state`` updates
+    the params (the experts too) and the optimizer state in place, as
+    :class:`~mpit_tpu_torch.parallel.sync.DataParallelTrainer` does.
     """
 
+    _log_tag = "moe-sync"
+
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 clip_norm: Optional[float] = None):
+                 donate_state: bool = True, clip_norm: Optional[float] = None):
         self.model = model
         self.optimizer = optimizer
+        self.donate_state = bool(donate_state)
         common.assert_elementwise_optimizer(optimizer, "MoEParallelTrainer")
         self.clip_norm = common.check_clip_norm(clip_norm)
         self.topo = topo if topo is not None else _current_topology()
@@ -134,6 +139,7 @@ class MoEParallelTrainer:
         return a.reshape(self.topo.local_workers, -1, *a.shape[1:])
 
     def _step(self, state: common.TrainState, x, y):
+        common.check_live(state)
         leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
         loss, aux = self.loss_fn(tree_unflatten(state.params, leaves), x, y)
         grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
@@ -158,9 +164,11 @@ class MoEParallelTrainer:
             grads, _ = common.clip_by_global_norm_in_mesh(
                 grads, self.clip_norm, self.topo.axis_names[0],
                 is_sharded=_is_expert_leaf)
-        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
+        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state,
+                                                  inplace=self.donate_state)
         metrics = {"loss": loss}
         metrics.update((f"moe_{k}", v.detach()) for k, v in aux.items())
+        common.donated(state, self.donate_state)
         return MoETrainState(params, opt_state, state.step + 1), metrics
 
     # -- public interface ---------------------------------------------------
@@ -170,9 +178,12 @@ class MoEParallelTrainer:
         """State from the given tree, or ``model.init(generator)``, with all
         E experts (the reference inits on the dense clone); in a world of
         several processes each keeps its own workers' experts."""
+        given = params is not None
         if params is None:
             params = self.model.init(generator)
-        params = tree_map(lambda a: a.detach().to(self.topo.device), params)
+        # a donated step writes over the state's tensors: never the caller's
+        copy = given and self.donate_state
+        params = tree_map(lambda a: a.detach().to(self.topo.device, copy=copy), params)
         index, procs = current_process()
         if procs > 1:
             pairs = tree_leaves_with_path(params)
@@ -195,14 +206,16 @@ class MoEParallelTrainer:
         dev = self.topo.device
         return self._step(state, x.to(dev), y.to(dev))
 
-    def fit(self, batches, state, epochs: int = 1, start_epoch: int = 0,
-            skip_steps: int = 0, on_step=None, prefetch: int = 2):
+    def fit(self, batches, state, epochs: int = 1, log_every: int = 0,
+            start_epoch: int = 0, skip_steps: int = 0, on_step=None,
+            prefetch: int = 2):
         """Epoch loop (``common.synced_fit_loop``); returns (state,
         last_metrics)."""
         return common.synced_fit_loop(
             self._step, batches, state, device=self.topo.device, check=self._check,
-            shard=self._shard, epochs=epochs, start_epoch=start_epoch,
-            skip_steps=skip_steps, on_step=on_step, prefetch=prefetch,
+            shard=self._shard, log_tag=self._log_tag, epochs=epochs,
+            log_every=log_every, start_epoch=start_epoch, skip_steps=skip_steps,
+            on_step=on_step, prefetch=prefetch,
         )
 
     @torch.no_grad()
@@ -233,6 +246,7 @@ class MoEParallelTrainer:
     def evaluate(self, state, x, y, batch: int = 512):
         """Token-level accuracy and mean loss, in the reference's batches
         (each worker routes its share of a batch together)."""
+        common.check_live(state, "evaluate")
         correct, loss_sum, n = common.batched_count_eval(
             self._eval_batch, state.params, x, y, batch, self.topo.num_workers
         )

@@ -369,7 +369,12 @@ class PipelineParallelTrainer:
     divisible by ``n_micro``. ``optimizer``: an elementwise ``optim``
     transform replacing the built-in SGD with momentum (``lr``/``momentum``
     are then ignored); ``clip_norm``: global-norm clipping of the reduced
-    gradient over the whole model, with either optimizer.
+    gradient over the whole model, with either optimizer;
+    ``donate_state``: update this process's params rows and their momentum
+    or optimizer state in place, consuming the given state (stepping,
+    evaluating or checkpointing it again raises), as the reference donates
+    it; without, each step keeps a second copy of the whole state alive.
+    The batch axis is the mesh's first, whatever its name.
     """
 
     def __init__(
@@ -388,8 +393,10 @@ class PipelineParallelTrainer:
         virtual: int = 2,
         optimizer=None,
         clip_norm: Optional[float] = None,
+        donate_state: bool = True,
     ):
         self.topo = topo if topo is not None else _current_topology()
+        self.donate_state = bool(donate_state)
         names = self.topo.axis_names
         if len(names) < 2 or names[1] != "pp":
             raise ValueError(
@@ -401,7 +408,9 @@ class PipelineParallelTrainer:
         # this process's stages and dp groups (raises where its workers
         # form no block of the mesh), and the processes holding its stages
         self._pp_span = self.topo.axis_span("pp")
-        self._dp_span = self.topo.axis_span("dp")
+        # the batch axis is the mesh's first, whatever its name (the
+        # reference's by position)
+        self._dp_span = self.topo.axis_span(names[0])
         self._dp_peers = self.topo.peers("pp")
         self._across = not self._pp_span.local
         self._stages = list(range(self._pp_span.start,
@@ -494,12 +503,15 @@ class PipelineParallelTrainer:
         given) and this process keeps its stages' rows, so every process
         holds the one-process run's values. ``sample_x`` is accepted and
         ignored, as in the reference."""
+        given = params is not None
         if params is None:
             params = init_params(
                 generator, self.vocab_size, self.num_layers, self.d_model,
                 self.d_ff, self.seq_len, num_heads=self.num_heads)
         dev = self.topo.device
-        params = tree_map(lambda a: a.detach().to(dev), params)
+        # a donated step writes over the state's tensors: never the caller's
+        copy = given and self.donate_state
+        params = tree_map(lambda a: a.detach().to(dev, copy=copy), params)
         if self._permuted:
             perm = torch.as_tensor(self._perm, device=dev)
             params = {"blocks": tree_map(lambda a: a[perm], params["blocks"]),
@@ -757,6 +769,7 @@ class PipelineParallelTrainer:
 
     def _step(self, state: dict, x, y):
         """One step on this process's rows ``(B_l, T)`` (device tensors)."""
+        common.check_live(state)
         x_mb, y_mb = self._micro(x), self._micro(y)
         params = state["params"]
         if self.schedule != "gpipe":
@@ -783,14 +796,25 @@ class PipelineParallelTrainer:
             # so each leaf counts once
             grads, _ = common.clip_by_global_norm_in_mesh(
                 grads, self.clip_norm, "pp", is_sharded=lambda path: False)
+        donate = self.donate_state
         if self.optimizer is not None:
-            params, opt_state = self.optimizer.update(params, grads, state["opt_state"])
+            params, opt_state = self.optimizer.update(params, grads, state["opt_state"],
+                                                      inplace=donate)
             new = {"params": params, "opt_state": opt_state}
+        elif donate:
+            mom = state["momentum"]
+            with torch.no_grad():
+                # m·μ + g, then p − m·lr: the roundings of the branch below
+                for p, m_, g in zip(tree_leaves(params), tree_leaves(mom), tree_leaves(grads)):
+                    m_.mul_(self.momentum).add_(g)
+                    p.sub_(m_ * self.lr)
+            new = {"params": params, "momentum": mom}
         else:
             mom = tree_map(lambda m_, g: self.momentum * m_ + g, state["momentum"], grads)
             params = tree_map(lambda p, m_: p - self.lr * m_, params, mom)
             new = {"params": params, "momentum": mom}
         new["step"] = state["step"] + 1
+        common.donated(state, donate)
         return PipelineState(new, self._pp_span), {"loss": loss}
 
     def _reduce_across(self, grads: dict, loss):
@@ -844,14 +868,16 @@ class PipelineParallelTrainer:
         dev = self.topo.device
         return self._step(state, x.to(dev), y.to(dev))
 
-    def fit(self, batches, state, epochs: int = 1, start_epoch: int = 0,
-            skip_steps: int = 0, on_step=None, prefetch: int = 2):
+    def fit(self, batches, state, epochs: int = 1, log_every: int = 0,
+            start_epoch: int = 0, skip_steps: int = 0, on_step=None,
+            prefetch: int = 2):
         """Epoch loop (``common.synced_fit_loop``); returns (state,
         last_metrics)."""
         return common.synced_fit_loop(
             self._step, batches, state, device=self.topo.device, check=self._check,
-            shard=self._shard, epochs=epochs, start_epoch=start_epoch,
-            skip_steps=skip_steps, on_step=on_step, prefetch=prefetch,
+            shard=self._shard, log_tag=f"pp-{self.schedule}", epochs=epochs,
+            log_every=log_every, start_epoch=start_epoch, skip_steps=skip_steps,
+            on_step=on_step, prefetch=prefetch,
         )
 
     @torch.no_grad()
@@ -891,6 +917,7 @@ class PipelineParallelTrainer:
 
     def evaluate(self, state, x, y, batch: int = 512):
         """Token-level accuracy and mean loss over an ``(N, T)`` eval set."""
+        common.check_live(state, "evaluate")
         if x.shape[1] > self.seq_len:
             raise ValueError(
                 f"sequence of {x.shape[1]} exceeds the position "

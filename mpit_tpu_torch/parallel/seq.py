@@ -54,12 +54,15 @@ class SeqParallelTrainer(DataParallelTrainer):
         state, metrics = trainer.step(state, x_global, y_global)
 
     ``x_global`` is ``(B, T)`` with ``B`` divisible by dp and ``T`` by sp.
-    Initialization, the step, ``fit`` and the process-world averaging are
-    :class:`DataParallelTrainer`'s, on the blocked batch.
+    Initialization, the step, ``fit``, ``donate_state`` and the
+    process-world averaging are :class:`DataParallelTrainer`'s, on the
+    blocked batch.
     """
 
+    _log_tag = "seq-sync"
+
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
         self.model = model
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
@@ -82,6 +85,7 @@ class SeqParallelTrainer(DataParallelTrainer):
         if not self._seq_span.local:
             self.model = model = model.clone(seq_span=self._seq_span)
         self.accum_steps = 1
+        self.donate_state = bool(donate_state)
         self.bucketed = False  # the reference's seq trainer has no exchange knobs
         self.obs, self._tracer = None, None  # ...and no obs journal
         # the mean cross-entropy over every token of every block
@@ -148,6 +152,7 @@ class SeqParallelTrainer(DataParallelTrainer):
         """Token-level accuracy and mean loss over an ``(N, T)`` eval set,
         in the reference's dp-divisible batches (only T must divide by sp:
         the set's length owes the mesh nothing)."""
+        common.check_live(state, "evaluate")
         if x.shape[1] % self.sp_size:
             raise ValueError(
                 f"sequence length {x.shape[1]} not divisible by "

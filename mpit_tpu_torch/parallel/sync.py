@@ -47,7 +47,7 @@ from __future__ import annotations
 import math
 import os
 import time
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -161,9 +161,17 @@ class DataParallelTrainer:
     """Sync allreduce DP trainer for a port model (``init``/``apply``).
 
     Args:
-      model: the model; its ``apply(params, x)`` gives the logits.
+      model: the model; its ``apply(params, x)`` gives the logits. None
+        when ``loss_fn`` is given and the state is built with
+        ``init_state(params=...)`` (no :meth:`evaluate` then).
       optimizer: ``optim.SGD``/``Adam``/``AdamW`` (``init``/``update``).
       topo: the topology (default: the current one); W sets the batch check.
+      loss_fn: ``(params, x, y) -> scalar`` mean loss over a batch; default
+        the cross-entropy of ``model.apply``.
+      donate_state: update each step's state in place, as the reference
+        donates it: the returned state holds the given state's tensors, and
+        the given state is consumed (stepping, evaluating or checkpointing
+        it again raises). False leaves every given state as it was.
       accum_steps: gradient accumulation slices per step (exact math).
       quant, bucket_bytes: the bucketed exchange (default: the
         ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs); see the module
@@ -173,11 +181,15 @@ class DataParallelTrainer:
         Call :meth:`close_obs` to close the journal.
     """
 
+    _log_tag = "sync-dp"
+
     def __init__(
         self,
         model,
         optimizer,
         topo: Optional[Topology] = None,
+        loss_fn: Optional[Callable] = None,
+        donate_state: bool = True,
         accum_steps: int = 1,
         quant: Optional[str] = None,
         bucket_bytes: Optional[int] = None,
@@ -186,6 +198,9 @@ class DataParallelTrainer:
         self.model = model
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
+        self.loss_fn = (loss_fn if loss_fn is not None
+                        else common.default_loss_fn(model.apply))
+        self.donate_state = bool(donate_state)
         self.accum_steps = common.check_accum_steps(accum_steps)
         self.quant = dp_quant_from_env() if quant is None else quant
         if self.quant not in _quant.QUANT_MODES:
@@ -198,25 +213,28 @@ class DataParallelTrainer:
         self.obs = obs if obs is not None else obs_core.config_from_env()
         self._tracer: Optional[obs_core.Tracer] = None
         self._round = 0
-        loss_fn = common.default_loss_fn(model.apply)
         remat = getattr(model, "remat", False)
-        self._vg = common.accumulated_value_and_grad(loss_fn, self.accum_steps,
+        self._vg = common.accumulated_value_and_grad(self.loss_fn, self.accum_steps,
                                                      remat=remat)
         # the bucketed path's: each worker's own gradient
-        self._worker_vg = common.per_worker_value_and_grad(loss_fn, self.accum_steps,
+        self._worker_vg = common.per_worker_value_and_grad(self.loss_fn, self.accum_steps,
                                                            remat=remat)
         self._plan: Optional[_BucketPlan] = None
         self._residual: Optional[list] = None
         self._residual2: Optional[list] = None
-        self._eval = common.build_count_loss_eval(model, self.topo.device)
+        self._eval = (common.build_count_loss_eval(model, self.topo.device)
+                      if model is not None else None)
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
     ) -> common.TrainState:
         """Replicated state from the given tree, or ``model.init(generator)``."""
+        given = params is not None
         if params is None:
             params = self.model.init(generator)
-        params = tree_map(lambda a: a.detach().to(self.topo.device), params)
+        # a donated step writes over the state's tensors: never the caller's
+        copy = given and self.donate_state
+        params = tree_map(lambda a: a.detach().to(self.topo.device, copy=copy), params)
         return common.TrainState.create(params, self.optimizer)
 
     def _check(self, x) -> None:
@@ -234,10 +252,13 @@ class DataParallelTrainer:
         batch}`` as a device scalar. In a world of several processes the
         gradient and the loss are averaged across them before the update,
         as the reference's pmean crosses its processes."""
+        common.check_live(state)
         grads, loss = self._vg(state.params, x, y)
         if in_process_group():
             grads, loss = self._across_processes(grads, loss)
-        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state)
+        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state,
+                                                  inplace=self.donate_state)
+        common.donated(state, self.donate_state)
         return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
 
     def _across_processes(self, grads, loss):
@@ -308,6 +329,7 @@ class DataParallelTrainer:
         process's rows); returns the new state and ``{"loss", "param_norm",
         "update_norm"}`` as device scalars. Armed, each phase is journaled
         as the reference's step journals it (see the module docstring)."""
+        common.check_live(state)
         self._ensure_buckets(state.params)
         plan, wl, mode = self._plan, self.topo.local_workers, self.quant
         tracer = self._armed_tracer()
@@ -366,8 +388,15 @@ class DataParallelTrainer:
             # the optimizer's updates themselves, as the reference's
             # update_norm measures them (not new - old params)
             p = tree_leaves(state.params)
-            updates, opt_state = self.optimizer.transform(mean, state.opt_state, p, False)
-            params = tree_unflatten(state.params, torch._foreach_add(p, updates))
+            donate = self.donate_state
+            with torch.no_grad():
+                updates, opt_state = self.optimizer.transform(
+                    mean, state.opt_state, p, False, donate)
+                if donate:
+                    torch._foreach_add_(p, updates)
+                    params = state.params
+                else:
+                    params = tree_unflatten(state.params, torch._foreach_add(p, updates))
             pn = torch.stack([q.to(torch.float32).square().sum()
                               for q in tree_leaves(params)]).sum().sqrt()
             un = torch.stack([u.to(torch.float32).square().sum()
@@ -388,6 +417,7 @@ class DataParallelTrainer:
                 "dynamics", tracer.clock.tick(), round=self._round, algo="sync-dp",
                 elastic=elastic, push_norm=un_f, param_norm=pn_f, fetch_delta=0.0,
                 ratio=un_f / pn_f if pn_f > 0 else 0.0)
+        common.donated(state, self.donate_state)
         return (common.TrainState(params, opt_state, state.step + 1),
                 {"loss": loss, "param_norm": pn, "update_norm": un})
 
@@ -412,18 +442,30 @@ class DataParallelTrainer:
         """Full-dataset eval over the reference's batches; returns
         (accuracy, mean_loss), both per example as the reference divides
         them (for an LM: correct tokens and summed token loss per window)."""
+        self._check_evaluable(state)
         correct, loss_sum, n = common.batched_count_eval(
             self._eval, state.params, x, y, batch, self.topo.num_workers
         )
         return correct / n, loss_sum / n
 
-    def fit(self, batches, state, epochs: int = 1, start_epoch: int = 0,
-            skip_steps: int = 0, on_step=None, prefetch: int = 2):
+    def _check_evaluable(self, state) -> None:
+        common.check_live(state, "evaluate")
+        if self._eval is None:
+            raise ValueError(
+                "evaluate() requires a model; this trainer was built with "
+                "model=None (loss-only math mode)"
+            )
+
+    def fit(self, batches, state, epochs: int = 1, log_every: int = 0,
+            start_epoch: int = 0, skip_steps: int = 0, on_step=None,
+            prefetch: int = 2):
         """Epoch loop over a :class:`Batches` (``start_epoch``/``skip_steps``
-        re-enter its schedule on resume); returns (state, last_metrics)."""
+        re-enter its schedule on resume; ``log_every`` prints the
+        reference's loss line); returns (state, last_metrics)."""
         return common.synced_fit_loop(
             self._bucketed_step if self.bucketed else self._step, batches, state,
-            device=self.topo.device, check=self._check,
-            shard=self._shard, epochs=epochs, start_epoch=start_epoch, skip_steps=skip_steps,
-            on_step=on_step, prefetch=prefetch,
+            device=self.topo.device, check=self._check, shard=self._shard,
+            log_tag=self._log_tag, epochs=epochs, log_every=log_every,
+            start_epoch=start_epoch, skip_steps=skip_steps, on_step=on_step,
+            prefetch=prefetch,
         )

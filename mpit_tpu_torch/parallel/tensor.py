@@ -230,7 +230,7 @@ class TensorParallelTrainer(DataParallelTrainer):
     """
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         names = self.topo.axis_names
@@ -260,6 +260,7 @@ class TensorParallelTrainer(DataParallelTrainer):
         across = {} if self._tp_span.local else {"tp_span": self._tp_span}
         self.model = model.clone(tp=self.tp_size, **across)
         self.accum_steps = 1
+        self.donate_state = bool(donate_state)
         self.bucketed = False  # the reference's tp trainer has no exchange knobs
         self.obs, self._tracer = None, None
         self.loss_fn = (loss_fn if loss_fn is not None
@@ -300,6 +301,7 @@ class TensorParallelTrainer(DataParallelTrainer):
 
     def evaluate(self, state, x, y, batch: int = 512):
         """Token-level accuracy and mean loss over an ``(N, T)`` eval set."""
+        common.check_live(state, "evaluate")
         correct, loss_sum, n = common.batched_count_eval(
             self._eval, state.params, x, y, batch, self.dp_size
         )

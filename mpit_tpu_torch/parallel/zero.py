@@ -31,7 +31,7 @@ ZeRO saves memory only across processes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar, Optional
+from typing import Any, Callable, ClassVar, Optional
 
 import torch
 
@@ -59,9 +59,15 @@ class ZeroDataParallelTrainer:
     ``step``, ``fit``, ``evaluate`` as :class:`DataParallelTrainer`).
 
     Args:
-      model: the model; its ``apply(params, x)`` gives the logits.
+      model: the model; its ``apply(params, x)`` gives the logits, or None
+        with ``loss_fn`` and ``init_state(params=...)``.
       optimizer: an elementwise ``optim`` chain (SGD, Adam, AdamW).
       topo: the topology (default: the current one).
+      loss_fn: ``(params, x, y) -> scalar``; default the cross-entropy of
+        ``model.apply``.
+      donate_state: update the state in place (the optimizer state's
+        chunks and the params' tensors), consuming the given state, as
+        :class:`~mpit_tpu_torch.parallel.sync.DataParallelTrainer` does.
       accum_steps: gradient accumulation slices per step.
       clip_norm: global-norm clipping over the chunks (the chained clip of
         the other trainers is refused here).
@@ -69,7 +75,10 @@ class ZeroDataParallelTrainer:
         the ``MPIT_DP_QUANT`` knob).
     """
 
+    _log_tag = "zero-dp"
+
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True,
                  accum_steps: int = 1, clip_norm: Optional[float] = None,
                  quant: Optional[str] = None):
         common.assert_elementwise_optimizer(optimizer, "ZeroDataParallelTrainer")
@@ -81,13 +90,16 @@ class ZeroDataParallelTrainer:
             raise ValueError(f"quant={self.quant!r}: expected one of {_quant.QUANT_MODES}")
         self.topo = topo if topo is not None else _current_topology()
         self.accum_steps = common.check_accum_steps(accum_steps)
-        loss_fn = common.default_loss_fn(model.apply)
+        self.donate_state = bool(donate_state)
+        self.loss_fn = loss_fn = (loss_fn if loss_fn is not None
+                                  else common.default_loss_fn(model.apply))
         remat = getattr(model, "remat", False)
         self._vg = common.accumulated_value_and_grad(loss_fn, self.accum_steps,
                                                      remat=remat)
         # one slice's per-worker gradients, for the quantized scatter
         self._worker_vg = common.per_worker_value_and_grad(loss_fn, 1, remat=remat)
-        self._eval = common.build_count_loss_eval(model, self.topo.device)
+        self._eval = (common.build_count_loss_eval(model, self.topo.device)
+                      if model is not None else None)
         self._layout = None
 
     def _check(self, x) -> None:
@@ -128,9 +140,12 @@ class ZeroDataParallelTrainer:
                    params: Any = None) -> ZeroTrainState:
         """Replicated params (given, or ``model.init(generator)``) and the
         optimizer state over this process's chunks of the flat vector."""
+        given = params is not None
         if params is None:
             params = self.model.init(generator)
-        params = tree_map(lambda a: a.detach().to(self.topo.device), params)
+        # a donated step writes over the state's tensors: never the caller's
+        copy = given and self.donate_state
+        params = tree_map(lambda a: a.detach().to(self.topo.device, copy=copy), params)
         _, _, lo, hi = self._flat_layout(params)
         zeros = torch.zeros(hi - lo, dtype=torch.float32, device=self.topo.device)
         return ZeroTrainState(params, self.optimizer.init(zeros), 0)
@@ -163,15 +178,24 @@ class ZeroDataParallelTrainer:
     def _step(self, state: ZeroTrainState, x: torch.Tensor, y: torch.Tensor):
         """One step on device tensors (this process's rows of the global
         batch); returns the new state and ``{"loss": world mean}``."""
+        common.check_live(state)
         loss, g = self._scattered_grad(state.params, x, y)
         if self.clip_norm is not None:
             g, _ = common.clip_by_global_norm_in_mesh(
                 g.reshape(self.topo.local_workers, -1), self.clip_norm)
             g = g.reshape(-1)
         _, _, lo, hi = self._flat_layout(state.params)
+        donate = self.donate_state
+        # the flat chunk is this step's own copy, so it is updated in place
+        # either way; donating, the optimizer state's chunks are too
         new, opt_state = self.optimizer.update(
-            self._flatten(state.params)[lo:hi], g, state.opt_state)
+            self._flatten(state.params)[lo:hi], g, state.opt_state, inplace=donate)
         params = self._unflatten(state.params, allgather(new, tiled=True))
+        if donate:
+            with torch.no_grad():
+                torch._foreach_copy_(tree_leaves(state.params), tree_leaves(params))
+            params = state.params
+        common.donated(state, donate)
         return ZeroTrainState(params, opt_state, state.step + 1), {"loss": loss}
 
     def step(self, state, x_global, y_global):
@@ -184,16 +208,22 @@ class ZeroDataParallelTrainer:
 
     def evaluate(self, state, x, y, batch: int = 1024):
         """Full-dataset eval; returns (accuracy, mean_loss)."""
+        common.check_live(state, "evaluate")
+        if self._eval is None:
+            raise ValueError("evaluate() requires a model; this trainer was "
+                             "built with model=None (loss-only math mode)")
         correct, loss_sum, n = common.batched_count_eval(
             self._eval, state.params, x, y, batch, self.topo.num_workers)
         return correct / n, loss_sum / n
 
-    def fit(self, batches, state, epochs: int = 1, start_epoch: int = 0,
-            skip_steps: int = 0, on_step=None, prefetch: int = 2):
+    def fit(self, batches, state, epochs: int = 1, log_every: int = 0,
+            start_epoch: int = 0, skip_steps: int = 0, on_step=None,
+            prefetch: int = 2):
         """Epoch loop (``common.synced_fit_loop``); returns (state,
         last_metrics)."""
         return common.synced_fit_loop(
             self._step, batches, state, device=self.topo.device, check=self._check,
-            shard=self._shard, epochs=epochs, start_epoch=start_epoch,
-            skip_steps=skip_steps, on_step=on_step, prefetch=prefetch,
+            shard=self._shard, log_tag=self._log_tag, epochs=epochs,
+            log_every=log_every, start_epoch=start_epoch, skip_steps=skip_steps,
+            on_step=on_step, prefetch=prefetch,
         )

@@ -78,8 +78,13 @@ SYNC_ALGOS = ("sync", "zero-sync", "seq-sync", "moe-sync", "pp-sync")
 # the algos whose trainer takes clip_norm itself (its update runs on
 # device-varying gradients in the reference, where the chain is refused)
 TRAINER_CLIPS = ("moe-sync", "zero-sync", "pp-sync")
-# algo -> (second mesh axis, the config field of its extent)
-SECOND_AXIS = {"seq-sync": ("sp", "sp"), "pp-sync": ("pp", "pp")}
+
+
+def second_axis_for(cfg: TrainConfig) -> dict:
+    """algo -> (second mesh-axis name, configured extent) for the 2-D
+    mesh algos (``mpit_tpu/run.py:158``); the one copy ``_world_for``
+    reads."""
+    return {"seq-sync": ("sp", cfg.sp), "pp-sync": ("pp", cfg.pp)}
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -344,11 +349,11 @@ def _world_for(cfg: TrainConfig, topo):
     ``("dp", "sp")``, pp-sync ``(W/pp, pp)`` over ``("dp", "pp")``,
     everything else the 1-D worker mesh."""
     n = topo.num_workers
+    second = second_axis_for(cfg)
     algo = cfg.resolved_algo()
-    if algo not in SECOND_AXIS:
+    if algo not in second:
         return dataclasses.replace(topo, axis_names=("dp",), mesh_shape=(n,))
-    ax, field = SECOND_AXIS[algo]
-    extent = getattr(cfg, field)
+    ax, extent = second[algo]
     if n % extent:
         raise ValueError(f"{ax}={extent} does not divide the {n} available workers")
     return dataclasses.replace(topo, axis_names=("dp", ax),

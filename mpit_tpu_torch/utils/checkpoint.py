@@ -620,7 +620,9 @@ def save_checkpoint(
     None on processes other than 0, which do not write."""
     from mpit_tpu_torch.comm.collectives import barrier
     from mpit_tpu_torch.comm.topology import current_process
+    from mpit_tpu_torch.parallel.common import check_live
 
+    check_live(state, "checkpoint")
     # collective (the stacked fields gather across processes): before the
     # process-0 gate, or the others would wait in the gather for ever
     host_state = state_to_host(state)

@@ -120,3 +120,8 @@ def unflatten_params(spec: FlatParamSpec, flat: torch.Tensor) -> Any:
         p.reshape(s).to(dt) for p, s, dt in zip(parts, spec.shapes, spec.dtypes)
     ]
     return tree_unflatten(spec.template, leaves)
+
+
+def tree_zeros_like(tree: Any) -> Any:
+    """A tree like ``tree`` with every tensor leaf zeroed (new tensors)."""
+    return tree_map(torch.zeros_like, tree)

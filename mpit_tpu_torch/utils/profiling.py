@@ -12,12 +12,13 @@ PyTorch returns from a CUDA call before the card has finished it, so a
 host clock read without a barrier times the enqueue. :func:`force_completion`
 is ``torch.cuda.synchronize()`` plus one host fetch of a scalar that
 depends on the outputs, which proves the work ran and not only that it
-was queued.
+was queued. :class:`StepTimer` times steps on the host clock around it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Iterator, Optional, Union
 
 import torch
@@ -80,3 +81,58 @@ def force_completion(*results) -> float:  # mpit-analysis: host-sync-barrier
     if cuda:
         torch.cuda.synchronize()
     return float(total) if total is not None else 0.0
+
+
+class StepTimer:
+    """Wall-clock timer for step loops.
+
+    Measures *completed* work: ``stop(result)`` runs
+    :func:`force_completion` on the step's output (a CUDA synchronise and
+    a fetch) before it reads the clock; without it the queued work looks
+    free. ``skip_first`` steps (set-up, allocator warm-up) are not kept."""
+
+    def __init__(self, skip_first: int = 1):
+        self.skip_first = skip_first
+        self._times: list[float] = []
+        self._seen = 0
+        self._t0: Optional[float] = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, result=None) -> float:
+        """Prove ``result`` (if given) complete, then record the elapsed
+        time; returns the step's wall seconds. A tuple result (a step's
+        ``(state, metrics)``) is spread so each part gets its own proof."""
+        if result is not None:
+            if isinstance(result, tuple):
+                force_completion(*result)
+            else:
+                force_completion(result)
+        if self._t0 is None:
+            raise RuntimeError("StepTimer.stop() without start()")
+        dt = time.perf_counter() - self._t0
+        self._t0 = None
+        self._seen += 1
+        if self._seen > self.skip_first:
+            self._times.append(dt)
+        return dt
+
+    @property
+    def mean(self) -> float:
+        return sum(self._times) / len(self._times) if self._times else float("nan")
+
+    @property
+    def count(self) -> int:
+        return len(self._times)
+
+    def summary(self) -> dict:
+        if not self._times:
+            return {"steps": 0}
+        ts = sorted(self._times)
+        return {
+            "steps": len(ts),
+            "mean_s": self.mean,
+            "p50_s": ts[len(ts) // 2],
+            "max_s": ts[-1],
+        }

@@ -119,10 +119,11 @@ def test_protocol_half_findings_equal_the_references_on_the_port(port_cli_scan, 
     want = [_key(f) + (f.text,) for f in ref_scan if f.rule not in DEVICE_RULES]
     assert got == want and len(got) >= 14
     # the device rules' findings are the reference's retargeted: the same
-    # host syncs it reports (read as the port writes them) and the one
-    # unguarded axis name of the pipeline
+    # host syncs it reports (read as the port writes them; the fit loop's
+    # loss line among them), and no unguarded axis name (the pipeline takes
+    # its batch axis by position, as the reference does)
     dev = Counter(f.rule for f in port if f.rule in DEVICE_RULES)
-    assert dev == {"MPT005": 11, "MPT001": 1}
+    assert dev == {"MPT005": 12}
 
 
 def test_rule_table_keeps_the_references_ids():
