@@ -48,7 +48,8 @@ non-zero before the result lines:
 9. main    — ``run()`` with the ``mnist-easgd`` preset for one epoch, W = 8
              workers stacked on the card, bf16 LeNet; the elastic kernel's
              launch count is set to 0 just before and read just after: one
-             launch per round.
+             launch per round, and every round after the first a replay of
+             the trainer's CUDA graph.
 10. profile — ``torch.profiler`` over a few of the same rounds: the card's
              busy share and the kernels that take the most time.
 11. ps-parity — a 1-client, 1-server ``AsyncPSTrainer`` run of an f32 LeNet
@@ -134,9 +135,20 @@ non-zero before the result lines:
              flash`` at full width (6 layers, d_model 768, 12 heads, T = 512,
              global batch 8), one epoch over a cut training set; the flash
              kernels' launch counts are set to 0 just before and read after:
-             the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not.
+             the sm90 forward, dQ and dK/dV run, the CUDA-core ones do not;
+             every step after the first is a replay of the trainer's CUDA
+             graph.
 17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
+17c. graph — the reference's one-program round and step (``jit`` with
+             the state donated) as CUDA graphs: ``mnist-easgd`` at W = 8
+             (the preset, then cosine with ``clip_norm`` 1.0; 8 rounds) and
+             the ``lm`` phase's sync flash LM (16 steps), each from one seed
+             through ``fit`` with ``capture=False``, then captured: every
+             state tensor and every loss equal bit for bit, the host counts
+             and the launch counts equal, the first unit eager and the
+             others replayed; ms a unit each way, the card's busy share
+             over 4 profiled units and the peak memory of each leg.
 17a. obs-lm — ``ptb-transformer-large --algo sync`` at full width, 16 steps
              under ``MPIT_DP_QUANT=int8``, untraced, with ``MPIT_OBS_DIR``,
              untraced again (ms a step of each): the bucketed
@@ -821,6 +833,7 @@ def round_vs_cpu() -> None:
 def main_path(kernel_ms_per_round: float) -> dict:
     import mpit_tpu_torch
     from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.parallel import capture
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
@@ -834,13 +847,17 @@ def main_path(kernel_ms_per_round: float) -> dict:
     phase("main", f"warm-up run: {warm['samples_per_sec']:.1f} samples/s")
 
     elastic.launches = 0
+    capture.replays = 0
     res = run(cfg)
-    launches = elastic.launches
+    launches, replays = elastic.launches, capture.replays
 
     rounds = res["trained_units"]
     losses = res["round_losses"]
     if launches != rounds:
         raise AssertionError(f"elastic launches {launches} != rounds {rounds}")
+    # the first round warms up, every later one is a graph replay
+    if replays != rounds - 1:
+        raise AssertionError(f"{replays} graph replays in {rounds} rounds")
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -854,6 +871,7 @@ def main_path(kernel_ms_per_round: float) -> dict:
         "accuracy", "final_loss", "round_losses", "trained_units", "samples",
         "wall_s", "samples_per_sec")}))
     phase("main", f"elastic launches {launches} = {rounds} rounds, one each; "
+          f"{replays} rounds replayed as a CUDA graph; "
           f"round {round_ms:.3f} ms, of which the elastic kernel "
           f"{kernel_ms_per_round:.4f} ms ({100 * kernel_ms_per_round / round_ms:.3f}%)")
     return dict(launches=launches)
@@ -893,13 +911,14 @@ def profile_rounds(rounds: int = 4) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only: an operator's own entry repeats its kernels' time
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms, sum_ms = busy_union_ms(prof)
     if busy_ms == 0:
         phase("profile", "device busy time: not measured (no device events)")
         return
     phase("profile", f"{rounds} rounds under the profiler: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, overlaps "
+          f"counted once), idle {100 * (1 - busy_ms / wall_ms):.1f}%; {sum_ms / rounds:.3f} "
+          "ms of device time per round (summed over streams)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         phase("profile", f"  {e.self_device_time_total / 1e3 / rounds:9.4f} ms/round "
               f"{e.count // rounds:4d} calls/round  {e.key[:90]}")
@@ -1757,6 +1776,7 @@ def lm_path(flash: dict) -> tuple[dict, list]:
     """The transformer main path through ``run()``; returns the launches
     per flash kernel and the run's losses."""
     from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import capture
     from mpit_tpu_torch.run import run
 
     cfg = lm_config()
@@ -1769,10 +1789,13 @@ def lm_path(flash: dict) -> tuple[dict, list]:
 
     for k in fa.launches:
         fa.launches[k] = 0
+    capture.replays = 0
     res = run(cfg)
-    launches = dict(fa.launches)
+    launches, replays = dict(fa.launches), capture.replays
 
     steps = res["trained_units"]
+    if replays != steps - 1:
+        raise AssertionError(f"{replays} graph replays in {steps} steps")
     losses = res["round_losses"]
     eval_chunks = lm_eval_chunks(cfg)
     want = lm_launches(steps, eval_chunks)
@@ -1791,7 +1814,8 @@ def lm_path(flash: dict) -> tuple[dict, list]:
         "wall_s", "samples_per_sec")}))
     phase("lm", f"losses: first 8 steps {first:.4f}, last 8 {last:.4f}; "
           f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s")
-    phase("lm", f"flash launches {json.dumps(launches)} = {steps} steps x "
+    phase("lm", f"{replays} steps replayed as a CUDA graph; "
+          f"flash launches {json.dumps(launches)} = {steps} steps x "
           f"{LM_LAYERS} layers (+ {LM_LAYERS} x {eval_chunks} eval forwards); "
           f"step {step_ms:.3f} ms, of which the flash kernels (CUDA-event "
           f"times x {LM_LAYERS}) {attn_ms:.3f} ms ({100 * attn_ms / step_ms:.1f}%)")
@@ -1841,13 +1865,14 @@ def profile_lm(steps: int = 3, cfg=None, name: str = "lm-profile") -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    busy_ms, sum_ms = busy_union_ms(prof)
     if busy_ms == 0:
         phase(name, "device busy time: not measured (no device events)")
         return
     phase(name, f"{steps} steps under the profiler: wall {wall_ms:.3f} ms, "
-          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-          f"idle {100 * (1 - busy_ms / wall_ms):.1f}%")
+          f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%, overlaps "
+          f"counted once), idle {100 * (1 - busy_ms / wall_ms):.1f}%; {sum_ms / steps:.3f} "
+          "ms of device time per step (summed over streams)")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     flash_ms = sum(e.self_device_time_total for e in ranked if "flash_" in e.key) / 1e3
     sm90_ms = sum(e.self_device_time_total for e in ranked if "_wgmma_" in e.key) / 1e3
@@ -1865,6 +1890,180 @@ def profile_lm(steps: int = 3, cfg=None, name: str = "lm-profile") -> None:
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         phase(name, f"  {e.self_cpu_time_total / 1e3 / steps:9.4f} ms/step "
               f"{e.count // steps:5d} calls/step  {e.key[:80]}")
+
+
+GRAPH_PROFILED = 4  # units under the profiler after each graph leg
+
+
+def graph_configs() -> list:
+    """The graph phase's configurations: (label, config, units)."""
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    easgd = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), epochs=1)
+    rounds = easgd.train_size // (easgd.global_batch * easgd.tau)
+    lm = dataclasses.replace(lm_config(), train_size=16 * lm_config().global_batch)
+    return [("mnist-easgd", easgd, rounds),
+            ("mnist-easgd cosine clip 1.0",
+             dataclasses.replace(easgd, lr_schedule="cosine", clip_norm=1.0), rounds),
+            ("lm sync flash", lm, lm.train_size // lm.global_batch)]
+
+
+def graph_trainer(cfg, capture: bool):
+    """``cfg``'s trainer built as ``run()`` builds it (``build_trainer``),
+    with ``capture`` given; its data; the batches of one epoch."""
+    from mpit_tpu_torch.comm.topology import topology
+    from mpit_tpu_torch.data import Batches, cast_input_dtype
+    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
+    from mpit_tpu_torch.run import _load_dataset, _world_for, build_model, build_optimizer
+
+    topo = _world_for(cfg, topology())
+    x_tr, y_tr, _, _, meta = _load_dataset(cfg)
+    x_tr = cast_input_dtype(x_tr, cfg.input_dtype)
+    model = build_model(cfg, topo.device, meta)
+    batches = Batches(x_tr, y_tr, global_batch=cfg.global_batch, seed=cfg.seed)
+    sync = cfg.resolved_algo() == "sync"
+    tau = 1 if sync else cfg.tau
+    opt = build_optimizer(cfg, batches.steps_per_epoch() // tau)
+    if sync:
+        trainer = DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum,
+                                      capture=capture)
+    else:
+        trainer = EASGDTrainer(model, opt, topo, alpha=cfg.alpha, tau=cfg.tau,
+                               capture=capture)
+    return trainer, batches
+
+
+def opt_counts(tree) -> list:
+    """The optimizer state's host counts, in order."""
+    if isinstance(tree, tuple):
+        return [c for s in tree for c in opt_counts(s)]
+    return [tree.count] if hasattr(tree, "count") else []
+
+
+def graph_leg(cfg, units: int, capture: bool) -> dict:
+    """One epoch of ``units`` units of ``cfg`` through ``fit`` from the
+    config's seed, captured or eager; then GRAPH_PROFILED units on the
+    last batch under the profiler. Returns the state's tensors and host
+    counts, the losses, the launches and replays of the epoch, ms a unit
+    over the units after the first two (host clock around a synchronize),
+    the busy share of the profiled units and the peak memory of the leg
+    above what was allocated before it."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import capture as cap
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, batches = graph_trainer(cfg, capture)
+    state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
+    sync = hasattr(state, "params")
+    losses, clock = [], {}
+
+    def on_unit(done, st, m):
+        losses.append(m["loss"])
+        if done == 2:
+            torch.cuda.synchronize()
+            clock["t0"] = time.perf_counter()
+
+    elastic.launches = 0
+    for k in fa.launches:
+        fa.launches[k] = 0
+    cap.replays = 0
+    fit = dict(on_step=on_unit) if sync else dict(on_round=on_unit)
+    state, _ = trainer.fit(batches, state, epochs=1, **fit)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - clock["t0"]) / (units - 2)
+    launches = {"elastic": elastic.launches, **fa.launches}
+    replays = cap.replays
+    if len(losses) != units:
+        raise AssertionError(f"graph: {len(losses)} units, not {units}")
+
+    it = batches.epoch(0)
+    if sync:
+        unit, (x, y) = trainer._step, next(it)
+    else:
+        unit = trainer._round
+        xs, ys = zip(*[next(it) for _ in range(cfg.tau)])
+        x, y = trainer.round_batches(np.stack(xs), np.stack(ys))
+    x, y = (torch.as_tensor(a).cuda() for a in (x, y))
+    state, _ = unit(state, x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_PROFILED):
+            state, _ = unit(state, x, y)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, _ = busy_union_ms(prof)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    params = (state.params, state.opt_state) if sync else (
+        state.worker_params, state.worker_opt, state.center)
+    opt = state.opt_state if sync else state.worker_opt
+    out = dict(
+        tensors=[t.detach().cpu() for t in cap.tensors_of(*params)],
+        host=(state.step if sync else state.round, opt_counts(opt)),
+        losses=torch.stack(losses).cpu(), launches=launches, replays=replays,
+        graph_replays=trainer.replays, ms=ms, busy=busy / wall if wall else 0.0,
+        profiled_ms=wall / GRAPH_PROFILED, peak_mib=peak)
+    del trainer, state, x, y
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def graph_path(card_line: str, configs=None) -> None:
+    """The reference's one-program round and step as CUDA graphs: each
+    configuration (default :func:`graph_configs`) eagerly
+    (``capture=False``), then captured, from one seed: every state tensor
+    and loss equal bit for bit, the host counts equal, the launches equal,
+    one unit eager and the others replayed."""
+    phase("graph", card_line)
+    for label, cfg, units in configs or graph_configs():
+        eager = graph_leg(cfg, units, capture=False)
+        graph = graph_leg(cfg, units, capture=True)
+        if eager["replays"] or eager["graph_replays"]:
+            raise AssertionError(f"graph: {label}: the eager leg replayed")
+        # the first unit is the warm-up, the second is captured and replayed
+        if graph["replays"] != units - 1:
+            raise AssertionError(f"graph: {label}: {graph['replays']} replays in "
+                                 f"{units} units, not {units - 1}")
+        if graph["graph_replays"] != units - 1 + 1 + GRAPH_PROFILED:
+            raise AssertionError(f"graph: {label}: {graph['graph_replays']} replays "
+                                 "of the trainer's graph")
+        if graph["launches"] != eager["launches"]:
+            raise AssertionError(f"graph: {label}: launches {graph['launches']} != "
+                                 f"eager {eager['launches']}")
+        if graph["host"] != eager["host"]:
+            raise AssertionError(f"graph: {label}: host state {graph['host']} != "
+                                 f"{eager['host']}")
+        if not same_bits(graph["losses"], eager["losses"]):
+            raise AssertionError(f"graph: {label}: losses {graph['losses'].tolist()} "
+                                 f"!= eager {eager['losses'].tolist()}")
+        differ = [i for i, (a, b) in enumerate(zip(graph["tensors"], eager["tensors"],
+                                                   strict=True)) if not same_bits(a, b)]
+        if differ:
+            raise AssertionError(f"graph: {label}: state tensors {differ} differ")
+        launched = {k: v for k, v in graph["launches"].items() if v}
+        phase("graph", f"{label}: {units} units, losses and all "
+              f"{len(graph['tensors'])} state tensors bit-equal to the eager "
+              f"leg's, host counts {graph['host']}; {graph['replays']} replays; "
+              f"launches {json.dumps(launched)} both")
+        for name, r in (("eager", eager), ("captured", graph)):
+            phase("graph", f"{label} {name}: {r['ms']:.3f} ms a unit ({units - 2} "
+                  f"units of fit); {GRAPH_PROFILED} profiled units "
+                  f"{r['profiled_ms']:.3f} ms each, device busy "
+                  f"{100 * r['busy']:.1f}%; peak memory of the leg "
+                  f"{r['peak_mib']:.1f} MiB")
 
 
 # the reference's mesh invariance of seq-sync steps (tests/test_seq_parallel.py:62-79)
@@ -1934,7 +2133,8 @@ def seq_vs_cpu() -> None:
 
 def train_peak(cfg, steps: int = 2) -> tuple[float, float]:
     """(peak MiB of device memory, ms per step) of ``steps`` training steps
-    built as ``run()`` builds them, after one warm-up step, without the
+    built as ``run()`` builds them, after two warm-up steps (the first
+    eager, the second captured where the trainer captures), without the
     eval (whose logits would set the peak). The peak counts what the
     training allocates (params, optimizer state, batch, activations) above
     what was allocated before it."""
@@ -1946,7 +2146,8 @@ def train_peak(cfg, steps: int = 2) -> tuple[float, float]:
     torch.cuda.reset_peak_memory_stats()
     trainer, state, x, y = built_step(cfg)
     step = sync_step(trainer)
-    state, _ = step(state, x, y)
+    for _ in range(2):
+        state, _ = step(state, x, y)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -4337,6 +4538,7 @@ def main() -> int:
         path = lm_launches if name.endswith("_sm90") else step_launches
         flash[name]["launches"] = path[name]
     timed("lm-profile", profile_lm)
+    timed("graph", graph_path, card_line)
     traced = timed("obs-lm", obs_lm, card_line)
     for name in flash:
         if name.endswith("_sm90"):

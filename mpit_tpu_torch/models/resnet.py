@@ -26,7 +26,17 @@ from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
     Conv, Dense, GroupNorm, Model, max_pool, nchw, rematerialized, reset_children,
 )
-from mpit_tpu_torch.ops.stem import add_stem, reset_stem, stem_conv
+from mpit_tpu_torch.ops.stem import add_stem, reset_stem, space_to_depth_conv, stem_conv
+
+
+def space_to_depth_stem(x, kernel, dt):
+    """ResNet's 7×7/2 stem (padding 3) through the space-to-depth
+    reformulation (:func:`mpit_tpu_torch.ops.stem.space_to_depth_conv`):
+    the function of a stride-2 conv with ``kernel``, on ``x`` (B, C, H, W)
+    and ``kernel`` (O, C, 7, 7), in ``dt``, as
+    ``mpit_tpu/models/resnet.py``'s ``space_to_depth_stem`` computes it on
+    NHWC and HWIO."""
+    return space_to_depth_conv(x, kernel, stride=2, padding=3, dt=dt)
 
 
 class Bottleneck(nn.Module):

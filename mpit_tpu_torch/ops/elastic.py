@@ -34,7 +34,8 @@ import ctypes
 import torch
 
 # kernel launches by the wrappers below; a run resets it to 0 and reads it
-# back to show that its main path went through the kernel
+# back to show that its main path went through the kernel. A captured
+# training unit (``parallel/capture.py``) adds its launches on each replay
 launches = 0
 # leaves per launch: the kernel's parameter table (kMaxLeaves in elastic.cu)
 MAX_LEAVES = 32

@@ -38,7 +38,8 @@ import torch
 from mpit_tpu_torch.ops.ring_attention import dense_attention
 
 # kernel launches by the wrappers below; a run resets them to 0 and reads
-# them back to show that its main path went through the kernels
+# them back to show that its main path went through the kernels. A captured
+# training unit (``parallel/capture.py``) adds its launches on each replay
 launches = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_forward_sm90": 0, "flash_dq_sm90": 0, "flash_dkv_sm90": 0}
 

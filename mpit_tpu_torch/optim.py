@@ -22,7 +22,13 @@ it, so a checkpoint of the state (``utils/checkpoint.py``) has the layout
 schedule at the count *before* the step, so a warmup that starts at 0
 makes the first update exactly 0, weight decay included. Counts are host
 ints, as the schedule and Adam's bias corrections are evaluated on the
-host in float32, as optax evaluates them. ``torch.optim.AdamW`` is not
+host in float32, as optax evaluates them; the moments are multiplied by
+the corrections' float32 reciprocals, which is how PyTorch divides by a
+host float on the card. A captured step (a CUDA graph,
+``parallel/capture.py``) cannot read them there: it passes
+``update(..., scalars=...)``, 0-dim float32 device tensors holding the
+values :meth:`Chain.host_scalars` gives for the step (the same float32
+bits), and advances the counts afterwards with :meth:`Chain.advance`. ``torch.optim.AdamW`` is not
 this function: it decays the weights before the moment step.
 
 The functions compute the same on every leaf of a tree, stacked ``(W,
@@ -141,7 +147,20 @@ class ScaleByAdamState:
 
 # ------------------------------------------------------------ transforms
 # Each works on the leaf lists of the gradient (``u``) and the params
-# (``p``) and returns (new u, new state).
+# (``p``) and returns (new u, new state). ``scalars``, when given, is an
+# iterator of 0-dim device tensors from which a transform takes, in
+# order, the values its ``host_scalars`` lists, instead of computing them
+# on the host.
+
+
+class Transform:
+    """The default of every transform: no value read on the host."""
+
+    def host_scalars(self, state, ahead: int = 0) -> list:
+        """The float32 values :meth:`transform` reads on the host at
+        ``state`` advanced by ``ahead`` updates, in the order it takes
+        them from ``scalars``."""
+        return []
 
 
 def _zeros(params: Any) -> Any:
@@ -149,7 +168,7 @@ def _zeros(params: Any) -> Any:
 
 
 @dataclasses.dataclass(frozen=True)
-class ClipByGlobalNorm:
+class ClipByGlobalNorm(Transform):
     """``optax.clip_by_global_norm(max_norm)``."""
 
     max_norm: float
@@ -157,7 +176,7 @@ class ClipByGlobalNorm:
     def init(self, params):
         return EmptyState()
 
-    def transform(self, u, state, p, per_worker, inplace=False):
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
         if not u:
             return u, state
         if per_worker:
@@ -182,7 +201,7 @@ class ClipByGlobalNorm:
 
 
 @dataclasses.dataclass(frozen=True)
-class Trace:
+class Trace(Transform):
     """``optax.trace(decay)``: ``t ← g + decay·t``; the update is ``t``."""
 
     decay: float
@@ -190,7 +209,7 @@ class Trace:
     def init(self, params):
         return TraceState(_zeros(params))
 
-    def transform(self, u, state, p, per_worker, inplace=False):
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
         t = tree_leaves(state.trace)
         if inplace:
             # t·decay + g is g + t·decay: one rounding each, as below
@@ -203,7 +222,7 @@ class Trace:
 
 
 @dataclasses.dataclass(frozen=True)
-class ScaleByAdam:
+class ScaleByAdam(Transform):
     """``optax.scale_by_adam``."""
 
     b1: float = 0.9
@@ -214,28 +233,41 @@ class ScaleByAdam:
     def init(self, params):
         return ScaleByAdamState(0, _zeros(params), _zeros(params))
 
-    def transform(self, u, state, p, per_worker, inplace=False):
+    def host_scalars(self, state, ahead: int = 0) -> list:
+        """The float32 reciprocals of the bias corrections ``1 − b1^c``
+        and ``1 − b2^c`` of the update that makes the count ``c``. The
+        moments are multiplied by them: that is how PyTorch divides a
+        tensor by a host float on the card (the CPU divides), so the card
+        computes what it did when the update divided by the correction,
+        and a reciprocal read from a 0-dim device tensor gives the same
+        bits on either device."""
+        count = _F32(state.count + ahead + 1)
+        return [_F32(1) / (_F32(1) - _F32(b) ** count) for b in (self.b1, self.b2)]
+
+    def _corrections(self, state, scalars):
+        if scalars is not None:
+            return next(scalars), next(scalars)
+        return tuple(map(float, self.host_scalars(state)))
+
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
         if inplace:
-            return self._transform_(u, state)
+            return self._transform_(u, state, scalars)
         b1, b2 = self.b1, self.b2
         mu = fe._foreach_add(fe._foreach_mul(u, 1 - b1),
                              fe._foreach_mul(tree_leaves(state.mu), b1))
         nu = fe._foreach_add(fe._foreach_mul(fe._foreach_mul(u, u), 1 - b2),
                              fe._foreach_mul(tree_leaves(state.nu), b2))
         count = state.count + 1
-        bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
-        bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
+        inv1, inv2 = self._corrections(state, scalars)
         den = fe._foreach_add(fe._foreach_sqrt(
-            fe._foreach_add(fe._foreach_div(nu, bc2), self.eps_root)), self.eps)
-        out = fe._foreach_div(fe._foreach_div(mu, bc1), den)
+            fe._foreach_add(fe._foreach_mul(nu, inv2), self.eps_root)), self.eps)
+        out = fe._foreach_div(fe._foreach_mul(mu, inv1), den)
         return out, ScaleByAdamState(count, tree_unflatten(state.mu, mu),
                                      tree_unflatten(state.nu, nu))
 
-    def _transform_(self, u, state):
-        """:meth:`transform` into ``state``'s moments (``u`` is scratch).
-        The two divisions by a host scalar run on tensors laid out as the
-        moments, as above: PyTorch may divide by a scalar as a product
-        with its reciprocal for some layouts, which rounds otherwise."""
+    def _transform_(self, u, state, scalars=None):
+        """:meth:`transform` into ``state``'s moments (``u`` is scratch),
+        with the same operations in the same order."""
         b1, b2 = self.b1, self.b2
         mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
         sq = fe._foreach_mul(u, u)
@@ -247,19 +279,18 @@ class ScaleByAdam:
         fe._foreach_mul_(mu, b1)
         fe._foreach_add_(mu, u)
         count = state.count + 1
-        bc1 = float(_F32(1) - _F32(b1) ** _F32(count))
-        bc2 = float(_F32(1) - _F32(b2) ** _F32(count))
-        den = fe._foreach_div(nu, bc2)
+        inv1, inv2 = self._corrections(state, scalars)
+        den = fe._foreach_mul(nu, inv2)
         fe._foreach_add_(den, self.eps_root)
         fe._foreach_sqrt_(den)
         fe._foreach_add_(den, self.eps)
-        out = fe._foreach_div(mu, bc1)
+        out = fe._foreach_mul(mu, inv1)
         fe._foreach_div_(out, den)
         return out, ScaleByAdamState(count, state.mu, state.nu)
 
 
 @dataclasses.dataclass(frozen=True)
-class AddDecayedWeights:
+class AddDecayedWeights(Transform):
     """``optax.add_decayed_weights(weight_decay)``: ``u + wd·p``."""
 
     weight_decay: float
@@ -267,7 +298,7 @@ class AddDecayedWeights:
     def init(self, params):
         return EmptyState()
 
-    def transform(self, u, state, p, per_worker, inplace=False):
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
         if inplace:
             fe._foreach_add_(u, fe._foreach_mul(p, self.weight_decay))
             return u, state
@@ -275,7 +306,7 @@ class AddDecayedWeights:
 
 
 @dataclasses.dataclass(frozen=True)
-class ScaleByLearningRate:
+class ScaleByLearningRate(Transform):
     """``optax.scale_by_learning_rate(lr)``: ``u·(−lr)``; a schedule is
     read at the count before the step and keeps that count."""
 
@@ -284,25 +315,33 @@ class ScaleByLearningRate:
     def init(self, params):
         return ScaleByScheduleState(0) if callable(self.lr) else EmptyState()
 
-    def transform(self, u, state, p, per_worker, inplace=False):
-        if callable(self.lr):
-            lr, state = self.lr(state.count), ScaleByScheduleState(state.count + 1)
+    def host_scalars(self, state, ahead: int = 0) -> list:
+        """``−lr`` at the count the update reads, for a schedule (a
+        constant needs none)."""
+        return [-_F32(self.lr(state.count + ahead))] if callable(self.lr) else []
+
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
+        if not callable(self.lr):
+            neg = -self.lr
         else:
-            lr = self.lr
+            neg = next(scalars) if scalars is not None else -self.lr(state.count)
+            state = ScaleByScheduleState(state.count + 1)
         if inplace:
-            fe._foreach_mul_(u, -lr)
+            fe._foreach_mul_(u, neg)
             return u, state
-        return fe._foreach_mul(u, -lr), state
+        return fe._foreach_mul(u, neg), state
 
 
 class Chain:
     """``optax.chain(*transforms)``: the state is the tuple of theirs.
 
     ``init(params)`` builds the state; ``update(params, grads, state,
-    per_worker=False, inplace=False)`` returns ``(new_params,
-    new_state)``: new tensors, or with ``inplace`` the given params and
-    state tensors written over (and the gradient tensors used as
-    scratch), under ``torch.no_grad()``."""
+    per_worker=False, inplace=False, scalars=None)`` returns
+    ``(new_params, new_state)``: new tensors, or with ``inplace`` the given
+    params and state tensors written over (and the gradient tensors used
+    as scratch), under ``torch.no_grad()``. ``scalars`` are 0-dim device
+    tensors holding :meth:`host_scalars` of ``state``, read in their
+    place; :meth:`advance` moves the counts as that many updates do."""
 
     def __init__(self, *transforms):
         self.transforms = tuple(transforms)
@@ -313,23 +352,43 @@ class Chain:
     def init(self, params: Any) -> tuple:
         return tuple(t.init(params) for t in self.transforms)
 
-    def transform(self, u, state, p, per_worker, inplace=False):
+    def host_scalars(self, state: tuple, ahead: int = 0) -> list:
+        return [v for t, s in zip(self.transforms, state, strict=True)
+                for v in t.host_scalars(s, ahead)]
+
+    def advance(self, state: tuple, n: int) -> tuple:
+        """``state`` with every count moved on by ``n`` updates; the
+        tensors are the same objects."""
+        return _advance(state, n)
+
+    def transform(self, u, state, p, per_worker, inplace=False, scalars=None):
         new = []
         for t, s in zip(self.transforms, state, strict=True):
-            u, s = t.transform(u, s, p, per_worker, inplace)
+            u, s = t.transform(u, s, p, per_worker, inplace, scalars)
             new.append(s)
         return u, tuple(new)
 
     def update(self, params: Any, grads: Any, state: tuple,
-               per_worker: bool = False, inplace: bool = False) -> tuple[Any, tuple]:
+               per_worker: bool = False, inplace: bool = False,
+               scalars=None) -> tuple[Any, tuple]:
         p = tree_leaves(params)
+        it = None if scalars is None else iter(scalars)
         if not inplace:
-            u, state = self.transform(tree_leaves(grads), state, p, per_worker)
+            u, state = self.transform(tree_leaves(grads), state, p, per_worker,
+                                      scalars=it)
             return tree_unflatten(params, fe._foreach_add(p, u)), state
         with torch.no_grad():
-            u, state = self.transform(tree_leaves(grads), state, p, per_worker, True)
+            u, state = self.transform(tree_leaves(grads), state, p, per_worker, True, it)
             fe._foreach_add_(p, u)
         return params, state
+
+
+def _advance(state, n: int):
+    if isinstance(state, tuple):
+        return tuple(_advance(s, n) for s in state)
+    if isinstance(state, (ScaleByAdamState, ScaleByScheduleState)):
+        return dataclasses.replace(state, count=state.count + n)
+    return state
 
 
 def chain(*transforms) -> Chain:

@@ -1,0 +1,215 @@
+"""A training unit as a CUDA graph: the counterpart of the reference's
+``jax.jit(..., donate_argnums=(0,))`` over a whole EASGD round
+(``mpit_tpu/parallel/easgd.py:107-153``) or sync-DP step
+(``mpit_tpu/parallel/sync.py:240-248``).
+
+The reference compiles a unit once and runs it as one program on its
+donated state. Here a trainer runs its first unit eagerly (the warm-up: a
+real unit, which builds the kernels and picks the libraries' plans),
+captures the next with ``torch.cuda.graph``, and replays the graph for
+that unit and every later one. Nothing runs while a graph is captured,
+so a captured unit is performed by its first replay. A graph bakes in the
+addresses it was captured with, so:
+
+- the state's tensors are its static buffers. The trainers donate their
+  state (updated in place, storage kept), and the graph is keyed on the
+  address, shape, strides and dtype of every state tensor and on the
+  inputs' shapes and dtypes: a state with other storage (a restored
+  checkpoint, a new ``init_state``) makes the next unit a warm-up again,
+  and the one after it captures anew;
+- each batch is copied into static input buffers, one device-to-device
+  copy each;
+- the values the optimizer reads on the host (a schedule's learning rate,
+  Adam's bias corrections) live in one static float32 buffer, which the
+  host fills before each unit from ``optimizer.host_scalars`` (one copy
+  from pinned memory); the caller advances the optimizer's counts after a
+  replay (``optimizer.advance``), since the Python that moved them does
+  not run;
+- the loss is the graph's static output, and each replay returns a device
+  copy of it, so every unit's loss stays its own.
+
+The kernels' launch counters (``ops.elastic.launches``,
+``ops.flash_attention.launches``) move while a unit's Python runs, which
+is once, at capture: the graph takes back what the capture added and adds
+it again on every replay, so they count the launches made on the card.
+:data:`replays` counts the replays of every graph, for a run to show
+that it replayed.
+
+Warm-up and capture run on one side stream of the graph's own, ordered
+after and before the caller's stream. There is no fallback: a unit that
+cannot be captured raises. :func:`eager_reasons` says which trainers stay
+eager, and why.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+# graph replays, over every trainer; a run resets it to 0 and reads it back
+replays = 0
+
+
+def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False) -> list:
+    """Why a trainer with these settings runs its units eagerly: one
+    reason each, none when it can capture them."""
+    from mpit_tpu_torch.comm.topology import in_process_group
+
+    why = []
+    if torch.device(device).type != "cuda":
+        why.append(f"its device is {device}, and a CUDA graph needs a CUDA device")
+    if not donate_state:
+        why.append("donate_state=False: a graph updates the storage it was "
+                   "captured with, in place")
+    if in_process_group():
+        why.append("it is one process of a world of several, whose collectives "
+                   "are not captured")
+    if bucketed:
+        why.append("the bucketed or quantized exchange is not captured")
+    if not (hasattr(optimizer, "host_scalars") and hasattr(optimizer, "advance")):
+        why.append("its optimizer has no host_scalars/advance (an optim.Chain has)")
+    return why
+
+
+def resolve(capture: Optional[bool], reasons: Sequence[str]) -> bool:
+    """Whether to capture: ``capture`` None captures where nothing stands
+    in the way, False never does, True must (and raises, with the
+    reasons, where it cannot)."""
+    if capture is None:
+        return not reasons
+    if capture and reasons:
+        raise ValueError("capture=True, but this trainer runs its units eagerly: "
+                         + "; ".join(reasons))
+    return bool(capture)
+
+
+def tensors_of(*trees) -> list:
+    """Every tensor of the trees, in order: dicts by sorted key, lists,
+    tuples, and the fields of dataclasses (optimizer states)."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, (list, tuple)):
+            for x in t:
+                walk(x)
+        elif dataclasses.is_dataclass(t) and not isinstance(t, type):
+            for f in dataclasses.fields(t):
+                walk(getattr(t, f.name))
+
+    for tree in trees:
+        walk(tree)
+    return out
+
+
+def _key(state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
+         n_scalars: int) -> tuple:
+    return (tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in state),
+            tuple((tuple(x.shape), x.dtype) for x in inputs), n_scalars)
+
+
+def _launch_counts() -> dict:
+    from mpit_tpu_torch.ops import elastic, flash_attention
+
+    return {"elastic": elastic.launches, **flash_attention.launches}
+
+
+def _add_launches(delta: dict, sign: int = 1) -> None:
+    from mpit_tpu_torch.ops import elastic, flash_attention
+
+    for name, n in delta.items():
+        if name == "elastic":
+            elastic.launches += sign * n
+        else:
+            flash_attention.launches[name] += sign * n
+
+
+class UnitGraph:
+    """One trainer's captured unit.
+
+    :meth:`run` takes the state's tensors, the unit's inputs, the
+    optimizer's host values for the unit and ``body(inputs, scalars)``,
+    which does the unit's device work on that state, reading the given
+    inputs and 0-dim float32 ``scalars``, and returns ``(result, loss)``.
+    It returns ``(result, loss)`` after a warm-up, and ``(None, loss)``
+    after a replay: the state's tensors then hold the new state, and the
+    caller moves its host bookkeeping on."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.replays = 0
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._key: Optional[tuple] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._inputs: tuple = ()
+        self._scalars: Optional[torch.Tensor] = None
+        self._loss: Optional[torch.Tensor] = None
+        self._launches: dict = {}
+
+    def run(self, state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
+            values: Sequence, body: Callable) -> tuple[Any, torch.Tensor]:
+        key = _key(state, inputs, len(values))
+        if key != self._key:
+            # the first unit, or a state with other storage: drop the graph
+            # and its memory, warm up, and capture at the next unit
+            self._key = self._graph = self._loss = None
+            result, loss = self._warm_up(inputs, values, body)
+            self._key = key
+            return result, loss
+        if self._graph is None:
+            self._capture(body)
+        self._load(inputs, values)
+        self._graph.replay()
+        self._count_replay()
+        return None, self._loss.clone()
+
+    def _views(self) -> list:
+        return list(self._scalars.unbind()) if self._scalars.numel() else []
+
+    def _load(self, inputs, values) -> None:
+        """The unit's inputs and host values into the static buffers, on
+        the caller's stream."""
+        for buf, x in zip(self._inputs, inputs, strict=True):
+            buf.copy_(x)
+        if len(values):
+            host = torch.from_numpy(np.asarray(values, dtype=np.float32)).pin_memory()
+            self._scalars.copy_(host, non_blocking=True)
+
+    def _warm_up(self, inputs, values, body):
+        """One real unit, eagerly, through the buffers the graph will read,
+        on the stream it will be captured on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        self._inputs = tuple(torch.empty_like(x, device=self.device) for x in inputs)
+        self._scalars = torch.empty(len(values), dtype=torch.float32, device=self.device)
+        self._load(inputs, values)
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            result, loss = body(self._inputs, self._views())
+        caller.wait_stream(self._stream)
+        return result, loss
+
+    def _capture(self, body) -> None:
+        before = _launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.graph(graph, stream=self._stream):
+            _, self._loss = body(self._inputs, self._views())
+        after = _launch_counts()
+        self._launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
+        _add_launches(self._launches, -1)  # nothing ran: the replays count
+        self._graph = graph
+
+    def _count_replay(self) -> None:
+        global replays
+        replays += 1
+        self.replays += 1
+        _add_launches(self._launches)

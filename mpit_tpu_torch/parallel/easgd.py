@@ -7,7 +7,11 @@ center is one unstacked tree. A round is τ local steps, each computing all
 W workers' gradients at once (``torch.func.vmap`` over
 ``torch.func.grad_and_value``, the counterpart of the reference's
 ``shard_map``), then one ``goptim.easgd_round``: a sum of the client diffs
-and the fused elastic kernel, one launch for all the parameter leaves.
+and the fused elastic kernel, one launch for all the parameter leaves. On
+the card, with the state donated in a one-process world, the round is
+captured as a CUDA graph after a first eager round and replayed from then
+on (``parallel/capture.py``), as the reference runs it as one compiled
+program.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from mpit_tpu_torch import goptim
 from mpit_tpu_torch.comm.topology import Topology
 from mpit_tpu_torch.comm.topology import topology as _current_topology
+from mpit_tpu_torch.parallel import capture as _capture
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.utils.params import tree_map
 
@@ -60,6 +65,10 @@ class EASGDTrainer(common.RoundTrainer):
         None = the CUDA kernel for CUDA tensors, plain PyTorch on the CPU.
       exchange_dtype: sum the client diffs in this dtype (e.g.
         ``torch.bfloat16``); None = exact float32.
+      capture: run each round as a replay of a CUDA graph
+        (``parallel/capture.py``): None = wherever it can (a CUDA device,
+        ``donate_state``, a one-process world, an ``optim.Chain``), False
+        = eagerly, True = always (raising where it cannot).
     """
 
     def __init__(
@@ -73,6 +82,7 @@ class EASGDTrainer(common.RoundTrainer):
         donate_state: bool = True,
         use_kernel: Optional[bool] = None,
         exchange_dtype: Optional[torch.dtype] = None,
+        capture: Optional[bool] = None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -90,6 +100,9 @@ class EASGDTrainer(common.RoundTrainer):
         self._grad = common.worker_value_and_grad(
             self.loss_fn, getattr(model, "remat", False))
         self._log_tag = "easgd"
+        reasons = _capture.eager_reasons(self.topo.device, self.donate_state, optimizer)
+        self.capture = _capture.resolve(capture, reasons)
+        self._graph = _capture.UnitGraph(self.topo.device) if self.capture else None
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
@@ -107,28 +120,51 @@ class EASGDTrainer(common.RoundTrainer):
             center=tree_map(torch.clone, params),
         )
 
+    @property
+    def replays(self) -> int:
+        """Rounds run as graph replays."""
+        return self._graph.replays if self._graph is not None else 0
+
     def _round(self, state: EASGDState, x: torch.Tensor, y: torch.Tensor):
         """τ local steps on x, y of shape (W, τ, B, ...), then the exchange.
         Returns the new state and ``{"loss": mean over workers and steps}``
         as a device scalar (no host sync)."""
         common.check_live(state)
+        if self._graph is None:
+            (params, opt, center), loss = self._unit(state, x, y)
+        else:
+            opt = state.worker_opt
+            values = [v for t in range(self.tau)
+                      for v in self.optimizer.host_scalars(opt, t)]
+            out, loss = self._graph.run(
+                _capture.tensors_of(state.worker_params, opt, state.center), (x, y),
+                values, lambda inputs, scalars: self._unit(state, *inputs, scalars))
+            params, opt, center = out if out is not None else (
+                state.worker_params, self.optimizer.advance(opt, self.tau), state.center)
+        common.donated(state, self.donate_state)
+        return EASGDState(params, opt, center, state.round + 1), {"loss": loss}
+
+    def _unit(self, state: EASGDState, x, y, scalars=None):
+        """A round's device work: ``((params, opt, center), loss)``.
+        ``scalars`` holds the optimizer's host values for the τ steps in
+        turn, or is None (they are computed on the host)."""
         donate = self.donate_state
         params, opt = state.worker_params, state.worker_opt
+        per = len(scalars) // self.tau if scalars is not None else 0
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
-            params, opt = self.optimizer.update(params, grads, opt,
-                                                per_worker=True, inplace=donate)
+            kw = {} if scalars is None else {"scalars": scalars[t * per:(t + 1) * per]}
+            params, opt = self.optimizer.update(params, grads, opt, per_worker=True,
+                                                inplace=donate, **kw)
             losses.append(loss)
         params, center = goptim.easgd_round(
             params, state.center, self.alpha,
             use_kernel=self.use_kernel, compress_dtype=self.exchange_dtype,
             inplace=donate,
         )
-        new = EASGDState(params, opt, center, state.round + 1)
-        common.donated(state, donate)
         loss = common.world_mean(torch.stack(losses).mean(), self.topo)
-        return new, {"loss": loss}
+        return (params, opt, center), loss
 
     def center_params(self, state: EASGDState):
         return state.center

@@ -14,6 +14,11 @@ processes each takes its own workers' rows of the global batch, and the
 gradient and loss are averaged across the processes (one all-reduce of
 the flat gradient) before the update. A model with ``remat`` takes its
 gradient through ``torch.autograd.grad`` (``common.autograd_value_and_grad``).
+On the card, with the state donated in a one-process world, the fused
+step is captured as a CUDA graph after a first eager step and replayed
+from then on (``parallel/capture.py``), as the reference runs it as one
+compiled program; the subclasses (seq, tp, composed) and the bucketed
+exchange run eagerly.
 
 The bucketed and quantized exchange (``quant``/``bucket_bytes``, the
 ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs; ``mpit_tpu/parallel/
@@ -67,6 +72,7 @@ from mpit_tpu_torch.comm.topology import Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.convert import flax_flat, from_flax_flat
 from mpit_tpu_torch.obs import core as obs_core
+from mpit_tpu_torch.parallel import capture as _capture
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
 
@@ -179,9 +185,17 @@ class DataParallelTrainer:
       obs: an :class:`~mpit_tpu_torch.obs.core.ObsConfig` (default: the
         ``MPIT_OBS_*`` knobs); with a ``dir`` it arms the step's journal.
         Call :meth:`close_obs` to close the journal.
+      capture: run each fused step as a replay of a CUDA graph
+        (``parallel/capture.py``): None = wherever it can (a CUDA device,
+        ``donate_state``, a one-process world, the fused exchange, an
+        ``optim.Chain``), False = eagerly, True = always (raising where it
+        cannot).
     """
 
     _log_tag = "sync-dp"
+    # the subclasses, which do not run this __init__, step eagerly
+    capture = False
+    _graph: Optional[_capture.UnitGraph] = None
 
     def __init__(
         self,
@@ -194,6 +208,7 @@ class DataParallelTrainer:
         quant: Optional[str] = None,
         bucket_bytes: Optional[int] = None,
         obs: Optional[obs_core.ObsConfig] = None,
+        capture: Optional[bool] = None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -224,6 +239,15 @@ class DataParallelTrainer:
         self._residual2: Optional[list] = None
         self._eval = (common.build_count_loss_eval(model, self.topo.device)
                       if model is not None else None)
+        reasons = _capture.eager_reasons(self.topo.device, self.donate_state, optimizer,
+                                         bucketed=self.bucketed)
+        self.capture = _capture.resolve(capture, reasons)
+        self._graph = _capture.UnitGraph(self.topo.device) if self.capture else None
+
+    @property
+    def replays(self) -> int:
+        """Steps run as graph replays."""
+        return self._graph.replays if self._graph is not None else 0
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
@@ -253,13 +277,29 @@ class DataParallelTrainer:
         gradient and the loss are averaged across them before the update,
         as the reference's pmean crosses its processes."""
         common.check_live(state)
+        if self._graph is None:
+            (params, opt_state), loss = self._unit(state, x, y)
+        else:
+            opt = state.opt_state
+            out, loss = self._graph.run(
+                _capture.tensors_of(state.params, opt), (x, y),
+                self.optimizer.host_scalars(opt),
+                lambda inputs, scalars: self._unit(state, *inputs, scalars))
+            params, opt_state = out if out is not None else (
+                state.params, self.optimizer.advance(opt, 1))
+        common.donated(state, self.donate_state)
+        return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
+
+    def _unit(self, state: common.TrainState, x, y, scalars=None):
+        """A step's device work: ``((params, opt_state), loss)``; the
+        optimizer reads ``scalars`` (see ``optim.Chain.update``) when
+        given."""
         grads, loss = self._vg(state.params, x, y)
         if in_process_group():
             grads, loss = self._across_processes(grads, loss)
-        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state,
-                                                  inplace=self.donate_state)
-        common.donated(state, self.donate_state)
-        return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
+        kw = {} if scalars is None else {"scalars": scalars}
+        return self.optimizer.update(state.params, grads, state.opt_state,
+                                     inplace=self.donate_state, **kw), loss
 
     def _across_processes(self, grads, loss):
         """The gradient and the loss averaged across the world's processes

@@ -2,8 +2,10 @@
 
 A copy of ``mpit_tpu/utils/config.py`` (the port imports nothing of the JAX
 package); ``tests/test_torch_data.py`` holds the two equal. The port's
-``run`` drives the easgd/eamsgd presets and raises ``NotImplementedError``
-for the fields and algos it does not run yet.
+``run`` drives every algo named below (the EASGD, Downpour, sync, ZeRO,
+sequence, MoE and pipeline trainers and the parameter-server ``ps-*``
+algos) and every preset; an unknown algo, optimizer or exchange dtype
+raises ``ValueError`` (``_check_supported`` in ``mpit_tpu_torch/run.py``).
 
 Reference parity (SURVEY.md §5): the reference's config system was a plain
 Lua ``conf``/``opt`` table in ``ptest.lua`` (lr, τ, α, #servers, batch size).

@@ -1,0 +1,330 @@
+"""The EASGD round and the sync-DP step as CUDA graphs
+(``mpit_tpu_torch/parallel/capture.py``), the counterpart of the
+reference's ``jit`` with ``donate_argnums``.
+
+On the CPU:
+
+- the optimizer fed its host values as 0-dim tensors (what a graph reads)
+  is bit-equal over 6 updates to the float path (SGD with momentum,
+  constant and cosine behind a clip, AdamW warmup-cosine behind a clip;
+  in place and not; per worker too), and ``advance`` moves the counts as
+  the updates do;
+- the trainers' replay branch, driven by a test double that runs the
+  unit's body with those 0-dim tensors where a graph would replay, leaves
+  the eager trainer's bits and host bookkeeping (round or step, counts);
+- a CPU trainer never captures, and ``capture=True`` says why it cannot.
+
+On a CUDA card (skipped without one): replayed units are bit-equal to
+eager ones and keep the state's storage, a restored checkpoint is warmed
+up and captured anew, and the launch counters count every replay.
+
+The file imports nothing of JAX, so it also runs on a machine without it
+(``pytest --noconftest``). Small shapes (W = 4, MLPs of width 16, a
+1-layer LM), f32 on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mpit_tpu_torch import optim
+from mpit_tpu_torch.comm.topology import Topology
+from mpit_tpu_torch.models import MLP, TransformerLM
+from mpit_tpu_torch.parallel import (
+    DataParallelTrainer,
+    EASGDTrainer,
+    SeqParallelTrainer,
+)
+from mpit_tpu_torch.parallel import capture as cap
+from mpit_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+CPU = torch.device("cpu")
+W, TAU, V, T = 4, 3, 17, 8
+STEPS = 6
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().reshape(-1).view(torch.uint8)
+
+
+def _same(a, b) -> bool:
+    a, b = cap.tensors_of(a), cap.tensors_of(b)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
+
+
+def _counts(state) -> list:
+    if isinstance(state, tuple):
+        return [c for s in state for c in _counts(s)]
+    return [state.count] if hasattr(state, "count") else []
+
+
+# name -> optimizer; the schedules span the 6 updates
+OPTIMIZERS = {
+    "sgd-momentum": lambda: optim.SGD(0.05, 0.9),
+    "sgd-cosine-clip": lambda: optim.chain(
+        optim.clip_by_global_norm(1.0), optim.SGD(optim.cosine_decay_schedule(0.1, STEPS), 0.9)),
+    "adamw-warmup-cosine-clip": lambda: optim.chain(
+        optim.clip_by_global_norm(1.0),
+        optim.AdamW(optim.warmup_cosine_decay_schedule(0.0, 1e-2, 2, STEPS), 1e-2)),
+}
+
+
+def _tree(lead=()):
+    rng = np.random.default_rng(0)
+    return {"Dense_0": {"kernel": torch.from_numpy(rng.normal(size=(*lead, 5, 7)).astype(np.float32)),
+                        "bias": torch.from_numpy(rng.normal(size=(*lead, 7)).astype(np.float32))},
+            "Dense_1": {"kernel": torch.from_numpy(rng.normal(size=(*lead, 7, 3)).astype(np.float32))}}
+
+
+@pytest.mark.parametrize("inplace", [False, True], ids=["out-of-place", "in-place"])
+@pytest.mark.parametrize("per_worker", [False, True], ids=["replicated", "per-worker"])
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_device_scalars_are_bit_equal_to_the_float_path(name, per_worker, inplace):
+    opt = OPTIMIZERS[name]()
+    lead = (W,) if per_worker else ()
+    rng = np.random.default_rng(1)
+    grads = [{k: {n: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32) * 3)
+                  for n, v in layer.items()} for k, layer in _tree(lead).items()}
+             for _ in range(STEPS)]
+    runs = {}
+    for fed in (False, True):
+        params = _tree(lead)
+        state = first = opt.init(params)
+        read = []
+        for g in grads:
+            g = {k: {n: v.clone() for n, v in layer.items()} for k, layer in g.items()}
+            values = opt.host_scalars(state)
+            read.append(values)
+            kw = {"scalars": [torch.tensor(v) for v in values]} if fed else {}
+            params, state = opt.update(params, g, state, per_worker=per_worker,
+                                       inplace=inplace, **kw)
+        runs[fed] = (params, state, read)
+    (p0, s0, read), (p1, s1, _) = runs[False], runs[True]
+    assert _same(p0, p1) and _same(s0, s1)
+    assert _counts(s0) == _counts(s1) == _counts(opt.advance(first, STEPS))
+    # the values of the update after t more, read off the first state
+    assert [opt.host_scalars(first, t) for t in range(STEPS)] == read
+    if name != "sgd-momentum":
+        assert all(v.dtype == np.float32 for values in read for v in values) and read[0]
+
+
+class ReplayOnTheHost:
+    """A test double of ``capture.UnitGraph``: it runs the unit's body where
+    a graph would replay it, reading the host values from 0-dim tensors as
+    the graph reads them from its buffer, and answers as a replay does
+    (no result, a copy of the loss): the trainer's replay branch then does
+    its own bookkeeping."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def run(self, state, inputs, values, body):
+        _, loss = body(tuple(inputs), [torch.tensor(v) for v in values])
+        self.replays += 1
+        return None, loss.clone()
+
+
+def _mlp():
+    return MLP(num_classes=5, hidden=(16,), compute_dtype=torch.float32, in_shape=(3, 3, 1),
+               device="cpu")
+
+
+def _images(lead=(), seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(*lead, 8, 3, 3, 1)).astype(np.float32)
+    return x, rng.integers(0, 5, (*lead, 8)).astype(np.int32)
+
+
+TRAINERS = {
+    "easgd-sgd": (lambda: EASGDTrainer(_mlp(), OPTIMIZERS["sgd-cosine-clip"](),
+                                       Topology(W, CPU), tau=TAU), lambda s: _images((TAU,), s)),
+    "easgd-adamw": (lambda: EASGDTrainer(_mlp(), OPTIMIZERS["adamw-warmup-cosine-clip"](),
+                                         Topology(W, CPU), tau=TAU), lambda s: _images((TAU,), s)),
+    "sync-adamw": (lambda: DataParallelTrainer(_mlp(), OPTIMIZERS["adamw-warmup-cosine-clip"](),
+                                               Topology(W, CPU), accum_steps=2),
+                   lambda s: _images((), s)),
+    "sync-sgd": (lambda: DataParallelTrainer(_mlp(), OPTIMIZERS["sgd-momentum"](),
+                                             Topology(W, CPU)), lambda s: _images((), s)),
+}
+
+
+def _host(state):
+    if hasattr(state, "params"):
+        return state.step, _counts(state.opt_state)
+    return state.round, _counts(state.worker_opt)
+
+
+@pytest.mark.parametrize("name", sorted(TRAINERS))
+def test_the_replay_branch_leaves_the_eager_bits_and_bookkeeping(name):
+    make, batch = TRAINERS[name]
+    runs = {}
+    for replayed in (False, True):
+        tr = make()
+        assert tr._graph is None
+        if replayed:
+            tr._graph = ReplayOnTheHost()
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        ptrs = [t.data_ptr() for t in cap.tensors_of(state)]
+        losses, hosts = [], []
+        for i in range(4):
+            state, m = tr.step(state, *batch(i))
+            losses.append(m["loss"])
+            hosts.append(_host(state))
+        assert [t.data_ptr() for t in cap.tensors_of(state)] == ptrs
+        runs[replayed] = (tr, state, losses, hosts)
+    (_, s0, l0, h0), (tr, s1, l1, h1) = runs[False], runs[True]
+    assert tr._graph.replays == 4
+    assert h0 == h1 and h1[-1][0] == 4
+    assert _same(s0, s1) and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(l0, l1))
+
+
+def test_a_cpu_trainer_never_captures_and_capture_true_says_why():
+    topo = Topology(W, CPU)
+    trainers = [EASGDTrainer(_mlp(), optim.SGD(0.05, 0.9), topo, tau=TAU),
+                DataParallelTrainer(_mlp(), optim.SGD(0.05, 0.9), topo)]
+    for tr in trainers:
+        assert tr.capture is False and tr._graph is None and tr.replays == 0
+    tr = trainers[1]
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    cap.replays = 0
+    for i in range(3):
+        state, _ = tr.step(state, *_images((), i))
+    assert tr.replays == 0 and cap.replays == 0
+    with pytest.raises(ValueError, match="a CUDA graph needs a CUDA device"):
+        DataParallelTrainer(_mlp(), optim.SGD(0.05), topo, capture=True)
+    with pytest.raises(ValueError, match="donate_state=False"):
+        EASGDTrainer(_mlp(), optim.SGD(0.05), topo, donate_state=False, capture=True)
+    # the subclasses and the bucketed exchange step eagerly
+    lm = TransformerLM(V, num_layers=1, d_model=16, num_heads=4, max_len=T,
+                       compute_dtype=torch.float32, device="cpu", seq_axis="sp")
+    seq = SeqParallelTrainer(lm, optim.SGD(0.1), Topology(W, CPU, axis_names=("dp", "sp"),
+                                                          mesh_shape=(2, 2)))
+    assert seq.capture is False and seq._graph is None
+    assert DataParallelTrainer(_mlp(), optim.SGD(0.05), topo, quant="int8").capture is False
+
+
+def test_eager_reasons_name_each_obstacle():
+    opt = optim.SGD(0.05)
+    assert cap.eager_reasons("cuda", True, opt) == []
+    why = cap.eager_reasons("cpu", False, object(), bucketed=True)
+    assert len(why) == 4
+    assert any("CUDA device" in w for w in why) and any("donate_state" in w for w in why)
+    assert any("bucketed" in w for w in why) and any("host_scalars" in w for w in why)
+    assert cap.resolve(None, []) is True and cap.resolve(None, why) is False
+    assert cap.resolve(False, []) is False and cap.resolve(True, []) is True
+
+
+def test_the_key_holds_across_in_place_updates_and_not_across_storage():
+    state = _tree()
+    opt = optim.AdamW(1e-3)
+    opt_state = opt.init(state)
+    leaves = cap.tensors_of(state, opt_state)
+    assert len(leaves) == 9
+    key = cap._key(leaves, [torch.zeros(2, 3)], 1)
+    g = {k: {n: torch.ones_like(v) for n, v in layer.items()} for k, layer in state.items()}
+    state, opt_state = opt.update(state, g, opt_state, inplace=True)
+    assert cap._key(cap.tensors_of(state, opt_state), [torch.ones(2, 3)], 1) == key
+    assert cap._key(cap.tensors_of(state, opt_state), [torch.ones(2, 4)], 1) != key
+    moved = [t.clone() for t in leaves]
+    assert cap._key(moved, [torch.zeros(2, 3)], 1) != key
+
+
+# ---------------------------------------------------------------- the card
+
+
+def _card_easgd(capture, opt=None):
+    mlp = MLP(num_classes=5, hidden=(16,), compute_dtype=torch.float32, in_shape=(3, 3, 1),
+              device="cuda")
+    return EASGDTrainer(mlp, opt or OPTIMIZERS["adamw-warmup-cosine-clip"](),
+                        Topology(W, torch.device("cuda")), tau=TAU, capture=capture)
+
+
+def _card_lm(capture):
+    lm = TransformerLM(V, num_layers=1, d_model=64, num_heads=1, max_len=64,
+                       compute_dtype=torch.bfloat16, attn_impl="flash", device="cuda")
+    return DataParallelTrainer(lm, OPTIMIZERS["adamw-warmup-cosine-clip"](),
+                               Topology(W, torch.device("cuda")), capture=capture)
+
+
+def _card_tokens(seed):
+    x = np.random.default_rng(seed).integers(0, V, (8, 64)).astype(np.int32)
+    return x, np.roll(x, -1, axis=1).astype(np.int32)
+
+
+CARD = {"easgd": (_card_easgd, lambda s: _images((TAU,), s)), "sync-flash": (_card_lm, _card_tokens)}
+
+
+@pytest.mark.parametrize("name", sorted(CARD))
+def test_replayed_units_are_bit_equal_to_eager_ones_and_keep_storage(name):
+    _need_card()
+    make, batch = CARD[name]
+    runs = {}
+    for capture in (False, True):
+        tr = make(capture)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        ptrs = [t.data_ptr() for t in cap.tensors_of(state)]
+        losses = []
+        for i in range(STEPS):
+            state, m = tr.step(state, *batch(i))
+            losses.append(m["loss"])
+        assert [t.data_ptr() for t in cap.tensors_of(state)] == ptrs
+        runs[capture] = (tr, state, losses)
+    (_, s0, l0), (tr, s1, l1) = runs[False], runs[True]
+    assert runs[False][0].replays == 0 and tr.replays == STEPS - 1
+    assert _host(s0) == _host(s1)
+    assert _same(s0, s1) and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(l0, l1))
+
+
+def test_a_restored_checkpoint_is_warmed_up_and_captured_anew(tmp_path):
+    _need_card()
+    straight = _card_easgd(True)
+    state = straight.init_state(torch.Generator().manual_seed(0))
+    for i in range(STEPS):
+        state, _ = straight.step(state, *_images((TAU,), i))
+    tr = _card_easgd(True)
+    half = tr.init_state(torch.Generator().manual_seed(0))
+    for i in range(STEPS // 2):
+        half, _ = tr.step(half, *_images((TAU,), i))
+    save_checkpoint(str(tmp_path), half, step=STEPS // 2)
+    first_graph = tr._graph._graph
+    restored, step = restore_checkpoint(str(tmp_path), tr.init_state(
+        torch.Generator().manual_seed(1)))
+    assert step == STEPS // 2
+    replays = tr.replays
+    restored, _ = tr.step(restored, *_images((TAU,), STEPS // 2))
+    assert tr.replays == replays and tr._graph._graph is None  # a warm-up
+    for i in range(STEPS // 2 + 1, STEPS):
+        restored, _ = tr.step(restored, *_images((TAU,), i))
+    assert tr.replays == replays + STEPS // 2 - 1
+    assert tr._graph._graph is not None and tr._graph._graph is not first_graph
+    assert _host(restored) == _host(state) and _same(restored, state)
+
+
+def test_launch_counters_count_every_replay():
+    _need_card()
+    from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.ops import flash_attention as fa
+
+    tr = _card_easgd(True, optim.SGD(0.05, 0.9))
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    elastic.launches = 0
+    for i in range(STEPS):
+        state, _ = tr.step(state, *_images((TAU,), i))
+    assert tr.replays == STEPS - 1 and elastic.launches == STEPS
+
+    tr = _card_lm(True)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    for k in fa.launches:
+        fa.launches[k] = 0
+    for i in range(STEPS):
+        state, _ = tr.step(state, *_card_tokens(i))
+    assert tr.replays == STEPS - 1
+    assert fa.launches["flash_forward_sm90"] == fa.launches["flash_dq_sm90"] == STEPS
+    assert fa.launches["flash_dkv_sm90"] == STEPS and fa.launches["flash_forward"] == 0

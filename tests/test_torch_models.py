@@ -236,6 +236,29 @@ def test_space_to_depth_conv_raises_the_references_errors(x_shape, k_shape, s, p
                 jnp.zeros(np.array(k_shape)[[2, 3, 1, 0]]), s, p, jnp.float32)
 
 
+def test_space_to_depth_stem_matches_the_reference():
+    """``models.resnet.space_to_depth_stem`` (NCHW, OIHW) against the
+    reference's (NHWC, HWIO) and the 7x7/2 conv, at its test's shapes (f32);
+    an odd spatial dim raises as the reference's does."""
+    from mpit_tpu.models.resnet import space_to_depth_stem as ref_stem
+    from mpit_tpu_torch.models.resnet import space_to_depth_stem
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 16, 20, 3)).astype(np.float32)
+    kernel = rng.normal(size=(7, 7, 3, 8)).astype(np.float32)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    kt = from_flax({"k": kernel}, device="cpu")["k"]
+    got = space_to_depth_stem(xt, kt, torch.float32)
+    assert got.shape == (2, 8, 8, 10)
+    want = np.asarray(ref_stem(jnp.asarray(x), jnp.asarray(kernel), jnp.float32))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, F.conv2d(xt, kt, stride=2, padding=3),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        space_to_depth_stem(torch.zeros(1, 3, 15, 16), torch.zeros(8, 3, 7, 7),
+                            torch.float32)
+
+
 def test_registry_names_aliases_and_refusals():
     assert models.STEM_MODELS == ref_models.STEM_MODELS
     assert models.REMAT_MODELS == ref_models.REMAT_MODELS
