@@ -115,8 +115,9 @@ non-zero before the result lines:
              preset's width and ``train_size``: the reference's units and
              samples, finite losses, samples/s (tokens/s for the LSTM), ms
              per unit, elastic launches = rounds on the LSTM (counts set to
-             0 just before), and a loss whose last quarter is below its first
-             (ResNet and AlexNet in a longer leg: 1024 × 3 epochs, 2048 × 2).
+             0 just before), every unit after the first a graph replay, and
+             a loss whose last quarter is below its first (ResNet and
+             AlexNet in a longer leg: 1024 × 3 epochs, 2048 × 2).
 15b. dp-quant — the bucketed and quantized sync-DP exchange (after the
              four BASELINE phases): the quant torch face on the card against
              the numpy face, bit for bit, on random and edge inputs; the
@@ -140,15 +141,21 @@ non-zero before the result lines:
              graph.
 17. lm-profile — ``torch.profiler`` over a few of the same steps: the
              flash family's device time per step, by kernel family.
-17c. graph — the reference's one-program round and step (``jit`` with
-             the state donated) as CUDA graphs: ``mnist-easgd`` at W = 8
-             (the preset, then cosine with ``clip_norm`` 1.0; 8 rounds) and
-             the ``lm`` phase's sync flash LM (16 steps), each from one seed
-             through ``fit`` with ``capture=False``, then captured: every
-             state tensor and every loss equal bit for bit, the host counts
-             and the launch counts equal, the first unit eager and the
-             others replayed; ms a unit each way, the card's busy share
-             over 4 profiled units and the peak memory of each leg.
+17c. graph — the reference's one-program units (``jit`` with the state
+             donated) as CUDA graphs: ``mnist-easgd`` at W = 8 (the preset,
+             then cosine with ``clip_norm`` 1.0; 8 rounds), the ``lm``
+             phase's LM by sync and zero-sync (flash, 16 steps), by
+             moe-sync (8 experts, flash), by seq-sync at (2, 4) with ring
+             and with Ulysses attention, by tp (2, 4) and composed (2, 2, 2)
+             at 2 layers (8 steps each), and ``alexnet-downpour`` (4
+             rounds); each trainer built as ``run()`` builds it (it must
+             capture), from one seed through ``fit`` with capture off, then
+             captured: every state tensor and every metric equal bit for
+             bit, the host counts and the launch counts equal, the first
+             unit eager and the others replayed, the captured peak within
+             1.1× the eager leg's (all but EASGD and sync); ms a unit
+             each way, the card's busy share over 4 profiled units and the
+             peak memory of each leg.
 17a. obs-lm — ``ptb-transformer-large --algo sync`` at full width, 16 steps
              under ``MPIT_DP_QUANT=int8``, untraced, with ``MPIT_OBS_DIR``,
              untraced again (ms a step of each): the bucketed
@@ -163,11 +170,13 @@ non-zero before the result lines:
              phase's sync run (within ZERO_TOL, and whether equal bit for
              bit), the sm90 flash launches (the ``lm`` phase's counts); then
              16 steps under ``MPIT_DP_QUANT=int8`` (each worker's own
-             gradient, the quantized scatter), its launches counted alike.
+             gradient, the quantized scatter), its launches counted alike;
+             every step after the first of each run a graph replay.
 18. seq    — ``run()`` with ``ptb-transformer-large`` at its own algo,
              seq-sync, full width, W = 8, 64 steps each: (dp, sp) = (8, 1)
              with ring attention, (2, 4) ring, (2, 4) Ulysses; tokens/s, ms
-             per step, the peak device memory of a training step, eval
+             per step (every step after the first a graph replay), the peak
+             device memory of a training step, eval
              accuracy and loss, three ring steps under the profiler (busy
              share, top kernels, host time); every loss finite, the last 8
              below the first 8, no kernel of the port launched (the attention is PyTorch
@@ -208,7 +217,7 @@ non-zero before the result lines:
              trip. Then the inner axes across two gloo ranks on the card
              machine's CPU (``multihost_lm.py``), at ``ptb-transformer-large``'s
              width (d_model 768, 12 heads, T = 512, vocab 10,000) cut to 2
-             layers, a batch of 2 and 2 steps: ``run()`` of seq-sync with
+             layers, a batch of 2 and 1 step: ``run()`` of seq-sync with
              ``--sp 2`` (one worker a rank, so the ring spans the ranks),
              ring then Ulysses; the tp trainer at (1, 2) and composed at
              (1, 2, 2) (f32); ``run()`` of moe-sync with 8 experts (4 a
@@ -283,7 +292,8 @@ non-zero before the result lines:
              defaults for the cost.
 30. moe      — ``ptb-transformer-large --algo moe-sync --moe-experts 8
              --attn-impl flash`` at full width through ``run()``, 32 steps
-             (W = 8, 512 tokens and capacity 128 a worker): losses finite,
+             (W = 8, 512 tokens and capacity 128 a worker; every step after
+             the first a graph replay): losses finite,
              the last 8 below the first 8; the sm90 flash launches (counts
              set to 0 just before; they join the kernels line): forward 6 ×
              (steps + eval forwards), dQ = dK/dV = 6 × steps; tokens/s, ms a
@@ -299,7 +309,8 @@ non-zero before the result lines:
              GPipe's); one f32 step of a narrow 1F1B pipeline, card vs CPU.
 32. tp       — the tp (2, 4) and composed (2, 2, 2) trainers against the
              sync trainer at full width: two f32 steps from one init within
-             ``TP_F32_TOL``, then 8 bf16 steps each (ms a step);
+             ``TP_F32_TOL``, then 10 bf16 steps each (ms a step over the
+             last 8; every step after the first a graph replay);
              ``generate_tp`` at (1, 4) against ``generate_batch`` on the
              serving model's 8 greedy prompts under the near-tie rule (ms a
              token).
@@ -1893,43 +1904,97 @@ def profile_lm(steps: int = 3, cfg=None, name: str = "lm-profile") -> None:
 
 
 GRAPH_PROFILED = 4  # units under the profiler after each graph leg
+GRAPH_UNITS = 8  # units of an epoch of the LM trainers but sync and zero-sync
+GRAPH_TP_LAYERS = 2  # tp and composed at the LM's full width, this depth
+# a captured leg's peak memory against its eager leg's, for every trainer
+# but EASGD and sync (whose small legs add a static batch of 15% and more)
+GRAPH_PEAK_RATIO = 1.10
 
 
 def graph_configs() -> list:
-    """The graph phase's configurations: (label, config, units)."""
+    """The graph phase's configurations: dicts of ``label``, ``cfg``,
+    ``units``, ``build`` (``"run"``: the trainer ``run()`` builds; ``"tp"``
+    or ``"composed"``: those trainers on ``cfg``'s LM) and ``peak_ratio``
+    (the captured leg's peak memory at most this times the eager leg's, or
+    None)."""
     from mpit_tpu_torch.utils.config import TrainConfig
 
     easgd = dataclasses.replace(TrainConfig().apply_preset("mnist-easgd"), epochs=1)
     rounds = easgd.train_size // (easgd.global_batch * easgd.tau)
     lm = dataclasses.replace(lm_config(), train_size=16 * lm_config().global_batch)
-    return [("mnist-easgd", easgd, rounds),
-            ("mnist-easgd cosine clip 1.0",
-             dataclasses.replace(easgd, lr_schedule="cosine", clip_norm=1.0), rounds),
-            ("lm sync flash", lm, lm.train_size // lm.global_batch)]
+    gb = lm.global_batch
+    seq = dataclasses.replace(TrainConfig().apply_preset("ptb-transformer-large"), epochs=1,
+                              sp=4, train_size=GRAPH_UNITS * gb)
+    tp = dataclasses.replace(lm, attn_impl="xla", layers=GRAPH_TP_LAYERS,
+                             train_size=GRAPH_UNITS * gb)
+    alex = dataclasses.replace(TrainConfig().apply_preset("alexnet-downpour"), epochs=1)
+    alex = dataclasses.replace(alex, train_size=4 * alex.global_batch * alex.tau)
+    old = dict(build="run", peak_ratio=None)
+    new = dict(build="run", peak_ratio=GRAPH_PEAK_RATIO)
+    return [
+        dict(label="mnist-easgd", cfg=easgd, units=rounds, **old),
+        dict(label="mnist-easgd cosine clip 1.0", units=rounds,
+             cfg=dataclasses.replace(easgd, lr_schedule="cosine", clip_norm=1.0), **old),
+        dict(label="lm sync flash", cfg=lm, units=lm.train_size // gb, **old),
+        dict(label="lm zero-sync flash", cfg=dataclasses.replace(lm, algo="zero-sync"),
+             units=lm.train_size // gb, **new),
+        dict(label="lm moe-sync flash", cfg=dataclasses.replace(
+            moe_config(), train_size=GRAPH_UNITS * gb), units=GRAPH_UNITS, **new),
+        dict(label="lm seq-sync ring (2, 4)", cfg=seq, units=GRAPH_UNITS, **new),
+        dict(label="lm seq-sync ulysses (2, 4)", units=GRAPH_UNITS,
+             cfg=dataclasses.replace(seq, seq_impl="ulysses"), **new),
+        dict(label=f"lm tp (2, 4), {GRAPH_TP_LAYERS} layers", cfg=tp, units=GRAPH_UNITS,
+             build="tp", peak_ratio=GRAPH_PEAK_RATIO),
+        dict(label=f"lm composed (2, 2, 2), {GRAPH_TP_LAYERS} layers", cfg=tp,
+             units=GRAPH_UNITS, build="composed", peak_ratio=GRAPH_PEAK_RATIO),
+        dict(label="alexnet-downpour", cfg=alex, units=4, **new),
+    ]
 
 
-def graph_trainer(cfg, capture: bool):
-    """``cfg``'s trainer built as ``run()`` builds it (``build_trainer``),
-    with ``capture`` given; its data; the batches of one epoch."""
-    from mpit_tpu_torch.comm.topology import topology
-    from mpit_tpu_torch.data import Batches, cast_input_dtype
-    from mpit_tpu_torch.parallel import DataParallelTrainer, EASGDTrainer
-    from mpit_tpu_torch.run import _load_dataset, _world_for, build_model, build_optimizer
+def graph_data(spec: dict) -> tuple:
+    """The configuration's training data as ``run()`` loads it, ``(x, y,
+    meta)``: made once for both legs."""
+    from mpit_tpu_torch.data import cast_input_dtype
+    from mpit_tpu_torch.run import _load_dataset
 
-    topo = _world_for(cfg, topology())
+    cfg = spec["cfg"]
     x_tr, y_tr, _, _, meta = _load_dataset(cfg)
-    x_tr = cast_input_dtype(x_tr, cfg.input_dtype)
-    model = build_model(cfg, topo.device, meta)
+    return cast_input_dtype(x_tr, cfg.input_dtype), y_tr, meta
+
+
+def graph_trainer(spec: dict, capture: bool, data: tuple):
+    """The configuration's trainer, built as ``run()`` builds it (with
+    ``capture=None``: it must capture), or for ``capture`` False with
+    ``capture=False``; its batches of one epoch of ``data``
+    (:func:`graph_data`)."""
+    from mpit_tpu_torch.comm.topology import Topology, topology
+    from mpit_tpu_torch.data import Batches
+    from mpit_tpu_torch.parallel import ComposedParallelTrainer, TensorParallelTrainer
+    from mpit_tpu_torch.run import _world_for, build_model, build_optimizer, build_trainer
+
+    cfg = spec["cfg"]
+    topo = _world_for(cfg, topology())
+    x_tr, y_tr, meta = data
     batches = Batches(x_tr, y_tr, global_batch=cfg.global_batch, seed=cfg.seed)
-    sync = cfg.resolved_algo() == "sync"
-    tau = 1 if sync else cfg.tau
+    algo = cfg.resolved_algo()
+    tau = cfg.tau if algo in ("easgd", "downpour") else 1
     opt = build_optimizer(cfg, batches.steps_per_epoch() // tau)
-    if sync:
-        trainer = DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum,
-                                      capture=capture)
+    given = None if capture else False
+    if spec["build"] == "run":
+        trainer = build_trainer(cfg, build_model(cfg, topo.device, meta), opt, topo,
+                                capture=given)
     else:
-        trainer = EASGDTrainer(model, opt, topo, alpha=cfg.alpha, tau=cfg.tau,
-                               capture=capture)
+        mesh = ((("dp", "tp"), (2, 4)) if spec["build"] == "tp"
+                else (("dp", "tp", "sp"), (2, 2, 2)))
+        # composed: the LM with the sequence axis, as seq-sync builds it
+        model = build_model(cfg if spec["build"] == "tp" else dataclasses.replace(
+            cfg, algo="seq-sync"), topo.device, meta)
+        cls = TensorParallelTrainer if spec["build"] == "tp" else ComposedParallelTrainer
+        trainer = cls(model, opt, Topology(WORKERS, topo.device, axis_names=mesh[0],
+                                           mesh_shape=mesh[1]), capture=given)
+    if trainer.eager_reasons or trainer.capture is not capture:
+        raise AssertionError(f"graph: {spec['label']}: built with capture={given} it "
+                             f"captures {trainer.capture}: {trainer.eager_reasons}")
     return trainer, batches
 
 
@@ -1940,14 +2005,25 @@ def opt_counts(tree) -> list:
     return [tree.count] if hasattr(tree, "count") else []
 
 
-def graph_leg(cfg, units: int, capture: bool) -> dict:
-    """One epoch of ``units`` units of ``cfg`` through ``fit`` from the
-    config's seed, captured or eager; then GRAPH_PROFILED units on the
-    last batch under the profiler. Returns the state's tensors and host
-    counts, the losses, the launches and replays of the epoch, ms a unit
-    over the units after the first two (host clock around a synchronize),
-    the busy share of the profiled units and the peak memory of the leg
-    above what was allocated before it."""
+def host_counts(state) -> tuple:
+    """A trainer state's host bookkeeping: its step or round and its
+    optimizers' counts."""
+    if hasattr(state, "params"):
+        return state.step, opt_counts(state.opt_state)
+    return state.round, opt_counts(state.worker_opt) + opt_counts(
+        getattr(state, "server_opt", ()))
+
+
+def graph_leg(spec: dict, capture: bool, data: tuple) -> dict:
+    """One epoch of the configuration's units through ``fit`` from its
+    seed, captured or eager; then GRAPH_PROFILED units on the first batch
+    under the profiler. Returns the state's tensors and host counts, the
+    metrics, the launches and replays of the epoch, ms of the first unit
+    (the warm-up, with the first batch's staging) and of the second (the
+    capture and its first replay, when captured), ms a unit over the units
+    after the first two (host clock around a synchronize), the busy share
+    of the profiled units and the peak memory of the leg above what was
+    allocated before it."""
     import gc
 
     import numpy as np
@@ -1956,42 +2032,46 @@ def graph_leg(cfg, units: int, capture: bool) -> dict:
     from mpit_tpu_torch.ops import elastic
     from mpit_tpu_torch.ops import flash_attention as fa
     from mpit_tpu_torch.parallel import capture as cap
+    from mpit_tpu_torch.parallel.common import RoundTrainer
 
+    cfg, units = spec["cfg"], spec["units"]
     gc.collect()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    trainer, batches = graph_trainer(cfg, capture)
+    trainer, batches = graph_trainer(spec, capture, data)
     state = trainer.init_state(torch.Generator().manual_seed(cfg.seed))
-    sync = hasattr(state, "params")
-    losses, clock = [], {}
+    rounds = isinstance(trainer, RoundTrainer)
+    metrics, clock = [], {}
 
     def on_unit(done, st, m):
-        losses.append(m["loss"])
-        if done == 2:
+        metrics.append(m)
+        if done <= 2:
             torch.cuda.synchronize()
-            clock["t0"] = time.perf_counter()
+            clock[done] = time.perf_counter()
 
     elastic.launches = 0
     for k in fa.launches:
         fa.launches[k] = 0
     cap.replays = 0
-    fit = dict(on_step=on_unit) if sync else dict(on_round=on_unit)
+    fit = dict(on_round=on_unit) if rounds else dict(on_step=on_unit)
+    torch.cuda.synchronize()
+    clock[0] = time.perf_counter()
     state, _ = trainer.fit(batches, state, epochs=1, **fit)
     torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - clock["t0"]) / (units - 2)
+    ms = 1e3 * (time.perf_counter() - clock[2]) / (units - 2)
     launches = {"elastic": elastic.launches, **fa.launches}
     replays = cap.replays
-    if len(losses) != units:
-        raise AssertionError(f"graph: {len(losses)} units, not {units}")
+    if len(metrics) != units:
+        raise AssertionError(f"graph: {len(metrics)} units, not {units}")
 
     it = batches.epoch(0)
-    if sync:
-        unit, (x, y) = trainer._step, next(it)
-    else:
+    if rounds:
         unit = trainer._round
         xs, ys = zip(*[next(it) for _ in range(cfg.tau)])
         x, y = trainer.round_batches(np.stack(xs), np.stack(ys))
+    else:
+        unit, (x, y) = trainer._step, trainer._shard(*next(it))
     x, y = (torch.as_tensor(a).cuda() for a in (x, y))
     state, _ = unit(state, x, y)
     torch.cuda.synchronize()
@@ -2003,16 +2083,15 @@ def graph_leg(cfg, units: int, capture: bool) -> dict:
         wall = 1e3 * (time.perf_counter() - t0)
     busy, _ = busy_union_ms(prof)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    params = (state.params, state.opt_state) if sync else (
-        state.worker_params, state.worker_opt, state.center)
-    opt = state.opt_state if sync else state.worker_opt
     out = dict(
-        tensors=[t.detach().cpu() for t in cap.tensors_of(*params)],
-        host=(state.step if sync else state.round, opt_counts(opt)),
-        losses=torch.stack(losses).cpu(), launches=launches, replays=replays,
-        graph_replays=trainer.replays, ms=ms, busy=busy / wall if wall else 0.0,
+        tensors=[t.detach().cpu() for t in cap.tensors_of(state)],
+        host=host_counts(state),
+        metrics={k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]},
+        launches=launches, replays=replays, graph_replays=trainer.replays,
+        first_ms=1e3 * (clock[1] - clock[0]), second_ms=1e3 * (clock[2] - clock[1]),
+        ms=ms, busy=busy / wall if wall else 0.0,
         profiled_ms=wall / GRAPH_PROFILED, peak_mib=peak)
-    del trainer, state, x, y
+    del trainer, state, x, y, metrics
     return out
 
 
@@ -2022,15 +2101,20 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def graph_path(card_line: str, configs=None) -> None:
-    """The reference's one-program round and step as CUDA graphs: each
+    """The reference's one-program units as CUDA graphs: each
     configuration (default :func:`graph_configs`) eagerly
     (``capture=False``), then captured, from one seed: every state tensor
-    and loss equal bit for bit, the host counts equal, the launches equal,
-    one unit eager and the others replayed."""
+    and metric equal bit for bit, the host counts equal, the launches
+    equal, one unit eager and the others replayed, and the captured leg's
+    peak memory within the configuration's ratio of the eager leg's."""
     phase("graph", card_line)
-    for label, cfg, units in configs or graph_configs():
-        eager = graph_leg(cfg, units, capture=False)
-        graph = graph_leg(cfg, units, capture=True)
+    for spec in configs or graph_configs():
+        label, units = spec["label"], spec["units"]
+        t_leg = time.perf_counter()
+        data = graph_data(spec)
+        eager = graph_leg(spec, capture=False, data=data)
+        graph = graph_leg(spec, capture=True, data=data)
+        del data
         if eager["replays"] or eager["graph_replays"]:
             raise AssertionError(f"graph: {label}: the eager leg replayed")
         # the first unit is the warm-up, the second is captured and replayed
@@ -2046,24 +2130,35 @@ def graph_path(card_line: str, configs=None) -> None:
         if graph["host"] != eager["host"]:
             raise AssertionError(f"graph: {label}: host state {graph['host']} != "
                                  f"{eager['host']}")
-        if not same_bits(graph["losses"], eager["losses"]):
-            raise AssertionError(f"graph: {label}: losses {graph['losses'].tolist()} "
-                                 f"!= eager {eager['losses'].tolist()}")
+        if graph["metrics"].keys() != eager["metrics"].keys():
+            raise AssertionError(f"graph: {label}: metrics {list(graph['metrics'])} != "
+                                 f"{list(eager['metrics'])}")
+        for k, v in graph["metrics"].items():
+            if not same_bits(v, eager["metrics"][k]):
+                raise AssertionError(f"graph: {label}: {k} {v.tolist()} != eager "
+                                     f"{eager['metrics'][k].tolist()}")
         differ = [i for i, (a, b) in enumerate(zip(graph["tensors"], eager["tensors"],
                                                    strict=True)) if not same_bits(a, b)]
         if differ:
             raise AssertionError(f"graph: {label}: state tensors {differ} differ")
+        ratio = graph["peak_mib"] / eager["peak_mib"]
+        if spec["peak_ratio"] is not None and ratio > spec["peak_ratio"]:
+            raise AssertionError(f"graph: {label}: captured peak {graph['peak_mib']:.1f} MiB "
+                                 f"is {ratio:.3f}x the eager leg's {eager['peak_mib']:.1f}")
         launched = {k: v for k, v in graph["launches"].items() if v}
-        phase("graph", f"{label}: {units} units, losses and all "
-              f"{len(graph['tensors'])} state tensors bit-equal to the eager "
+        phase("graph", f"{label}: {units} units, metrics {sorted(graph['metrics'])} and "
+              f"all {len(graph['tensors'])} state tensors bit-equal to the eager "
               f"leg's, host counts {graph['host']}; {graph['replays']} replays; "
-              f"launches {json.dumps(launched)} both")
+              f"launches {json.dumps(launched)} both; captured peak {ratio:.3f}x eager; "
+              f"both legs and their data {time.perf_counter() - t_leg:.1f} s")
         for name, r in (("eager", eager), ("captured", graph)):
-            phase("graph", f"{label} {name}: {r['ms']:.3f} ms a unit ({units - 2} "
+            phase("graph", f"{label} {name}: units 1 and 2 {r['first_ms']:.1f} and "
+                  f"{r['second_ms']:.1f} ms, then {r['ms']:.3f} ms a unit ({units - 2} "
                   f"units of fit); {GRAPH_PROFILED} profiled units "
                   f"{r['profiled_ms']:.3f} ms each, device busy "
                   f"{100 * r['busy']:.1f}%; peak memory of the leg "
                   f"{r['peak_mib']:.1f} MiB")
+        del eager, graph
 
 
 # the reference's mesh invariance of seq-sync steps (tests/test_seq_parallel.py:62-79)
@@ -2163,6 +2258,7 @@ def seq_path(card_line: str) -> None:
     width, W = 8: (8, 1) ring, then (2, 4) ring and Ulysses, 64 steps
     each; then the narrow card-vs-CPU and sp-invariance step."""
     from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import capture
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
@@ -2180,13 +2276,16 @@ def seq_path(card_line: str) -> None:
         run(dataclasses.replace(cfg, train_size=16 * cfg.global_batch))
         for k in fa.launches:
             fa.launches[k] = 0
+        capture.replays = 0
         res = run(cfg)
+        replays = capture.replays
         if any(fa.launches.values()):
             raise AssertionError(f"seq-sync launched {fa.launches}: its attention is "
                                  "ring or Ulysses (torch operations), no kernel")
         losses, steps = res["round_losses"], res["trained_units"]
-        if steps != LM_TRAIN_WINDOWS // cfg.global_batch or not finite(losses):
-            raise AssertionError(f"{name}: {steps} steps, losses {losses}")
+        if (steps != LM_TRAIN_WINDOWS // cfg.global_batch or replays != steps - 1
+                or not finite(losses)):
+            raise AssertionError(f"{name}: {steps} steps, {replays} replays, losses {losses}")
         first, last = statistics.mean(losses[:8]), statistics.mean(losses[-8:])
         if not last < first:
             raise AssertionError(f"{name}: loss did not fall: first 8 {first}, last 8 {last}")
@@ -2196,7 +2295,8 @@ def seq_path(card_line: str) -> None:
         if over.get("seq_impl", "ring") == "ring":
             profile_lm(cfg=cfg, name="seq")
         phase("seq", f"{name}: mesh (dp, sp) = ({res['workers']}, {cfg.sp}), {steps} "
-              f"steps, {res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+              f"steps ({replays} replayed as a CUDA graph), "
+              f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
               f"{1e3 * res['wall_s'] / steps:.3f} ms/step; peak device memory of a "
               f"training step {peak:.1f} MiB; losses first 8 {first:.4f}, last 8 "
               f"{last:.4f}; eval accuracy {res['accuracy']:.4f}, eval loss "
@@ -2447,6 +2547,7 @@ def zero_path(card_line: str, sync_losses: list) -> dict:
     16 steps under ``MPIT_DP_QUANT=int8`` (each worker's own gradient,
     quantized scatter). Returns the flash launches of both runs."""
     from mpit_tpu_torch.ops import flash_attention as fa
+    from mpit_tpu_torch.parallel import capture
     from mpit_tpu_torch.run import _ptb_windows, run
 
     base = dataclasses.replace(lm_config(), algo="zero-sync")
@@ -2461,11 +2562,14 @@ def zero_path(card_line: str, sync_losses: list) -> dict:
             peak, peak_ms = train_peak(cfg)
             for k in fa.launches:
                 fa.launches[k] = 0
+            capture.replays = 0
             res = run(cfg)
-            launches = dict(fa.launches)
+            launches, replays = dict(fa.launches), capture.replays
         finally:
             del os.environ["MPIT_DP_QUANT"]
         steps, losses = res["trained_units"], res["round_losses"]
+        if replays != steps - 1:
+            raise AssertionError(f"zero: quant {quant}: {replays} replays in {steps} steps")
         want = {"flash_forward": 0, "flash_dq": 0, "flash_dkv": 0,
                 "flash_forward_sm90": LM_LAYERS * (steps + eval_chunks),
                 "flash_dq_sm90": LM_LAYERS * steps, "flash_dkv_sm90": LM_LAYERS * steps}
@@ -2487,7 +2591,8 @@ def zero_path(card_line: str, sync_losses: list) -> dict:
             agree = f"losses first 8 {first:.4f}, last 8 {last:.4f}"
         for k in total:
             total[k] += launches[k]
-        phase("zero", f"zero-sync, quant {quant}, {steps} steps: "
+        phase("zero", f"zero-sync, quant {quant}, {steps} steps ({replays} replayed as a "
+              f"CUDA graph): "
               f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
               f"{1e3 * res['wall_s'] / steps:.3f} ms/step in the run; a training step "
               f"alone {peak_ms:.3f} ms, peak device memory {peak:.1f} MiB; {agree}; "
@@ -2534,13 +2639,20 @@ def unit_vs_cpu(name: str, make_model, make_trainer, x, y) -> None:
 
     params = make_model("cpu").init(torch.Generator().manual_seed(0))
     out, losses = {}, {}
-    for dev in ("cuda", "cpu"):
-        trainer = make_trainer(make_model(dev), Topology(WORKERS, torch.device(dev)))
-        state = trainer.init_state(params=tree_map(torch.clone, params))
-        state, m = trainer.step(state, x, y)
-        held = state.params if hasattr(state, "params") else trainer.center_params(state)
-        out[dev] = [t.cpu() for t in tree_leaves(held)]
-        losses[dev] = float(m["loss"])
+    # f32 on the card too, whatever phase ran before: TF32 off for its
+    # matmuls and its convolutions (cuDNN's are on by default)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cuda", "cpu"):
+            trainer = make_trainer(make_model(dev), Topology(WORKERS, torch.device(dev)))
+            state = trainer.init_state(params=tree_map(torch.clone, params))
+            state, m = trainer.step(state, x, y)
+            held = state.params if hasattr(state, "params") else trainer.center_params(state)
+            out[dev] = [t.cpu() for t in tree_leaves(held)]
+            losses[dev] = float(m["loss"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     err = max((a - b).abs().max().item() for a, b in zip(out["cuda"], out["cpu"]))
     if not err <= UNIT_TOL or abs(losses["cuda"] - losses["cpu"]) > UNIT_TOL:
         raise AssertionError(f"{name}: card differs from CPU: params {err}, losses {losses}")
@@ -2653,6 +2765,7 @@ def baseline_path(name: str, card_line: str) -> int:
     units and samples, finite losses, and a loss that falls (here or in the
     longer leg). Returns the elastic launches of the timed run."""
     from mpit_tpu_torch.ops import elastic
+    from mpit_tpu_torch.parallel import capture
     from mpit_tpu_torch.run import run
     from mpit_tpu_torch.utils.config import TrainConfig
 
@@ -2668,9 +2781,12 @@ def baseline_path(name: str, card_line: str) -> int:
     profile_units(name, cfg)
 
     elastic.launches = 0
+    capture.replays = 0
     res = run(cfg)
-    launches = elastic.launches
+    launches, replays = elastic.launches, capture.replays
     units, losses = res["trained_units"], res["round_losses"]
+    if replays != units - 1:
+        raise AssertionError(f"{name}: {replays} graph replays in {units} units")
     if (units, res["samples"]) != (want["units"], want["samples"]):
         raise AssertionError(f"{name}: {units} units, {res['samples']} samples, not "
                              f"{want['units']} and {want['samples']}")
@@ -2685,7 +2801,8 @@ def baseline_path(name: str, card_line: str) -> int:
     phase(name, json.dumps({k: res.get(k) for k in (
         "accuracy", "eval_loss", "final_loss", "round_losses", "trained_units",
         "samples", "wall_s", "samples_per_sec")}))
-    phase(name, f"{units} {what}s, {res['samples']} samples: {rate}, "
+    phase(name, f"{units} {what}s ({replays} replayed as a CUDA graph), "
+          f"{res['samples']} samples: {rate}, "
           f"{1e3 * res['wall_s'] / units:.3f} ms per {what}; elastic launches "
           f"{launches}{' = rounds' if cfg.algo == 'easgd' else ''}; {card_line}")
     if "leg" in want:
@@ -2985,8 +3102,10 @@ def dist_phase() -> None:
                 _stop(job)
 
 
+# the depth cut to 2 layers and one step a leg (the script's time limit);
+# tests/test_torch_dist_axes.py and test_torch_dist_pp.py take more steps
 DIST_LM = ["--layers", "2", "--d-model", "768", "--heads", "12", "--seq-len", "512",
-           "--vocab", "10000", "--batch", "2", "--steps", "2"]
+           "--vocab", "10000", "--batch", "2", "--steps", "1"]
 DIST_LM_LEGS = ("run-seq-ring:2", "run-seq-ulysses:2", "tp:1,2", "composed:1,2,2",
                 "run-moe:8", "pp-gpipe:1,2", "pp-1f1b:1,2", "pp-interleaved:1,2", "run-pp:2")
 # two processes against one: the initial logits (values moved, partials summed
@@ -3147,7 +3266,7 @@ def dist_axes(tmp: str) -> None:
                 "f32, SGD, 2 microbatches" if pp else "f32, SGD")
         phase("dist", f"{key} over 2 gloo ranks (CPU, {a.get('layers', 2)} layers, d 768, "
               "12 heads, T 512, "
-              f"batch 2, 2 steps; {kind}"
+              f"batch 2, {DIST_LM[DIST_LM.index('--steps') + 1]} step(s); {kind}"
               f"): losses {[round(v, 4) for v in a[losses]]} on both ranks; vs one process: "
               f"{logit}max relative |loss diff| {loss_err:.3g}, max |param diff| "
               f"{param_err:.3g} (limits {tol['loss']}, {tol['param']}); checkpoint round "
@@ -4136,7 +4255,7 @@ def moe_path(card_line: str) -> dict:
     from mpit_tpu_torch.comm.topology import Topology
     from mpit_tpu_torch.models.transformer import TransformerLM
     from mpit_tpu_torch.ops import flash_attention as fa
-    from mpit_tpu_torch.parallel import MoEParallelTrainer
+    from mpit_tpu_torch.parallel import MoEParallelTrainer, capture
     from mpit_tpu_torch.run import run
 
     cfg = moe_config()
@@ -4148,11 +4267,14 @@ def moe_path(card_line: str) -> dict:
     peak, ms = train_peak(cfg)
     for k in fa.launches:
         fa.launches[k] = 0
+    capture.replays = 0
     res = run(cfg)
-    launches = dict(fa.launches)
+    launches, replays = dict(fa.launches), capture.replays
     steps, losses = res["trained_units"], res["round_losses"]
     evals = moe_eval_forwards(cfg)
     want = lm_launches(steps, evals)
+    if replays != steps - 1:
+        raise AssertionError(f"moe: {replays} replays in {steps} steps")
     if steps != MOE_STEPS or launches != want:
         raise AssertionError(f"moe: {steps} steps, flash launches {launches} != {want} "
                              f"({evals} eval forwards)")
@@ -4163,7 +4285,8 @@ def moe_path(card_line: str) -> dict:
         raise AssertionError(f"moe: loss did not fall: first 8 {first}, last 8 {last}")
     aux, n_params = moe_step_metrics(cfg)
     profile_lm(cfg=cfg, name="moe")
-    phase("moe", f"{steps} steps, {res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
+    phase("moe", f"{steps} steps ({replays} replayed as a CUDA graph), "
+          f"{res['samples_per_sec'] * cfg.seq_len:.1f} tokens/s, "
           f"{1e3 * res['wall_s'] / steps:.3f} ms/step (run), {ms:.3f} ms/step (2 timed "
           f"steps); peak device memory of a training "
           f"step {peak:.1f} MiB; {n_params} parameters; losses first 8 {first:.4f}, last 8 "
@@ -4213,6 +4336,8 @@ def donate_leg(card_line: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         trainer, state, x, y = built_step(cfg)
         trainer.donate_state = donate
+        # as the trainer builds it with that donate_state: a graph needs it
+        trainer._init_capture(None, trainer.optimizer)
         losses = []
         for i in range(DONATE_STEPS):
             if i == 1:
@@ -4403,9 +4528,12 @@ def tp_path(card_line: str, served: dict) -> None:
         ms = 1e3 * (time.perf_counter() - t0) / TP_STEPS
         if not finite(losses):
             raise AssertionError(f"{name}: non-finite losses {losses}")
+        if tr.replays != len(batches) - 1:
+            raise AssertionError(f"{name}: {tr.replays} replays in {len(batches)} steps")
         phase("tp", f"{name}, bf16 full width (6 layers, d 768, T 512, global batch "
               f"{WORKERS}, AdamW, dense attention; composed: ring over sp): {ms:.3f} ms/step "
-              f"over {TP_STEPS} steps ({WORKERS * 512 * 1e3 / ms:.1f} tokens/s); losses "
+              f"over {TP_STEPS} steps ({WORKERS * 512 * 1e3 / ms:.1f} tokens/s; {tr.replays} "
+              f"of {len(batches)} steps replayed as a CUDA graph); losses "
               f"{losses[0]:.4f} -> {losses[-1]:.4f}")
         del state
 

@@ -292,6 +292,9 @@ class Server:
     ``weights_dtype="bf16"`` casts the weights once. The server runs on
     the card unless ``device="cpu"``."""
 
+    # the reference's segment is one compiled program; this one is eager
+    eager_reasons = ("the slot admission runs on the host between its segments",)
+
     def __init__(
         self,
         model,

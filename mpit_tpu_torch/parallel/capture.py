@@ -1,7 +1,10 @@
 """A training unit as a CUDA graph: the counterpart of the reference's
-``jax.jit(..., donate_argnums=(0,))`` over a whole EASGD round
-(``mpit_tpu/parallel/easgd.py:107-153``) or sync-DP step
-(``mpit_tpu/parallel/sync.py:240-248``).
+``jax.jit(..., donate_argnums=(0,))`` over each device trainer's unit: the
+EASGD round (``mpit_tpu/parallel/easgd.py:107-153``), the fused sync-DP
+step (``sync.py:240-248``) and the steps of its seq, tp and composed
+subclasses (``seq.py:106-114``, ``tensor.py:211-212``,
+``composed.py:124-125``), the ZeRO-1 step (``zero.py:239-247``), the MoE
+step (``moe.py:192-200``) and the Downpour round (``downpour.py:147-155``).
 
 The reference compiles a unit once and runs it as one program on its
 donated state. Here a trainer runs its first unit eagerly (the warm-up: a
@@ -19,14 +22,16 @@ addresses it was captured with, so:
   and the one after it captures anew;
 - each batch is copied into static input buffers, one device-to-device
   copy each;
-- the values the optimizer reads on the host (a schedule's learning rate,
+- the values the optimizers read on the host (a schedule's learning rate,
   Adam's bias corrections) live in one static float32 buffer, which the
   host fills before each unit from ``optimizer.host_scalars`` (one copy
-  from pinned memory); the caller advances the optimizer's counts after a
+  from pinned memory); the caller advances the optimizers' counts after a
   replay (``optimizer.advance``), since the Python that moved them does
   not run;
-- the loss is the graph's static output, and each replay returns a device
-  copy of it, so every unit's loss stays its own.
+- the unit's metrics (a dict of 0-dim device tensors: the loss, and
+  moe-sync's ``moe_*`` statistics) are the graph's static outputs, and
+  each replay returns device copies of them, so every unit's metrics stay
+  its own.
 
 The kernels' launch counters (``ops.elastic.launches``,
 ``ops.flash_attention.launches``) move while a unit's Python runs, which
@@ -38,12 +43,14 @@ that it replayed.
 Warm-up and capture run on one side stream of the graph's own, ordered
 after and before the caller's stream. There is no fallback: a unit that
 cannot be captured raises. :func:`eager_reasons` says which trainers stay
-eager, and why.
+eager, and why; every device trainer carries its reasons
+(:class:`Captured`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
@@ -53,9 +60,11 @@ import torch
 replays = 0
 
 
-def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False) -> list:
+def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False,
+                  server_optimizer=None) -> list:
     """Why a trainer with these settings runs its units eagerly: one
-    reason each, none when it can capture them."""
+    reason each, none when it can capture them. ``server_optimizer`` is
+    Downpour's (None: model averaging)."""
     from mpit_tpu_torch.comm.topology import in_process_group
 
     why = []
@@ -69,8 +78,9 @@ def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False)
                    "are not captured")
     if bucketed:
         why.append("the bucketed or quantized exchange is not captured")
-    if not (hasattr(optimizer, "host_scalars") and hasattr(optimizer, "advance")):
-        why.append("its optimizer has no host_scalars/advance (an optim.Chain has)")
+    for name, opt in (("optimizer", optimizer), ("server_optimizer", server_optimizer)):
+        if opt is not None and not (hasattr(opt, "host_scalars") and hasattr(opt, "advance")):
+            why.append(f"its {name} has no host_scalars/advance (an optim.Chain has)")
     return why
 
 
@@ -131,16 +141,77 @@ def _add_launches(delta: dict, sign: int = 1) -> None:
             flash_attention.launches[name] += sign * n
 
 
+class Captured:
+    """What every device trainer says of its units: ``capture`` (whether
+    they replay a graph), ``eager_reasons`` (why not, one reason each) and
+    :attr:`replays`. A trainer calls :meth:`_init_capture` from its
+    ``__init__`` once its ``topo`` and ``donate_state`` are set."""
+
+    capture = False
+    eager_reasons: Sequence[str] = ()
+    _graph: Optional["UnitGraph"] = None
+
+    def _init_capture(self, capture: Optional[bool], optimizer, **obstacles) -> None:
+        self.eager_reasons = eager_reasons(self.topo.device, self.donate_state, optimizer,
+                                           **obstacles)
+        self.capture = resolve(capture, self.eager_reasons)
+        self._graph = UnitGraph(self.topo.device) if self.capture else None
+
+    @property
+    def replays(self) -> int:
+        """Units run as graph replays."""
+        return self._graph.replays if self._graph is not None else 0
+
+    def _replayable_step(self, state, x, y) -> tuple:
+        """A per-step trainer's ``_unit(state, x, y, scalars)`` on a state
+        with ``params`` and ``opt_state`` (one optimizer update a step),
+        eagerly or through its graph: ``((params, opt_state), metrics)``."""
+        if self._graph is None:
+            return self._unit(state, x, y)
+        opt = state.opt_state
+        out, metrics = self._graph.run(
+            tensors_of(state.params, opt), (x, y), self.optimizer.host_scalars(opt),
+            lambda inputs, scalars: self._unit(state, *inputs, scalars))
+        if out is None:  # a replay: the counts move on the host
+            out = state.params, self.optimizer.advance(opt, 1)
+        return out, metrics
+
+    def _replayable_round(self, state, x, y, fields: Sequence[str]) -> tuple:
+        """A round trainer's ``_unit(state, x, y, scalars)``, eagerly or
+        through its graph: ``(parts, metrics)``, ``parts`` the new values
+        of the state's ``fields`` in turn. The host values are those of the
+        τ worker updates in turn (``worker_opt``), then the server
+        optimizer's one update (``server_opt``) where there is one; after a
+        replay both optimizers' counts move on."""
+        if self._graph is None:
+            return self._unit(state, x, y)
+        opt, server = self.optimizer, getattr(self, "server_optimizer", None)
+        values = [v for t in range(self.tau) for v in opt.host_scalars(state.worker_opt, t)]
+        if server is not None:
+            values += server.host_scalars(state.server_opt)
+        parts = tuple(getattr(state, f) for f in fields)
+        out, metrics = self._graph.run(
+            tensors_of(*parts), (x, y), values,
+            lambda inputs, scalars: self._unit(state, *inputs, scalars))
+        if out is None:  # a replay: the counts move on the host
+            moved = {"worker_opt": opt.advance(state.worker_opt, self.tau)}
+            if server is not None:
+                moved["server_opt"] = server.advance(state.server_opt, 1)
+            out = tuple(moved.get(f, p) for f, p in zip(fields, parts))
+        return out, metrics
+
+
 class UnitGraph:
     """One trainer's captured unit.
 
     :meth:`run` takes the state's tensors, the unit's inputs, the
-    optimizer's host values for the unit and ``body(inputs, scalars)``,
+    optimizers' host values for the unit and ``body(inputs, scalars)``,
     which does the unit's device work on that state, reading the given
-    inputs and 0-dim float32 ``scalars``, and returns ``(result, loss)``.
-    It returns ``(result, loss)`` after a warm-up, and ``(None, loss)``
-    after a replay: the state's tensors then hold the new state, and the
-    caller moves its host bookkeeping on."""
+    inputs and 0-dim float32 ``scalars``, and returns ``(result,
+    metrics)``, ``metrics`` a dict of 0-dim device tensors. It returns
+    ``(result, metrics)`` after a warm-up, and ``(None, metrics)`` after a
+    replay: the state's tensors then hold the new state, and the caller
+    moves its host bookkeeping on."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -150,25 +221,25 @@ class UnitGraph:
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._inputs: tuple = ()
         self._scalars: Optional[torch.Tensor] = None
-        self._loss: Optional[torch.Tensor] = None
+        self._metrics: Optional[dict] = None
         self._launches: dict = {}
 
     def run(self, state: Sequence[torch.Tensor], inputs: Sequence[torch.Tensor],
-            values: Sequence, body: Callable) -> tuple[Any, torch.Tensor]:
+            values: Sequence, body: Callable) -> tuple[Any, dict]:
         key = _key(state, inputs, len(values))
         if key != self._key:
             # the first unit, or a state with other storage: drop the graph
             # and its memory, warm up, and capture at the next unit
-            self._key = self._graph = self._loss = None
-            result, loss = self._warm_up(inputs, values, body)
+            self._key = self._graph = self._metrics = None
+            result, metrics = self._warm_up(inputs, values, body)
             self._key = key
-            return result, loss
+            return result, metrics
         if self._graph is None:
             self._capture(body)
         self._load(inputs, values)
         self._graph.replay()
         self._count_replay()
-        return None, self._loss.clone()
+        return None, {k: v.clone() for k, v in self._metrics.items()}
 
     def _views(self) -> list:
         return list(self._scalars.unbind()) if self._scalars.numel() else []
@@ -193,16 +264,26 @@ class UnitGraph:
         caller = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(caller)
         with torch.cuda.stream(self._stream):
-            result, loss = body(self._inputs, self._views())
+            result, metrics = body(self._inputs, self._views())
         caller.wait_stream(self._stream)
-        return result, loss
+        return result, metrics
 
     def _capture(self, body) -> None:
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.graph(graph, stream=self._stream):
-            _, self._loss = body(self._inputs, self._views())
+        # a graph destroyed while another is being captured (an old
+        # trainer's, in a reference cycle, freed by the collector)
+        # invalidates the capture: hold the collector off during it (a
+        # collection before it would cost a whole heap's walk a capture)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._stream):
+                _, self._metrics = body(self._inputs, self._views())
+        finally:
+            if collecting:
+                gc.enable()
         after = _launch_counts()
         self._launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
         _add_launches(self._launches, -1)  # nothing ran: the replays count

@@ -51,10 +51,13 @@ class ComposedParallelTrainer(SeqParallelTrainer):
     Requires mesh axes named exactly ``("dp", "tp", "sp")``, a model with
     ``seq_axis="sp"``, a global batch divisible by dp, a sequence length
     divisible by sp, and the tp divisibility rules of the 2-D trainer.
+    ``donate_state`` and ``capture`` (the step as a CUDA graph) are
+    :class:`DataParallelTrainer`'s.
     """
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True,
+                 capture: Optional[bool] = None):
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         names = self.topo.axis_names
@@ -91,6 +94,7 @@ class ComposedParallelTrainer(SeqParallelTrainer):
             self.loss_fn, 1, remat=getattr(model, "remat", False))
         self._eval = common.build_count_loss_eval(
             self.model, self.topo.device, split=self._blocks)
+        self._init_capture(capture, optimizer)
 
     def _place(self) -> None:
         super()._place()

@@ -9,7 +9,11 @@ with no ``server_optimizer`` the center moves by the workers' mean update
 server optimizer takes −mean(update) as its gradient. The new center is
 appended to a ring of the last ``staleness + 1`` centers and every worker
 pulls the oldest (``goptim.downpour_pull``), so the staleness the reference
-emulates is exact and reproducible here too.
+emulates is exact and reproducible here too. On the card, with the state
+donated in a one-process world, the round (the τ steps, the push, the
+ring's shift and the pull) is captured as a CUDA graph after a first
+eager round and replayed from then on (``parallel/capture.py``), as the
+reference runs it as one compiled program.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from mpit_tpu_torch import goptim
 from mpit_tpu_torch.comm import pmean
 from mpit_tpu_torch.comm.topology import Topology
 from mpit_tpu_torch.comm.topology import topology as _current_topology
+from mpit_tpu_torch.parallel import capture as _capture
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.parallel.easgd import _stack
 from mpit_tpu_torch.utils.params import tree_leaves, tree_map
@@ -43,7 +48,7 @@ class DownpourState:
     round: int = 0
 
 
-class DownpourTrainer(common.RoundTrainer):
+class DownpourTrainer(common.RoundTrainer, _capture.Captured):
     """Downpour: τ local steps, push the accumulated updates, pull the
     (stale) center.
 
@@ -60,6 +65,10 @@ class DownpourTrainer(common.RoundTrainer):
         their optimizer state, the center, its ring and the server
         optimizer state), consuming the given state, as
         :class:`~mpit_tpu_torch.parallel.easgd.EASGDTrainer` does.
+      capture: run each round as a replay of a CUDA graph
+        (``parallel/capture.py``): None = wherever it can (a CUDA device,
+        ``donate_state``, a one-process world, ``optim.Chain`` optimizers),
+        False = eagerly, True = always (raising where it cannot).
     """
 
     def __init__(
@@ -72,6 +81,7 @@ class DownpourTrainer(common.RoundTrainer):
         tau: int = 4,
         staleness: int = 0,
         donate_state: bool = True,
+        capture: Optional[bool] = None,
     ):
         self.model = model
         self.donate_state = bool(donate_state)
@@ -88,6 +98,7 @@ class DownpourTrainer(common.RoundTrainer):
         self._grad = common.worker_value_and_grad(
             self.loss_fn, getattr(model, "remat", False))
         self._log_tag = "downpour"
+        self._init_capture(capture, optimizer, server_optimizer=server_optimizer)
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
@@ -113,25 +124,39 @@ class DownpourTrainer(common.RoundTrainer):
         pull. Returns the new state and ``{"loss": mean over workers and
         steps}`` as a device scalar."""
         common.check_live(state)
+        parts, metrics = self._replayable_round(
+            state, x, y, ("worker_params", "worker_opt", "center", "server_opt",
+                          "center_history"))
+        common.donated(state, self.donate_state)
+        return DownpourState(*parts, round=state.round + 1), metrics
+
+    def _unit(self, state: DownpourState, x, y, scalars=None):
+        """A round's device work: ``((worker_params, worker_opt, center,
+        server_opt, center_history), {"loss": ...})``. ``scalars`` holds the
+        host values of the τ worker updates in turn, then the server
+        optimizer's, or is None (they are computed on the host)."""
         donate = self.donate_state
         start = state.worker_params
         # the local steps write over the worker stacks: keep the round's start
         params = tree_map(torch.clone, start) if donate else start
         opt = state.worker_opt
+        per = len(self.optimizer.host_scalars(opt)) if scalars is not None else 0
         losses = []
         for t in range(self.tau):
             grads, loss = self._grad(params, x[:, t], y[:, t])
+            kw = {} if scalars is None else {"scalars": scalars[t * per:(t + 1) * per]}
             params, opt = self.optimizer.update(params, grads, opt,
-                                                per_worker=True, inplace=donate)
+                                                per_worker=True, inplace=donate, **kw)
             losses.append(loss)
         delta = tree_map(torch.sub, params, start)
         if self.server_optimizer is None:
             center = goptim.downpour_push(state.center, delta, average=True)
             server_opt = state.server_opt
         else:
+            kw = {} if scalars is None else {"scalars": scalars[self.tau * per:]}
             pseudo_grad = tree_map(torch.neg, pmean(delta))
             center, server_opt = self.server_optimizer.update(
-                state.center, pseudo_grad, state.server_opt, inplace=donate
+                state.center, pseudo_grad, state.server_opt, inplace=donate, **kw
             )
         if donate:
             with torch.no_grad():
@@ -152,17 +177,8 @@ class DownpourTrainer(common.RoundTrainer):
                                state.center_history, center)
             pulled = goptim.downpour_pull(center, tree_map(lambda h: h[0], history))
             workers = _stack(pulled, self.topo.local_workers)
-        new = DownpourState(
-            worker_params=workers,
-            worker_opt=opt,
-            center=center,
-            server_opt=server_opt,
-            center_history=history,
-            round=state.round + 1,
-        )
-        common.donated(state, donate)
         loss = common.world_mean(torch.stack(losses).mean(), self.topo)
-        return new, {"loss": loss}
+        return (workers, opt, center, server_opt, history), {"loss": loss}
 
     def center_params(self, state: DownpourState):
         return state.center

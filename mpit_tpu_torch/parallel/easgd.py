@@ -44,7 +44,7 @@ def _stack(tree: Any, w: int) -> Any:
     return tree_map(lambda a: a.unsqueeze(0).repeat(w, *([1] * a.dim())), tree)
 
 
-class EASGDTrainer(common.RoundTrainer):
+class EASGDTrainer(common.RoundTrainer, _capture.Captured):
     """Elastic-averaging SGD over W stacked workers.
 
     Args:
@@ -100,9 +100,7 @@ class EASGDTrainer(common.RoundTrainer):
         self._grad = common.worker_value_and_grad(
             self.loss_fn, getattr(model, "remat", False))
         self._log_tag = "easgd"
-        reasons = _capture.eager_reasons(self.topo.device, self.donate_state, optimizer)
-        self.capture = _capture.resolve(capture, reasons)
-        self._graph = _capture.UnitGraph(self.topo.device) if self.capture else None
+        self._init_capture(capture, optimizer)
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
@@ -120,32 +118,18 @@ class EASGDTrainer(common.RoundTrainer):
             center=tree_map(torch.clone, params),
         )
 
-    @property
-    def replays(self) -> int:
-        """Rounds run as graph replays."""
-        return self._graph.replays if self._graph is not None else 0
-
     def _round(self, state: EASGDState, x: torch.Tensor, y: torch.Tensor):
         """τ local steps on x, y of shape (W, τ, B, ...), then the exchange.
         Returns the new state and ``{"loss": mean over workers and steps}``
         as a device scalar (no host sync)."""
         common.check_live(state)
-        if self._graph is None:
-            (params, opt, center), loss = self._unit(state, x, y)
-        else:
-            opt = state.worker_opt
-            values = [v for t in range(self.tau)
-                      for v in self.optimizer.host_scalars(opt, t)]
-            out, loss = self._graph.run(
-                _capture.tensors_of(state.worker_params, opt, state.center), (x, y),
-                values, lambda inputs, scalars: self._unit(state, *inputs, scalars))
-            params, opt, center = out if out is not None else (
-                state.worker_params, self.optimizer.advance(opt, self.tau), state.center)
+        (params, opt, center), metrics = self._replayable_round(
+            state, x, y, ("worker_params", "worker_opt", "center"))
         common.donated(state, self.donate_state)
-        return EASGDState(params, opt, center, state.round + 1), {"loss": loss}
+        return EASGDState(params, opt, center, state.round + 1), metrics
 
     def _unit(self, state: EASGDState, x, y, scalars=None):
-        """A round's device work: ``((params, opt, center), loss)``.
+        """A round's device work: ``((params, opt, center), {"loss": ...})``.
         ``scalars`` holds the optimizer's host values for the τ steps in
         turn, or is None (they are computed on the host)."""
         donate = self.donate_state
@@ -164,7 +148,7 @@ class EASGDTrainer(common.RoundTrainer):
             inplace=donate,
         )
         loss = common.world_mean(torch.stack(losses).mean(), self.topo)
-        return (params, opt, center), loss
+        return (params, opt, center), {"loss": loss}
 
     def center_params(self, state: EASGDState):
         return state.center

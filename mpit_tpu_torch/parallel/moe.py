@@ -32,6 +32,12 @@ transpose under ``check_vma=False`` hands every worker the full
 cotangent), so the step differentiates ``mean CE + w_bal · balance + w_z ·
 zloss`` of the global statistics. ``tests/test_torch_moe.py`` holds a step
 with both weights nonzero against the reference's trainer.
+
+On the card, with the state donated in a one-process world, the step is
+captured as a CUDA graph after a first eager step and replayed from then
+on (``parallel/capture.py``), as the reference runs it as one compiled
+program: the router's shapes are static (a fixed capacity), and the loss
+and the ``moe_*`` statistics are the graph's outputs.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from mpit_tpu_torch.comm.topology import Topology, current_process, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.models.transformer import aggregate_moe_losses
+from mpit_tpu_torch.parallel import capture as _capture
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.utils.params import (
     tree_leaves, tree_leaves_with_path, tree_map, tree_unflatten,
@@ -72,7 +79,7 @@ class MoETrainState(common.TrainState):
         return 0 if _is_expert_leaf(path) else None
 
 
-class MoEParallelTrainer:
+class MoEParallelTrainer(_capture.Captured):
     """Expert-parallel sync trainer for an MoE :class:`TransformerLM`.
 
     Usage::
@@ -89,13 +96,15 @@ class MoEParallelTrainer:
     the reduced gradients, expert shards summing their squares across
     processes, replicated leaves counted once. ``donate_state`` updates
     the params (the experts too) and the optimizer state in place, as
-    :class:`~mpit_tpu_torch.parallel.sync.DataParallelTrainer` does.
+    :class:`~mpit_tpu_torch.parallel.sync.DataParallelTrainer` does, and
+    ``capture`` runs each step as a replay of a CUDA graph as it does.
     """
 
     _log_tag = "moe-sync"
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 donate_state: bool = True, clip_norm: Optional[float] = None):
+                 donate_state: bool = True, clip_norm: Optional[float] = None,
+                 capture: Optional[bool] = None):
         self.model = model
         self.optimizer = optimizer
         self.donate_state = bool(donate_state)
@@ -120,6 +129,7 @@ class MoEParallelTrainer:
             )
         self.w_bal = float(getattr(model, "moe_balance_weight", 0.0))
         self.w_z = float(getattr(model, "moe_zloss_weight", 0.0))
+        self._init_capture(capture, optimizer)
 
     # -- the objective ------------------------------------------------------
 
@@ -140,6 +150,14 @@ class MoEParallelTrainer:
 
     def _step(self, state: common.TrainState, x, y):
         common.check_live(state)
+        (params, opt_state), metrics = self._replayable_step(state, x, y)
+        common.donated(state, self.donate_state)
+        return MoETrainState(params, opt_state, state.step + 1), metrics
+
+    def _unit(self, state: common.TrainState, x, y, scalars=None):
+        """A step's device work: ``((params, opt_state), metrics)``, the
+        metrics the loss and the ``moe_*`` statistics; the optimizer reads
+        ``scalars`` (see ``optim.Chain.update``) when given."""
         leaves = [p.detach().requires_grad_() for p in tree_leaves(state.params)]
         loss, aux = self.loss_fn(tree_unflatten(state.params, leaves), x, y)
         grads = tree_unflatten(state.params, list(torch.autograd.grad(loss, leaves)))
@@ -164,12 +182,12 @@ class MoEParallelTrainer:
             grads, _ = common.clip_by_global_norm_in_mesh(
                 grads, self.clip_norm, self.topo.axis_names[0],
                 is_sharded=_is_expert_leaf)
-        params, opt_state = self.optimizer.update(state.params, grads, state.opt_state,
-                                                  inplace=self.donate_state)
+        kw = {} if scalars is None else {"scalars": scalars}
+        out = self.optimizer.update(state.params, grads, state.opt_state,
+                                    inplace=self.donate_state, **kw)
         metrics = {"loss": loss}
         metrics.update((f"moe_{k}", v.detach()) for k, v in aux.items())
-        common.donated(state, self.donate_state)
-        return MoETrainState(params, opt_state, state.step + 1), metrics
+        return out, metrics
 
     # -- public interface ---------------------------------------------------
 

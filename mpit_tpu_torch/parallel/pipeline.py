@@ -374,8 +374,14 @@ class PipelineParallelTrainer:
     or optimizer state in place, consuming the given state (stepping,
     evaluating or checkpointing it again raises), as the reference donates
     it; without, each step keeps a second copy of the whole state alive.
-    The batch axis is the mesh's first, whatever its name.
+    The batch axis is the mesh's first, whatever its name. The step runs
+    eagerly (``eager_reasons`` says why; ``parallel/capture.py``).
     """
+
+    # the reference's step is one compiled program; this one stays eager
+    capture = False
+    eager_reasons = ("the pipeline's schedule, a loop over its timetable, runs on the "
+                     "host between its device calls",)
 
     def __init__(
         self,

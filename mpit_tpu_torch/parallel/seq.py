@@ -54,15 +54,16 @@ class SeqParallelTrainer(DataParallelTrainer):
         state, metrics = trainer.step(state, x_global, y_global)
 
     ``x_global`` is ``(B, T)`` with ``B`` divisible by dp and ``T`` by sp.
-    Initialization, the step, ``fit``, ``donate_state`` and the
-    process-world averaging are :class:`DataParallelTrainer`'s, on the
-    blocked batch.
+    Initialization, the step, ``fit``, ``donate_state``, ``capture`` (the
+    step as a CUDA graph) and the process-world averaging are
+    :class:`DataParallelTrainer`'s, on the blocked batch.
     """
 
     _log_tag = "seq-sync"
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True,
+                 capture: Optional[bool] = None):
         self.model = model
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
@@ -95,6 +96,7 @@ class SeqParallelTrainer(DataParallelTrainer):
             self.loss_fn, 1, remat=getattr(model, "remat", False))
         self._eval = common.build_count_loss_eval(
             model, self.topo.device, split=self._blocks)
+        self._init_capture(capture, optimizer)
 
     def _place(self) -> None:
         """This process's place on the batch and sequence axes, and the

@@ -17,8 +17,9 @@ gradient through ``torch.autograd.grad`` (``common.autograd_value_and_grad``).
 On the card, with the state donated in a one-process world, the fused
 step is captured as a CUDA graph after a first eager step and replayed
 from then on (``parallel/capture.py``), as the reference runs it as one
-compiled program; the subclasses (seq, tp, composed) and the bucketed
-exchange run eagerly.
+compiled program; so is the step of the subclasses (seq, tp, composed),
+which is this one on their blocked or sharded model. The bucketed
+exchange runs eagerly.
 
 The bucketed and quantized exchange (``quant``/``bucket_bytes``, the
 ``MPIT_DP_QUANT``/``MPIT_DP_BUCKET_BYTES`` knobs; ``mpit_tpu/parallel/
@@ -163,7 +164,7 @@ def _mean_across_processes(tree: Any, processes: int, group=None) -> Any:
     return unflatten_params(spec, flat / processes)
 
 
-class DataParallelTrainer:
+class DataParallelTrainer(_capture.Captured):
     """Sync allreduce DP trainer for a port model (``init``/``apply``).
 
     Args:
@@ -193,9 +194,6 @@ class DataParallelTrainer:
     """
 
     _log_tag = "sync-dp"
-    # the subclasses, which do not run this __init__, step eagerly
-    capture = False
-    _graph: Optional[_capture.UnitGraph] = None
 
     def __init__(
         self,
@@ -239,15 +237,7 @@ class DataParallelTrainer:
         self._residual2: Optional[list] = None
         self._eval = (common.build_count_loss_eval(model, self.topo.device)
                       if model is not None else None)
-        reasons = _capture.eager_reasons(self.topo.device, self.donate_state, optimizer,
-                                         bucketed=self.bucketed)
-        self.capture = _capture.resolve(capture, reasons)
-        self._graph = _capture.UnitGraph(self.topo.device) if self.capture else None
-
-    @property
-    def replays(self) -> int:
-        """Steps run as graph replays."""
-        return self._graph.replays if self._graph is not None else 0
+        self._init_capture(capture, optimizer, bucketed=self.bucketed)
 
     def init_state(
         self, generator: Optional[torch.Generator] = None, params: Any = None
@@ -277,29 +267,20 @@ class DataParallelTrainer:
         gradient and the loss are averaged across them before the update,
         as the reference's pmean crosses its processes."""
         common.check_live(state)
-        if self._graph is None:
-            (params, opt_state), loss = self._unit(state, x, y)
-        else:
-            opt = state.opt_state
-            out, loss = self._graph.run(
-                _capture.tensors_of(state.params, opt), (x, y),
-                self.optimizer.host_scalars(opt),
-                lambda inputs, scalars: self._unit(state, *inputs, scalars))
-            params, opt_state = out if out is not None else (
-                state.params, self.optimizer.advance(opt, 1))
+        (params, opt_state), metrics = self._replayable_step(state, x, y)
         common.donated(state, self.donate_state)
-        return common.TrainState(params, opt_state, state.step + 1), {"loss": loss}
+        return common.TrainState(params, opt_state, state.step + 1), metrics
 
     def _unit(self, state: common.TrainState, x, y, scalars=None):
-        """A step's device work: ``((params, opt_state), loss)``; the
-        optimizer reads ``scalars`` (see ``optim.Chain.update``) when
+        """A step's device work: ``((params, opt_state), {"loss": ...})``;
+        the optimizer reads ``scalars`` (see ``optim.Chain.update``) when
         given."""
         grads, loss = self._vg(state.params, x, y)
         if in_process_group():
             grads, loss = self._across_processes(grads, loss)
         kw = {} if scalars is None else {"scalars": scalars}
         return self.optimizer.update(state.params, grads, state.opt_state,
-                                     inplace=self.donate_state, **kw), loss
+                                     inplace=self.donate_state, **kw), {"loss": loss}
 
     def _across_processes(self, grads, loss):
         """The gradient and the loss averaged across the world's processes

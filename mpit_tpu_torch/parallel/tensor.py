@@ -226,11 +226,13 @@ class TensorParallelTrainer(DataParallelTrainer):
 
     Requires ``d_model``, ``num_heads`` and ``d_ff`` divisible by tp. Any
     optimizer works (the update sees the whole gradient, as the
-    reference's GSPMD update does).
+    reference's GSPMD update does). ``donate_state`` and ``capture`` (the
+    step as a CUDA graph) are :class:`DataParallelTrainer`'s.
     """
 
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
-                 loss_fn: Optional[Callable] = None, donate_state: bool = True):
+                 loss_fn: Optional[Callable] = None, donate_state: bool = True,
+                 capture: Optional[bool] = None):
         self.optimizer = optimizer
         self.topo = topo if topo is not None else _current_topology()
         names = self.topo.axis_names
@@ -268,6 +270,7 @@ class TensorParallelTrainer(DataParallelTrainer):
         self._vg = common.accumulated_value_and_grad(
             self.loss_fn, 1, remat=getattr(model, "remat", False))
         self._eval = common.build_count_loss_eval(self.model, self.topo.device)
+        self._init_capture(capture, optimizer)
 
     @property
     def tp_size(self) -> int:

@@ -26,6 +26,13 @@ reference's ZeRO state byte for byte. In a world of P processes each holds
 its workers' ``padded / P`` elements, and a checkpoint gathers them. On
 one card the W chunks add up to one copy of the state, as sync DP holds:
 ZeRO saves memory only across processes.
+
+On the card, with the state donated in a one-process world, the step
+(the quantized scatter too) is captured as a CUDA graph after a first
+eager step and replayed from then on (``parallel/capture.py``), as the
+reference runs it as one compiled program. The flat copy, the gathered
+vector and the other temporaries of a step come from the graph's memory;
+the params and the optimizer state's chunks are its static state.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from mpit_tpu_torch.comm.collectives import allgather, quantized_psum_scatter
 from mpit_tpu_torch.comm.topology import Topology, in_process_group
 from mpit_tpu_torch.comm.topology import topology as _current_topology
 from mpit_tpu_torch.convert import flax_flat, from_flax_flat
+from mpit_tpu_torch.parallel import capture as _capture
 from mpit_tpu_torch.parallel import common
 from mpit_tpu_torch.parallel.sync import _mean_across_processes, dp_quant_from_env
 from mpit_tpu_torch.utils.params import tree_leaves, tree_map, tree_unflatten
@@ -54,7 +62,7 @@ class ZeroTrainState(common.TrainState):
     process_sharded: ClassVar[tuple] = ("opt_state",)
 
 
-class ZeroDataParallelTrainer:
+class ZeroDataParallelTrainer(_capture.Captured):
     """Sync DP with ZeRO-1 sharded optimizer state (``init_state``,
     ``step``, ``fit``, ``evaluate`` as :class:`DataParallelTrainer`).
 
@@ -73,6 +81,10 @@ class ZeroDataParallelTrainer:
         the other trainers is refused here).
       quant: ``off``/``bf16``/``int8`` for the gradient scatter (default:
         the ``MPIT_DP_QUANT`` knob).
+      capture: run each step as a replay of a CUDA graph
+        (``parallel/capture.py``): None = wherever it can (a CUDA device,
+        ``donate_state``, a one-process world, an ``optim.Chain``), False =
+        eagerly, True = always (raising where it cannot).
     """
 
     _log_tag = "zero-dp"
@@ -80,7 +92,7 @@ class ZeroDataParallelTrainer:
     def __init__(self, model, optimizer, topo: Optional[Topology] = None,
                  loss_fn: Optional[Callable] = None, donate_state: bool = True,
                  accum_steps: int = 1, clip_norm: Optional[float] = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, capture: Optional[bool] = None):
         common.assert_elementwise_optimizer(optimizer, "ZeroDataParallelTrainer")
         self.model = model
         self.optimizer = optimizer
@@ -101,6 +113,7 @@ class ZeroDataParallelTrainer:
         self._eval = (common.build_count_loss_eval(model, self.topo.device)
                       if model is not None else None)
         self._layout = None
+        self._init_capture(capture, optimizer)
 
     def _check(self, x) -> None:
         common.check_accum_batch(len(x), self.topo.num_workers, self.accum_steps)
@@ -179,6 +192,14 @@ class ZeroDataParallelTrainer:
         """One step on device tensors (this process's rows of the global
         batch); returns the new state and ``{"loss": world mean}``."""
         common.check_live(state)
+        (params, opt_state), metrics = self._replayable_step(state, x, y)
+        common.donated(state, self.donate_state)
+        return ZeroTrainState(params, opt_state, state.step + 1), metrics
+
+    def _unit(self, state: ZeroTrainState, x, y, scalars=None):
+        """A step's device work: ``((params, opt_state), {"loss": ...})``;
+        the optimizer reads ``scalars`` (see ``optim.Chain.update``) when
+        given."""
         loss, g = self._scattered_grad(state.params, x, y)
         if self.clip_norm is not None:
             g, _ = common.clip_by_global_norm_in_mesh(
@@ -186,17 +207,17 @@ class ZeroDataParallelTrainer:
             g = g.reshape(-1)
         _, _, lo, hi = self._flat_layout(state.params)
         donate = self.donate_state
+        kw = {} if scalars is None else {"scalars": scalars}
         # the flat chunk is this step's own copy, so it is updated in place
         # either way; donating, the optimizer state's chunks are too
         new, opt_state = self.optimizer.update(
-            self._flatten(state.params)[lo:hi], g, state.opt_state, inplace=donate)
+            self._flatten(state.params)[lo:hi], g, state.opt_state, inplace=donate, **kw)
         params = self._unflatten(state.params, allgather(new, tiled=True))
         if donate:
             with torch.no_grad():
                 torch._foreach_copy_(tree_leaves(state.params), tree_leaves(params))
             params = state.params
-        common.donated(state, donate)
-        return ZeroTrainState(params, opt_state, state.step + 1), {"loss": loss}
+        return (params, opt_state), {"loss": loss}
 
     def step(self, state, x_global, y_global):
         """One ZeRO-1 step on a global batch (divisible by W; per-worker

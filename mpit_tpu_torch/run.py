@@ -266,9 +266,10 @@ def build_optimizer(cfg: TrainConfig, total_updates: int = 2):
     return opt
 
 
-def build_trainer(cfg: TrainConfig, model, opt, topo):
+def build_trainer(cfg: TrainConfig, model, opt, topo, capture: Optional[bool] = None):
     """The trainer for ``cfg.algo`` (the kernels on by default for CUDA
-    tensors)."""
+    tensors); ``capture`` goes to every trainer but pp-sync's, which runs
+    eagerly (None: a CUDA graph wherever the trainer can run one)."""
     from mpit_tpu_torch.parallel import (
         DataParallelTrainer, DownpourTrainer, EASGDTrainer, MoEParallelTrainer,
         SeqParallelTrainer, ZeroDataParallelTrainer,
@@ -291,27 +292,30 @@ def build_trainer(cfg: TrainConfig, model, opt, topo):
             stacklevel=2,
         )
     if algo == "sync":
-        return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum)
+        return DataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum,
+                                   capture=capture)
     if algo == "zero-sync":
         return ZeroDataParallelTrainer(model, opt, topo, accum_steps=cfg.grad_accum,
-                                       clip_norm=cfg.clip_norm)
+                                       clip_norm=cfg.clip_norm, capture=capture)
     if algo == "seq-sync":
-        return SeqParallelTrainer(model, opt, topo)
+        return SeqParallelTrainer(model, opt, topo, capture=capture)
     if algo == "moe-sync":
         if not cfg.moe_experts:
             raise ValueError(
                 "algo='moe-sync' needs --moe-experts > 0 (and model="
                 "transformer)"
             )
-        return MoEParallelTrainer(model, opt, topo, clip_norm=cfg.clip_norm)
+        return MoEParallelTrainer(model, opt, topo, clip_norm=cfg.clip_norm,
+                                  capture=capture)
     if algo == "pp-sync":
         return _pipeline_trainer(cfg, model, opt, topo)
     if algo == "downpour":
         return DownpourTrainer(model, opt, topo, tau=cfg.tau,
-                               staleness=cfg.staleness)
+                               staleness=cfg.staleness, capture=capture)
     xdtype = torch.bfloat16 if cfg.exchange_dtype == "bf16" else None
     return EASGDTrainer(
-        model, opt, topo, alpha=cfg.alpha, tau=cfg.tau, exchange_dtype=xdtype
+        model, opt, topo, alpha=cfg.alpha, tau=cfg.tau, exchange_dtype=xdtype,
+        capture=capture,
     )
 
 

@@ -1,6 +1,8 @@
-"""The EASGD round and the sync-DP step as CUDA graphs
+"""Every device trainer's unit as a CUDA graph
 (``mpit_tpu_torch/parallel/capture.py``), the counterpart of the
-reference's ``jit`` with ``donate_argnums``.
+reference's ``jit`` with ``donate_argnums``: the EASGD and Downpour
+rounds, the sync-DP step and those of its seq, tp and composed
+subclasses, the ZeRO-1 step and the MoE step.
 
 On the CPU:
 
@@ -11,16 +13,18 @@ On the CPU:
   the updates do;
 - the trainers' replay branch, driven by a test double that runs the
   unit's body with those 0-dim tensors where a graph would replay, leaves
-  the eager trainer's bits and host bookkeeping (round or step, counts);
-- a CPU trainer never captures, and ``capture=True`` says why it cannot.
+  the eager trainer's bits, metrics and host bookkeeping (round or step,
+  counts);
+- a CPU trainer never captures, and ``capture=True`` says why it cannot;
+  the pipeline and the server say why they stay eager.
 
 On a CUDA card (skipped without one): replayed units are bit-equal to
 eager ones and keep the state's storage, a restored checkpoint is warmed
 up and captured anew, and the launch counters count every replay.
 
 The file imports nothing of JAX, so it also runs on a machine without it
-(``pytest --noconftest``). Small shapes (W = 4, MLPs of width 16, a
-1-layer LM), f32 on the CPU.
+(``pytest --noconftest``). Small shapes (W = 4, or 8 for the composed
+mesh; MLPs of width 16, 1-layer LMs of width 16), f32 on the CPU.
 """
 
 import numpy as np
@@ -31,9 +35,14 @@ from mpit_tpu_torch import optim
 from mpit_tpu_torch.comm.topology import Topology
 from mpit_tpu_torch.models import MLP, TransformerLM
 from mpit_tpu_torch.parallel import (
+    ComposedParallelTrainer,
     DataParallelTrainer,
+    DownpourTrainer,
     EASGDTrainer,
+    MoEParallelTrainer,
     SeqParallelTrainer,
+    TensorParallelTrainer,
+    ZeroDataParallelTrainer,
 )
 from mpit_tpu_torch.parallel import capture as cap
 from mpit_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -73,6 +82,9 @@ OPTIMIZERS = {
     "adamw-warmup-cosine-clip": lambda: optim.chain(
         optim.clip_by_global_norm(1.0),
         optim.AdamW(optim.warmup_cosine_decay_schedule(0.0, 1e-2, 2, STEPS), 1e-2)),
+    # elementwise, for ZeRO and MoE (which take clip_norm= instead)
+    "adamw-warmup-cosine": lambda: optim.AdamW(
+        optim.warmup_cosine_decay_schedule(0.0, 1e-2, 2, STEPS), 1e-2),
 }
 
 
@@ -119,21 +131,21 @@ class ReplayOnTheHost:
     """A test double of ``capture.UnitGraph``: it runs the unit's body where
     a graph would replay it, reading the host values from 0-dim tensors as
     the graph reads them from its buffer, and answers as a replay does
-    (no result, a copy of the loss): the trainer's replay branch then does
-    its own bookkeeping."""
+    (no result, copies of the metrics): the trainer's replay branch then
+    does its own bookkeeping."""
 
     def __init__(self):
         self.replays = 0
 
     def run(self, state, inputs, values, body):
-        _, loss = body(tuple(inputs), [torch.tensor(v) for v in values])
+        _, metrics = body(tuple(inputs), [torch.tensor(v) for v in values])
         self.replays += 1
-        return None, loss.clone()
+        return None, {k: v.clone() for k, v in metrics.items()}
 
 
-def _mlp():
+def _mlp(device=CPU):
     return MLP(num_classes=5, hidden=(16,), compute_dtype=torch.float32, in_shape=(3, 3, 1),
-               device="cpu")
+               device=device)
 
 
 def _images(lead=(), seed=0):
@@ -142,23 +154,88 @@ def _images(lead=(), seed=0):
     return x, rng.integers(0, 5, (*lead, 8)).astype(np.int32)
 
 
+def _lm(device=CPU, **kw):
+    return TransformerLM(V, num_layers=1, d_model=16, num_heads=4, max_len=T,
+                         compute_dtype=torch.float32, device=device, **kw)
+
+
+def _tokens(seed, n=8):
+    x = np.random.default_rng(seed).integers(0, V, (n, T)).astype(np.int32)
+    return x, np.roll(x, -1, axis=1).astype(np.int32)
+
+
+def _world(device, names=("dp",), shape=None, w=W):
+    return Topology(w, device, axis_names=names, mesh_shape=shape or (w,))
+
+
+MOE = dict(moe_experts=W, moe_axis="dp", moe_top_k=2, moe_capacity_factor=1.0,
+           moe_balance_weight=0.5, moe_zloss_weight=0.1)
+
+
+def _downpour(staleness, opt, server=None):
+    return lambda dev=CPU, capture=None: DownpourTrainer(
+        _mlp(dev), OPTIMIZERS[opt](), _world(dev), tau=TAU, staleness=staleness,
+        server_optimizer=server() if server else None, capture=capture)
+
+
+def _step_images(seed):
+    return _images((), seed)
+
+
+def _round_images(seed):
+    return _images((TAU,), seed)
+
+
+# name -> (trainer(device, capture), batch(seed)): every device trainer
 TRAINERS = {
-    "easgd-sgd": (lambda: EASGDTrainer(_mlp(), OPTIMIZERS["sgd-cosine-clip"](),
-                                       Topology(W, CPU), tau=TAU), lambda s: _images((TAU,), s)),
-    "easgd-adamw": (lambda: EASGDTrainer(_mlp(), OPTIMIZERS["adamw-warmup-cosine-clip"](),
-                                         Topology(W, CPU), tau=TAU), lambda s: _images((TAU,), s)),
-    "sync-adamw": (lambda: DataParallelTrainer(_mlp(), OPTIMIZERS["adamw-warmup-cosine-clip"](),
-                                               Topology(W, CPU), accum_steps=2),
-                   lambda s: _images((), s)),
-    "sync-sgd": (lambda: DataParallelTrainer(_mlp(), OPTIMIZERS["sgd-momentum"](),
-                                             Topology(W, CPU)), lambda s: _images((), s)),
+    "easgd-sgd": (lambda dev=CPU, capture=None: EASGDTrainer(
+        _mlp(dev), OPTIMIZERS["sgd-cosine-clip"](), _world(dev), tau=TAU, capture=capture),
+        _round_images),
+    "easgd-adamw": (lambda dev=CPU, capture=None: EASGDTrainer(
+        _mlp(dev), OPTIMIZERS["adamw-warmup-cosine-clip"](), _world(dev), tau=TAU,
+        capture=capture), _round_images),
+    "sync-adamw": (lambda dev=CPU, capture=None: DataParallelTrainer(
+        _mlp(dev), OPTIMIZERS["adamw-warmup-cosine-clip"](), _world(dev), accum_steps=2,
+        capture=capture), _step_images),
+    "sync-sgd": (lambda dev=CPU, capture=None: DataParallelTrainer(
+        _mlp(dev), OPTIMIZERS["sgd-momentum"](), _world(dev), capture=capture), _step_images),
+    "zero-adamw-clip": (lambda dev=CPU, capture=None: ZeroDataParallelTrainer(
+        _mlp(dev), OPTIMIZERS["adamw-warmup-cosine"](), _world(dev), accum_steps=2,
+        clip_norm=1.0, capture=capture), _step_images),
+    "zero-int8": (lambda dev=CPU, capture=None: ZeroDataParallelTrainer(
+        _mlp(dev), optim.SGD(optim.cosine_decay_schedule(0.1, STEPS), 0.9), _world(dev),
+        quant="int8", capture=capture), _step_images),
+    "moe-adamw-clip": (lambda dev=CPU, capture=None: MoEParallelTrainer(
+        _lm(dev, **MOE), OPTIMIZERS["adamw-warmup-cosine"](), _world(dev), clip_norm=1.0,
+        capture=capture), _tokens),
+    "seq-ring": (lambda dev=CPU, capture=None: SeqParallelTrainer(
+        _lm(dev, seq_axis="sp"), OPTIMIZERS["adamw-warmup-cosine-clip"](),
+        _world(dev, ("dp", "sp"), (2, 2)), capture=capture), _tokens),
+    "seq-ulysses": (lambda dev=CPU, capture=None: SeqParallelTrainer(
+        _lm(dev, seq_axis="sp", seq_impl="ulysses"), OPTIMIZERS["sgd-cosine-clip"](),
+        _world(dev, ("dp", "sp"), (2, 2)), capture=capture), _tokens),
+    "tp": (lambda dev=CPU, capture=None: TensorParallelTrainer(
+        _lm(dev), OPTIMIZERS["adamw-warmup-cosine-clip"](), _world(dev, ("dp", "tp"), (2, 2)),
+        capture=capture), _tokens),
+    "composed": (lambda dev=CPU, capture=None: ComposedParallelTrainer(
+        _lm(dev, seq_axis="sp"), OPTIMIZERS["adamw-warmup-cosine-clip"](),
+        _world(dev, ("dp", "tp", "sp"), (2, 2, 2), w=8), capture=capture), _tokens),
+    "downpour-staleness-0": (_downpour(0, "sgd-cosine-clip"), _round_images),
+    "downpour-staleness-1": (_downpour(1, "adamw-warmup-cosine-clip"), _round_images),
+    "downpour-server-adam": (_downpour(1, "sgd-momentum", lambda: optim.Adam(
+        optim.cosine_decay_schedule(0.05, STEPS))), _round_images),
 }
 
 
 def _host(state):
     if hasattr(state, "params"):
         return state.step, _counts(state.opt_state)
-    return state.round, _counts(state.worker_opt)
+    return state.round, _counts(state.worker_opt) + _counts(getattr(state, "server_opt", ()))
+
+
+def _same_metrics(a: list, b: list) -> bool:
+    return all(m.keys() == n.keys() and all(torch.equal(_bits(m[k]), _bits(n[k])) for k in m)
+               for m, n in zip(a, b, strict=True))
 
 
 @pytest.mark.parametrize("name", sorted(TRAINERS))
@@ -172,17 +249,19 @@ def test_the_replay_branch_leaves_the_eager_bits_and_bookkeeping(name):
             tr._graph = ReplayOnTheHost()
         state = tr.init_state(torch.Generator().manual_seed(0))
         ptrs = [t.data_ptr() for t in cap.tensors_of(state)]
-        losses, hosts = [], []
+        metrics, hosts = [], []
         for i in range(4):
             state, m = tr.step(state, *batch(i))
-            losses.append(m["loss"])
+            metrics.append(m)
             hosts.append(_host(state))
         assert [t.data_ptr() for t in cap.tensors_of(state)] == ptrs
-        runs[replayed] = (tr, state, losses, hosts)
-    (_, s0, l0, h0), (tr, s1, l1, h1) = runs[False], runs[True]
+        runs[replayed] = (tr, state, metrics, hosts)
+    (_, s0, m0, h0), (tr, s1, m1, h1) = runs[False], runs[True]
     assert tr._graph.replays == 4
     assert h0 == h1 and h1[-1][0] == 4
-    assert _same(s0, s1) and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(l0, l1))
+    assert _same(s0, s1) and _same_metrics(m0, m1)
+    if name.startswith("moe"):
+        assert {"loss", "moe_balance", "moe_zloss", "moe_dropped_frac"} <= m1[0].keys()
 
 
 def test_a_cpu_trainer_never_captures_and_capture_true_says_why():
@@ -201,24 +280,55 @@ def test_a_cpu_trainer_never_captures_and_capture_true_says_why():
         DataParallelTrainer(_mlp(), optim.SGD(0.05), topo, capture=True)
     with pytest.raises(ValueError, match="donate_state=False"):
         EASGDTrainer(_mlp(), optim.SGD(0.05), topo, donate_state=False, capture=True)
-    # the subclasses and the bucketed exchange step eagerly
-    lm = TransformerLM(V, num_layers=1, d_model=16, num_heads=4, max_len=T,
-                       compute_dtype=torch.float32, device="cpu", seq_axis="sp")
-    seq = SeqParallelTrainer(lm, optim.SGD(0.1), Topology(W, CPU, axis_names=("dp", "sp"),
-                                                          mesh_shape=(2, 2)))
-    assert seq.capture is False and seq._graph is None
+    # every trainer of the table stays eager on the CPU, and says why
+    for name, (make, _) in TRAINERS.items():
+        tr = make()
+        assert tr.capture is False and tr._graph is None and tr.replays == 0, name
+        assert any("CUDA device" in w for w in tr.eager_reasons), name
+    with pytest.raises(ValueError, match="CUDA device"):
+        SeqParallelTrainer(_lm(seq_axis="sp"), optim.SGD(0.1),
+                           _world(CPU, ("dp", "sp"), (2, 2)), capture=True)
+    with pytest.raises(ValueError, match="CUDA device.*donate_state=False"):
+        DownpourTrainer(_mlp(), optim.SGD(0.1), topo, donate_state=False, capture=True)
+    # the bucketed exchange never captures
     assert DataParallelTrainer(_mlp(), optim.SGD(0.05), topo, quant="int8").capture is False
 
 
-def test_eager_reasons_name_each_obstacle():
+def test_eager_reasons_name_each_obstacle(monkeypatch):
+    import importlib
+
+    from mpit_tpu_torch.models.serving import Server
+    from mpit_tpu_torch.parallel.pipeline import PipelineParallelTrainer
+
     opt = optim.SGD(0.05)
     assert cap.eager_reasons("cuda", True, opt) == []
+    assert cap.eager_reasons("cuda", True, opt, server_optimizer=optim.Adam(1e-3)) == []
     why = cap.eager_reasons("cpu", False, object(), bucketed=True)
     assert len(why) == 4
     assert any("CUDA device" in w for w in why) and any("donate_state" in w for w in why)
     assert any("bucketed" in w for w in why) and any("host_scalars" in w for w in why)
     assert cap.resolve(None, []) is True and cap.resolve(None, why) is False
     assert cap.resolve(False, []) is False and cap.resolve(True, []) is True
+    # Downpour's server optimizer needs its host values too
+    why = cap.eager_reasons("cuda", True, opt, server_optimizer=object())
+    assert len(why) == 1 and "server_optimizer has no host_scalars" in why[0]
+    # a world of several processes
+    topology = importlib.import_module("mpit_tpu_torch.comm.topology")
+    monkeypatch.setattr(topology, "_distributed_initialized", True)
+    why = cap.eager_reasons("cuda", True, opt)
+    assert len(why) == 1 and "world of several" in why[0]
+    with pytest.raises(ValueError, match="world of several"):
+        cap.resolve(True, why)
+    monkeypatch.setattr(topology, "_distributed_initialized", False)
+    # the pipeline and the server stay eager on any device, and say why
+    pp = PipelineParallelTrainer(V, 2, 16, 4, T, topo=_world(CPU, ("dp", "pp"), (2, 2)),
+                                 n_micro=2, optimizer=opt)
+    assert pp.capture is False and any("timetable" in w for w in pp.eager_reasons)
+    lm = TransformerLM(V, num_layers=1, d_model=16, num_heads=4, max_len=T,
+                       compute_dtype=torch.float32, device="cpu")
+    server = Server(lm, lm.init(torch.Generator().manual_seed(0)), max_batch=2, segment=2,
+                    device="cpu")
+    assert any("slot admission" in w for w in server.eager_reasons)
 
 
 def test_the_key_holds_across_in_place_updates_and_not_across_storage():
@@ -246,11 +356,26 @@ def _card_easgd(capture, opt=None):
                         Topology(W, torch.device("cuda")), tau=TAU, capture=capture)
 
 
+def _flash_lm(**kw):
+    return TransformerLM(V, num_layers=1, d_model=64, num_heads=1, max_len=64,
+                         compute_dtype=torch.bfloat16, attn_impl="flash", device="cuda", **kw)
+
+
 def _card_lm(capture):
-    lm = TransformerLM(V, num_layers=1, d_model=64, num_heads=1, max_len=64,
-                       compute_dtype=torch.bfloat16, attn_impl="flash", device="cuda")
-    return DataParallelTrainer(lm, OPTIMIZERS["adamw-warmup-cosine-clip"](),
+    return DataParallelTrainer(_flash_lm(), OPTIMIZERS["adamw-warmup-cosine-clip"](),
                                Topology(W, torch.device("cuda")), capture=capture)
+
+
+def _card_zero(capture):
+    return ZeroDataParallelTrainer(_flash_lm(), OPTIMIZERS["adamw-warmup-cosine"](),
+                                   Topology(W, torch.device("cuda")), clip_norm=1.0,
+                                   capture=capture)
+
+
+def _card_moe(capture):
+    return MoEParallelTrainer(_flash_lm(**MOE), OPTIMIZERS["adamw-warmup-cosine"](),
+                              Topology(W, torch.device("cuda")), clip_norm=1.0,
+                              capture=capture)
 
 
 def _card_tokens(seed):
@@ -258,7 +383,12 @@ def _card_tokens(seed):
     return x, np.roll(x, -1, axis=1).astype(np.int32)
 
 
-CARD = {"easgd": (_card_easgd, lambda s: _images((TAU,), s)), "sync-flash": (_card_lm, _card_tokens)}
+# the bf16 flash LMs through the sm90 kernels; every trainer of the CPU
+# table at its f32 widths
+CARD = {"easgd": (_card_easgd, _round_images), "sync-flash": (_card_lm, _card_tokens),
+        "zero-flash": (_card_zero, _card_tokens), "moe-flash": (_card_moe, _card_tokens),
+        **{name: ((lambda capture, make=make: make(torch.device("cuda"), capture)), batch)
+           for name, (make, batch) in TRAINERS.items()}}
 
 
 @pytest.mark.parametrize("name", sorted(CARD))
@@ -268,18 +398,19 @@ def test_replayed_units_are_bit_equal_to_eager_ones_and_keep_storage(name):
     runs = {}
     for capture in (False, True):
         tr = make(capture)
+        assert tr.capture is capture and list(tr.eager_reasons) == []
         state = tr.init_state(torch.Generator().manual_seed(0))
         ptrs = [t.data_ptr() for t in cap.tensors_of(state)]
-        losses = []
+        metrics = []
         for i in range(STEPS):
             state, m = tr.step(state, *batch(i))
-            losses.append(m["loss"])
+            metrics.append(m)
         assert [t.data_ptr() for t in cap.tensors_of(state)] == ptrs
-        runs[capture] = (tr, state, losses)
-    (_, s0, l0), (tr, s1, l1) = runs[False], runs[True]
+        runs[capture] = (tr, state, metrics)
+    (_, s0, m0), (tr, s1, m1) = runs[False], runs[True]
     assert runs[False][0].replays == 0 and tr.replays == STEPS - 1
     assert _host(s0) == _host(s1)
-    assert _same(s0, s1) and all(torch.equal(_bits(a), _bits(b)) for a, b in zip(l0, l1))
+    assert _same(s0, s1) and _same_metrics(m0, m1)
 
 
 def test_a_restored_checkpoint_is_warmed_up_and_captured_anew(tmp_path):
@@ -307,6 +438,32 @@ def test_a_restored_checkpoint_is_warmed_up_and_captured_anew(tmp_path):
     assert _host(restored) == _host(state) and _same(restored, state)
 
 
+def test_a_graph_freed_by_the_collector_does_not_break_the_next_capture():
+    """An old trainer's graph, in a reference cycle, freed by the garbage
+    collector while a new graph is captured would end that capture; the
+    capture holds the collector off."""
+    _need_card()
+    import gc
+
+    tr = _card_lm(True)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    for i in range(3):
+        state, _ = tr.step(state, *_card_tokens(i))
+    assert tr.replays == 2
+    tr.cycle = tr  # only the collector frees it, and its graph
+    del tr, state
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        tr = _card_lm(True)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        for i in range(3):
+            state, _ = tr.step(state, *_card_tokens(i))
+    finally:
+        gc.set_threshold(*thresholds)
+    assert tr.replays == 2 and gc.isenabled()
+
+
 def test_launch_counters_count_every_replay():
     _need_card()
     from mpit_tpu_torch.ops import elastic
@@ -319,12 +476,13 @@ def test_launch_counters_count_every_replay():
         state, _ = tr.step(state, *_images((TAU,), i))
     assert tr.replays == STEPS - 1 and elastic.launches == STEPS
 
-    tr = _card_lm(True)
-    state = tr.init_state(torch.Generator().manual_seed(0))
-    for k in fa.launches:
-        fa.launches[k] = 0
-    for i in range(STEPS):
-        state, _ = tr.step(state, *_card_tokens(i))
-    assert tr.replays == STEPS - 1
-    assert fa.launches["flash_forward_sm90"] == fa.launches["flash_dq_sm90"] == STEPS
-    assert fa.launches["flash_dkv_sm90"] == STEPS and fa.launches["flash_forward"] == 0
+    for make in (_card_lm, _card_zero, _card_moe):
+        tr = make(True)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        for k in fa.launches:
+            fa.launches[k] = 0
+        for i in range(STEPS):
+            state, _ = tr.step(state, *_card_tokens(i))
+        assert tr.replays == STEPS - 1
+        assert fa.launches["flash_forward_sm90"] == fa.launches["flash_dq_sm90"] == STEPS
+        assert fa.launches["flash_dkv_sm90"] == STEPS and fa.launches["flash_forward"] == 0
