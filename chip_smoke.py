@@ -3379,6 +3379,9 @@ SERVE_F32_TOL = dict(rtol=2e-5, atol=2e-5)
 SERVE_LOAD = dict(requests=64, rate=50, prompt_buckets=((8, 64, 0.5), (64, 256, 0.4),
                                                         (256, 448, 0.1)),
                   output_buckets=((16, 64, 1.0),))
+# the speculative server's load run: the schedule's first 8 requests,
+# 16-31 new tokens each
+SPEC_LOAD = dict(requests=8, output_buckets=((16, 32, 1.0),))
 RNN_FLOATS = 11_364_112  # ptb-lstm-easgd's LSTM (vocab 10,000, 256, 512, 2 layers)
 # ROADMAP C8: the decode path runs every token product at a row count that
 # neither the batch nor the caller sets (models/layers.py ROW_BLOCK), so a
@@ -3453,12 +3456,17 @@ def serve_consistency(model, params, reqs, rule: dict, label: str) -> dict:
     from mpit_tpu_torch import random as jrandom
     from mpit_tpu_torch.models import Server, generate_fast
 
-    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                 device=SERVE_DEVICE, **rule)
-    rids = [srv.submit(p, mn, rng=jrandom.key(1000 + i)) for i, (p, mn) in enumerate(reqs)]
-    t0 = time.perf_counter()
-    got = srv.drain()
-    wall = time.perf_counter() - t0
+    twins = {}
+    for capture in (False, True):
+        srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                     device=SERVE_DEVICE, capture=capture or None, **rule)
+        rids = [srv.submit(p, mn, rng=jrandom.key(1000 + i)) for i, (p, mn) in enumerate(reqs)]
+        t0 = time.perf_counter()
+        got = srv.drain()
+        wall = time.perf_counter() - t0
+        twins[capture] = srv, got
+    check_replayed(f"serve: {label}", srv)
+    check_twin(f"serve: {label}", srv, twins[False][0], got, twins[False][1])
     diverged = []
     for i, (rid, (p, mn)) in enumerate(zip(rids, reqs)):
         solo = generate_fast(model, params, p, mn, rng=jrandom.key(1000 + i),
@@ -3478,9 +3486,10 @@ def serve_consistency(model, params, reqs, rule: dict, label: str) -> dict:
                              f"(request, generated token, gap): {diverged}")
     phase("serve", f"{label}: {SERVE_REQS} requests ({', '.join(str(len(p)) for p, _ in reqs)} "
           f"prompt tokens, {SERVE_NEW} new each) through Server(max_batch={SERVE_BATCH}, "
-          f"segment={SERVE_SEGMENT}) in {wall:.3f} s: {SERVE_REQS} of {SERVE_REQS} "
-          f"bit-equal to their solo generate_fast (before the row blocks: 5 of 8 "
-          f"greedy, 7 of 8 sampled)")
+          f"segment={SERVE_SEGMENT}) in {wall:.3f} s ({srv.replays} segments replayed; "
+          f"tokens and resident cache bit-equal to capture=False's): {SERVE_REQS} of "
+          f"{SERVE_REQS} bit-equal to their solo generate_fast (before the row blocks: 5 of "
+          f"8 greedy, 7 of 8 sampled)")
     return {i: got[r] for i, r in enumerate(rids)}
 
 
@@ -3494,10 +3503,17 @@ def serve_prefix_count(model, params, reqs) -> None:
 
     prefix = [int(t) for t in reqs[-1][0][:SERVE_PREFIX]]
     few = [(p[:40], 16) for p, _ in reqs[:4]]
-    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                 prefix=prefix, device=SERVE_DEVICE)
-    rids = [srv.submit(p, mn) for p, mn in few]
-    got = srv.drain()
+    twins = {}
+    for capture in (False, True):
+        # segments of 8: the 15 ticks after the prefill take two, the second
+        # a replay
+        srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT // 2,
+                     prefix=prefix, device=SERVE_DEVICE, capture=capture or None)
+        rids = [srv.submit(p, mn) for p, mn in few]
+        got = srv.drain()
+        twins[capture] = srv, got
+    check_replayed("serve: prefix=", srv)
+    check_twin("serve: prefix=", srv, twins[False][0], got, twins[False][1])
     diverged = []
     for i, (rid, (p, mn)) in enumerate(zip(rids, few)):
         solo = generate_fast(model, params, prefix + p, mn, device=SERVE_DEVICE)
@@ -3508,7 +3524,8 @@ def serve_prefix_count(model, params, reqs) -> None:
     check_near_ties("serve", diverged)
     phase("serve", f"prefix= ({SERVE_PREFIX} tokens, prefilled once as a template): "
           f"{len(few) - len(diverged)} of {len(few)} requests (16 new "
-          f"each, greedy) bit-equal to solo generate_fast on prefix + prompt; divergences "
+          f"each, greedy, segment {SERVE_SEGMENT // 2}; {srv.replays} segments replayed, "
+          f"tokens and resident cache bit-equal to capture=False's) bit-equal to solo generate_fast on prefix + prompt; divergences "
           f"(request, generated token, gap): {diverged}")
 
 
@@ -3541,89 +3558,202 @@ def serve_vs_cpu(params, prompt: list) -> None:
           f"{SERVE_F32_TOL['atol']})")
 
 
-def serve_load(model, params, card_line: str) -> None:
-    """The open-loop load run with obs on, read by ``obs slo``; then one
-    full segment under the profiler."""
+def check_twin(name: str, srv, eager, got, want) -> None:
+    """A captured server against its ``capture=False`` twin after the same
+    requests: their tokens, and every byte of the resident caches (the
+    draft's too) and of the previous tokens."""
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    resident = [(tree_leaves(getattr(srv, a)), tree_leaves(getattr(eager, a)))
+                for a in ("_cache", "_d_cache")] + [([srv._prev], [eager._prev])]
+    if got != want or not all(len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+                              for a, b in resident):
+        raise AssertionError(f"{name}: the captured server's tokens or resident cache differ "
+                             f"from its capture=False twin's")
+
+
+def check_replayed(name: str, srv) -> None:
+    """A server on the card captured its segments and replayed them."""
+    if SERVE_DEVICE == "cuda" and not (srv.capture and srv.replays > 0):
+        raise AssertionError(f"{name}: capture {srv.capture}, {srv.replays} replays "
+                             f"({srv.eager_reasons})")
+
+
+# launches of the host a profiled segment: kernels one by one (eager), or
+# whole graphs (captured)
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def serve_graph_leg(name: str, make, work: list, prof: list, card_line: str,
+                    unit: str = "tick") -> dict:
+    """One kind of server, eager (``capture=False``) and then captured, from
+    the same seeds. Each: the load run ``work`` with obs on (``obs slo``:
+    TTFT and TPOT p50/p99), its peak memory above what was allocated
+    before the server was built; then the ``prof`` requests through a
+    fresh server, two scheduling steps (admission and the warm-up segment,
+    then the capture and its first replay), one timed, one profiled: ms
+    and launches a ``unit`` (a tick, or a speculative round) and the
+    device's busy share. The two load runs' tokens, and the two profiled
+    servers', must be equal; the captured ones must have replayed, their
+    tick must be faster and their busy share higher. Returns the captured
+    load run's report."""
+    import gc
     import tempfile
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mpit_tpu_torch.loadgen import LoadHarness, LoadSpec, make_workload
-    from mpit_tpu_torch.models import Server
+    from mpit_tpu_torch.loadgen import LoadHarness
+    from mpit_tpu_torch.models import sampling
     from mpit_tpu_torch.obs.core import ObsConfig
+
+    legs = {}
+    for capture in (False, True):
+        leg = legs[capture] = {}
+        with tempfile.TemporaryDirectory(prefix=f"{name}-") as tmp:
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            srv = make(capture=capture, obs=ObsConfig(dir=tmp))
+            rep = LoadHarness(srv, work).run()
+            torch.cuda.synchronize()
+            leg["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            leg["owned_mib"] = srv.owned_weight_bytes / 2**20
+            srv.close()
+            rc, out = obs_cli("slo", tmp, "--json")
+        slo = json.loads(out)
+        if rc != 0 or slo["requests"]["finished"] != len(work) or rep.killed:
+            raise AssertionError(f"{name}: load run (capture {capture}) {slo['requests']}, "
+                                 f"obs slo exit {rc}")
+        if capture:
+            check_replayed(name, srv)
+        gen = sum(len(t) - len(rep.requests[r].prompt) for r, t in rep.results.items())
+        leg.update(rep=rep, slo=slo, tokens_per_s=gen / rep.wall_s, replays=srv.replays,
+                   segments=srv.segments_run,
+                   costs=dict(srv._graphs.costs) if capture else {})
+        del srv
+
+        p = make(capture=capture)
+        for prompt, new in prof:
+            p.submit(prompt, new)
+        p.step()  # admission and the warm-up segment
+        p.step()  # the capture and its first replay
+        ticks = p.segments_run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.step()
+        torch.cuda.synchronize()
+        leg["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            t0 = time.perf_counter()
+            p.step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        if p.segments_run != ticks + 2:
+            raise AssertionError(f"{name}: the profiled requests ran out before the profile")
+        n = SERVE_SEGMENT if unit == "tick" else p.spec_rounds
+        busy, _ = busy_union_ms(pr)
+        events = list(pr.events())
+        leg.update(
+            tick_ms=leg["step_ms"] / n, prof_tick_ms=wall / n, busy=busy / wall,
+            kernels=sum(1 for e in events if e.device_type == DeviceType.CUDA) / n,
+            host_launches=sum(1 for e in events if e.device_type == DeviceType.CPU
+                              and e.name.startswith(HOST_LAUNCHES)) / n,
+            top=sorted(((e.self_device_time_total / 1e3 / n, e.count / n, e.key[:80])
+                        for e in pr.key_averages() if e.device_type == DeviceType.CUDA),
+                       reverse=True)[:5])
+        # the two legs' servers stop at the same boundary (a drain would
+        # cost the eager speculative server another 9 s): the rows' tokens
+        # so far and what finished, then their resident state
+        leg["prof"] = p, ([None if r is None else list(r["known"]) for r in p._slots],
+                          p.results())
+        if not capture:
+            # admission alone: the same prompts with a budget of one token,
+            # which each request spends on its prefill's token
+            a = make(capture=False)
+            for prompt, _ in prof:
+                a.submit(prompt, 1)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+                a.step()
+                torch.cuda.synchronize()
+            if a.segments_run or a.pending:
+                raise AssertionError(f"{name}: the one-token admission ran a segment")
+            buckets = {sampling._bucket(len(q), 1 << 30) for q, _ in prof}
+            leg["admission"] = (sum(1 for e in pr.events() if e.device_type == DeviceType.CUDA),
+                                len(buckets))
+    eager, graph = legs[False], legs[True]
+    if eager["rep"].results != graph["rep"].results:
+        differ = [r for r in eager["rep"].results
+                  if eager["rep"].results[r] != graph["rep"].results.get(r)]
+        raise AssertionError(f"{name}: the captured load run's tokens differ from the "
+                             f"eager one's in requests {differ}")
+    check_twin(f"{name} (profiled)", graph["prof"][0], eager["prof"][0], graph["prof"][1],
+               eager["prof"][1])
+    if SERVE_DEVICE == "cuda" and not (graph["tick_ms"] < eager["tick_ms"]
+                                       and graph["busy"] > eager["busy"]):
+        raise AssertionError(f"{name}: captured {graph['tick_ms']:.3f} ms a {unit}, busy "
+                             f"{graph['busy']:.3f}, against eager {eager['tick_ms']:.3f}, "
+                             f"{eager['busy']:.3f}")
+    for capture, leg in legs.items():
+        slo, what = leg["slo"], "captured" if capture else "eager"
+        phase(name, f"{what}: load run of {len(work)} requests, {leg['segments']} "
+              f"boundaries ({leg['replays']} {'segment' if unit == 'tick' else unit}s "
+              f"replayed) in {leg['rep'].wall_s:.3f} s, "
+              f"{leg['tokens_per_s']:.1f} generated tokens/s; TTFT p50 "
+              f"{slo['ttft']['p50_ms']} ms p99 {slo['ttft']['p99_ms']} ms, TPOT p50 "
+              f"{slo['tpot']['p50_ms']} ms p99 {slo['tpot']['p99_ms']} ms, e2e p99 "
+              f"{slo['e2e']['p99_ms']} ms, goodput {slo['goodput']}, occupancy "
+              f"{slo['occupancy']}, max submit lateness "
+              f"{leg['rep'].max_submit_lateness_s:.4f} s; peak memory above the state before the server "
+              f"{leg['peak_mib']:.1f} MiB (its own weight copy {leg['owned_mib']:.1f} MiB, "
+              f"less it {leg['peak_mib'] - leg['owned_mib']:.1f} MiB)")
+        phase(name, f"{what}: one boundary of {len(prof)} rows, {leg['tick_ms']:.4f} ms a "
+              f"{unit} ({leg['step_ms']:.3f} ms the boundary, its fetch included); under "
+              f"the profiler {leg['prof_tick_ms']:.4f} ms a {unit}, {leg['kernels']:.1f} "
+              f"kernels and {leg['host_launches']:.2f} host launches a {unit}, device busy "
+              f"{100 * leg['busy']:.1f}% of the wall; top kernels " + "; ".join(
+                  f"{ms:.4f} ms {calls:.1f}x {key}" for ms, calls, key in leg["top"][:3]))
+    kernels, groups = eager["admission"]
+    phase(name, f"admission (eager in both, ROADMAP E1b 7b): {kernels} kernels to admit the "
+          f"{len(prof)} profiled prompts in {groups} prefill group(s) by prompt bucket")
+    phase(name, "captured: one-off host seconds by graph (warm-up, capture): " + "; ".join(
+        f"{k}: {c['warm_up_s']:.3f}, {c.get('capture_s', float('nan')):.3f}"
+        for k, c in graph["costs"].items()) + f"; tokens equal to eager's (load run and "
+          f"profiled server), and the profiled server's resident cache; {card_line}")
+    return graph["rep"]
+
+
+def serve_load(model, params, card_line: str) -> None:
+    """The open-loop load run with obs on, read by ``obs slo``, eager and
+    captured; and one full segment of each, timed and profiled."""
+    from mpit_tpu_torch.loadgen import LoadSpec, make_workload
+    from mpit_tpu_torch.models import Server
     from mpit_tpu_torch.utils.params import tree_leaves
 
     old = SERVE_BEFORE_BLOCKS
-
-    def work():
-        return make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB, max_len=SERVE_MAX_LEN)
-
+    work = make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB, max_len=SERVE_MAX_LEN)
+    # first calls (cuBLAS plans, allocator growth) outside the legs: a
+    # captured server warms every segment length up eagerly
     warm = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
                   device=SERVE_DEVICE)
-    for r in work():
+    for r in work:
         warm.submit(list(r.prompt), r.max_new)
     warm.drain()
     kv_bytes = SERVE_BATCH * LM_LAYERS * 2 * SERVE_MAX_LEN * 768 * 2
-    with tempfile.TemporaryDirectory(prefix="serve-") as tmp:
-        srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                     device=SERVE_DEVICE, obs=ObsConfig(dir=tmp))
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()  # what earlier phases still hold
-        torch.cuda.reset_peak_memory_stats()
-        rep = LoadHarness(srv, work()).run()
-        peak = torch.cuda.max_memory_allocated() - base
-        rc, out = obs_cli("slo", tmp, "--json")
-    slo = json.loads(out)
-    gen = sum(len(t) - len(rep.requests[r].prompt) for r, t in rep.results.items())
-    if rc != 0 or slo["requests"]["finished"] != SERVE_LOAD["requests"] or rep.killed:
-        raise AssertionError(f"serve: load run {slo['requests']}, obs slo exit {rc}")
-    phase("serve", f"load run: {SERVE_LOAD['requests']} requests at {SERVE_LOAD['rate']}/s "
-          f"(prompts 8-447 tokens, 16-63 new), {rep.boundaries} boundaries in "
-          f"{rep.wall_s:.3f} s: {slo['requests']['finished'] / rep.wall_s:.2f} requests/s, "
-          f"{gen / rep.wall_s:.1f} generated tokens/s; obs slo: TTFT p50 "
-          f"{slo['ttft']['p50_ms']} ms p99 {slo['ttft']['p99_ms']} ms, TPOT p50 "
-          f"{slo['tpot']['p50_ms']} ms p99 {slo['tpot']['p99_ms']} ms, e2e p99 "
-          f"{slo['e2e']['p99_ms']} ms, goodput {slo['goodput']}, occupancy "
-          f"{slo['occupancy']}; max submit lateness {rep.max_submit_lateness_s:.4f} s; "
-          f"before the row blocks: TTFT p50 {old['ttft_p50_ms']} ms p99 "
-          f"{old['ttft_p99_ms']} ms, {old['tokens_per_s']} generated tokens/s")
-    phase("serve", f"peak device memory of the load run above what was allocated before "
-          f"it {peak / 2**20:.1f} MiB (before it {base / 2**20:.1f} MiB); the KV cache "
-          f"{kv_bytes / 2**20:.1f} MiB ({SERVE_BATCH} slots x {LM_LAYERS} layers x K,V x "
-          f"{SERVE_MAX_LEN} x 768 x bf16); f32 params {4 * sum(t.numel() for t in tree_leaves(params)) / 2**20:.1f} MiB; "
-          f"{card_line}")
 
-    # one full segment of 16 ticks, 8 rows busy, timed and then profiled
-    reqs = serve_requests()
-    srv = Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                 device=SERVE_DEVICE)
-    for p, _ in reqs:
-        srv.submit(p, 4 * SERVE_SEGMENT)
-    srv.step()  # admission and a first segment
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    srv.step()
-    torch.cuda.synchronize()
-    tick_ms = 1e3 * (time.perf_counter() - t0) / SERVE_SEGMENT
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        srv.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms, _ = busy_union_ms(prof)
-    launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    phase("serve", f"one segment ({SERVE_SEGMENT} ticks, {SERVE_BATCH} rows): "
-          f"{tick_ms:.3f} ms a tick unprofiled; under the profiler {wall_ms / SERVE_SEGMENT:.3f} "
-          f"ms a tick, {launches / SERVE_SEGMENT:.1f} kernel launches a tick, device busy "
-          f"{busy_ms / SERVE_SEGMENT:.4f} ms a tick ({100 * busy_ms / wall_ms:.1f}% of the "
-          f"wall); before the row blocks: {old['tick_ms']} ms and {old['launches']} "
-          f"launches a tick; top kernels:")
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        phase("serve", f"  {e.self_device_time_total / 1e3 / SERVE_SEGMENT:9.4f} ms/tick "
-              f"{e.count / SERVE_SEGMENT:6.1f} calls/tick  {e.key[:90]}")
-    srv.drain()
+    def make(**kw):
+        return Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                      device=SERVE_DEVICE, **kw)
+
+    serve_graph_leg("serve", make, work, [(p, 5 * SERVE_SEGMENT) for p, _ in serve_requests()],
+                    card_line)
+    phase("serve", f"the KV cache {kv_bytes / 2**20:.1f} MiB ({SERVE_BATCH} slots x "
+          f"{LM_LAYERS} layers x K,V x {SERVE_MAX_LEN} x 768 x bf16); f32 params "
+          f"{4 * sum(t.numel() for t in tree_leaves(params)) / 2**20:.1f} MiB; before the "
+          f"row blocks (eager): {old['tick_ms']} ms and {old['launches']} launches a tick, "
+          f"TTFT p50 {old['ttft_p50_ms']} ms p99 {old['ttft_p99_ms']} ms, "
+          f"{old['tokens_per_s']} generated tokens/s")
 
 
 def serve_path(card_line: str) -> dict:
@@ -3651,8 +3781,10 @@ def serve_spec(card_line: str, served: dict) -> None:
     """The greedy requests through the speculative server with a 2-layer,
     d_model 256 draft (seeded): tokens against the greedy server's and
     against each request's solo ``generate_speculative`` (ROADMAP C8, the
-    same near-tie rule), acceptance, tokens per target read, tokens/s."""
-    from mpit_tpu_torch.models import Server, generate_speculative, serving
+    same near-tie rule), acceptance, tokens per target read, tokens/s;
+    then the load schedule through it eager and captured."""
+    from mpit_tpu_torch.loadgen import LoadSpec, make_workload
+    from mpit_tpu_torch.models import Server, generate_speculative
     from mpit_tpu_torch.models.transformer import TransformerLM
 
     model, params, reqs = served["model"], served["params"], served["reqs"]
@@ -3660,27 +3792,30 @@ def serve_spec(card_line: str, served: dict) -> None:
                           max_len=SERVE_MAX_LEN, device=SERVE_DEVICE)
     d_params = draft.init(torch.Generator().manual_seed(SERVE_SEED + 1))
     stats = {"row_rounds": 0, "emitted": 0}
-    real = serving._serve_spec_segment
 
-    def counting(tgt, dft, k, r_cap, t_params, d_params, t_cache, d_cache, prev, pos0,
-                 rounds):
-        out = real(tgt, dft, k, r_cap, t_params, d_params, t_cache, d_cache, prev, pos0,
-                   rounds)
-        busy = pos0 > 0  # free slots pass 0
-        stats["row_rounds"] += rounds * int(busy.sum())
-        stats["emitted"] += int(out[4][busy].sum())
-        return out
+    def make(**kw):
+        return Server(model, params, max_batch=SERVE_BATCH, draft_model=draft,
+                      draft_params=d_params, spec_k=SPEC_K, device=SERVE_DEVICE, **kw)
 
-    serving._serve_spec_segment = counting
-    try:
-        srv = Server(model, params, max_batch=SERVE_BATCH, draft_model=draft,
-                     draft_params=d_params, spec_k=SPEC_K, device=SERVE_DEVICE)
-        rids = [srv.submit(p, mn) for p, mn in reqs]
-        t0 = time.perf_counter()
-        got = srv.drain()
-        wall = time.perf_counter() - t0
-    finally:
-        serving._serve_spec_segment = real
+    srv = make()
+    rounds_of, harvest = srv._spec_rounds, srv._harvest
+
+    def counted_rounds(occ):
+        rounds = rounds_of(occ)
+        stats["row_rounds"] += rounds * len(occ)
+        return rounds
+
+    def counted_harvest(host, avail):
+        stats["emitted"] += sum(int(avail[s]) for s, r in enumerate(srv._slots)
+                                if r is not None)
+        return harvest(host, avail)
+
+    srv._spec_rounds, srv._harvest = counted_rounds, counted_harvest
+    rids = [srv.submit(p, mn) for p, mn in reqs]
+    t0 = time.perf_counter()
+    got = srv.drain()
+    wall = time.perf_counter() - t0
+    check_replayed("serve-spec", srv)
     diverged = []
     for i, rid in enumerate(rids):
         want = served["greedy"][i]
@@ -3690,7 +3825,7 @@ def serve_spec(card_line: str, served: dict) -> None:
                 model, params, want, j, got[rid][j])))
     check_near_ties("serve-spec", diverged)
     # ROADMAP C8: each served row against its solo generate_speculative
-    solo_div = []
+    solo_div, t_solo = [], time.perf_counter()
     for i, (rid, (p, mn)) in enumerate(zip(rids, reqs)):
         solo = generate_speculative(model, params, draft, d_params, p, mn, k=SPEC_K,
                                     device=SERVE_DEVICE)
@@ -3699,22 +3834,33 @@ def serve_spec(card_line: str, served: dict) -> None:
             solo_div.append((i, j - len(p), divergence_gap(model, params, solo, j,
                                                            got[rid][j])))
     check_near_ties("serve-spec (solo)", solo_div)
+    t_solo = time.perf_counter() - t_solo
     per_read = stats["emitted"] / stats["row_rounds"]
     phase("serve-spec", f"draft: 2 layers, d_model 256, 4 heads, vocab {SERVE_VOCAB} "
           f"(seeded init {SERVE_SEED + 1}); spec_k {SPEC_K}: {SERVE_REQS - len(diverged)} of "
           f"{SERVE_REQS} requests equal the greedy serve run's; divergences (request, "
           f"generated token, gap): {diverged}; {SERVE_REQS - len(solo_div)} of {SERVE_REQS} "
-          f"equal their solo generate_speculative, divergences {solo_div}; "
+          f"equal their solo generate_speculative (eager, {t_solo:.3f} s), divergences "
+          f"{solo_div}; "
           f"{per_read:.3f} tokens per target read "
           f"(acceptance {(per_read - 1) / SPEC_K:.4f}); "
-          f"{SERVE_REQS * SERVE_NEW / wall:.1f} tokens/s ({wall:.3f} s); {card_line}")
+          f"{SERVE_REQS * SERVE_NEW / wall:.1f} tokens/s ({wall:.3f} s, {srv.replays} rounds "
+          f"replayed); {card_line}")
+    # the load schedule cut to SPEC_LOAD's requests and budgets (the eager
+    # speculative round is 143-159 ms: the whole schedule took 66 s eagerly),
+    # its horizon cut by the verification chunk's headroom
+    work = make_workload(LoadSpec(**{**SERVE_LOAD, **SPEC_LOAD}), SERVE_VOCAB,
+                         max_len=SERVE_MAX_LEN - SPEC_K)
+    serve_graph_leg("serve-spec", make, work, [(p, 5 * SERVE_SEGMENT) for p, _ in reqs],
+                    card_line, unit="round")
 
 
 def serve_rnn(card_line: str) -> None:
     """``RNNServer`` at ptb-lstm-easgd's widths over the load schedule
-    without the length cap; every result against its solo generate_rnn."""
+    without the length cap, eager and captured; every result against its
+    solo generate_rnn."""
     from mpit_tpu_torch import random as jrandom
-    from mpit_tpu_torch.loadgen import LoadHarness, LoadSpec, make_workload
+    from mpit_tpu_torch.loadgen import LoadSpec, make_workload
     from mpit_tpu_torch.models import RNNServer, generate_rnn
     from mpit_tpu_torch.models.lstm import LSTMLM
     from mpit_tpu_torch.utils.params import tree_leaves
@@ -3725,13 +3871,18 @@ def serve_rnn(card_line: str) -> None:
     if n != RNN_FLOATS:
         raise AssertionError(f"serve-rnn: {n} floats != {RNN_FLOATS}")
     work = make_workload(LoadSpec(**SERVE_LOAD), SERVE_VOCAB)
-    warm = RNNServer(lstm, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                     device=SERVE_DEVICE)
+
+    def make(**kw):
+        return RNNServer(lstm, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                         device=SERVE_DEVICE, **kw)
+
+    warm = make()  # warms every segment length up eagerly, then replays
     for r in work[:8]:
         warm.submit(list(r.prompt), r.max_new)
     warm.drain()
-    rep = LoadHarness(RNNServer(lstm, params, max_batch=SERVE_BATCH,
-                                segment=SERVE_SEGMENT, device=SERVE_DEVICE), work).run()
+    rep = serve_graph_leg("serve-rnn", make, work,
+                          [(list(r.prompt), 5 * SERVE_SEGMENT) for r in work[:SERVE_BATCH]],
+                          card_line)
     gen = sum(len(t) - len(rep.requests[r].prompt) for r, t in rep.results.items())
     key = jrandom.key(0, SERVE_DEVICE)
     diverged = []
@@ -3747,7 +3898,7 @@ def serve_rnn(card_line: str) -> None:
     check_near_ties("serve-rnn", diverged)
     phase("serve-rnn", f"RNNServer(max_batch={SERVE_BATCH}, segment={SERVE_SEGMENT}), "
           f"LSTM vocab {SERVE_VOCAB}, embed 256, hidden 512, 2 layers, bf16 ({n} floats, "
-          f"seeded init {SERVE_SEED}), the load schedule without a length cap: "
+          f"seeded init {SERVE_SEED}), the load schedule without a length cap, captured: "
           f"{len(rep.results)} requests in {rep.wall_s:.3f} s, {gen / rep.wall_s:.1f} "
           f"generated tokens/s; {len(rep.results) - len(diverged)} of {len(rep.results)} "
           f"equal their solo generate_rnn; divergences (request, generated token, gap): "
@@ -3874,6 +4025,11 @@ def finish_window_rate(paths: list) -> float:
     return sum(g for _, g in done[1:]) / (done[-1][0] - done[0][0])
 
 
+# the segments that the thread runs' replicas replayed (a replica runs few
+# segments of one length in a 16-request run: the sum must not be 0)
+FLEET_REPLAYS: list = []
+
+
 def fleet_thread_run(model, params, out: str, seed: int, work_seed: int, **kw) -> tuple:
     """One ``FleetHarness`` run of 3 replicas in threads, each a
     ``Server(max_batch=8, segment=16)`` of the serving model journaling into
@@ -3884,9 +4040,13 @@ def fleet_thread_run(model, params, out: str, seed: int, work_seed: int, **kw) -
     from mpit_tpu_torch.models import Server
     from mpit_tpu_torch.obs.core import ObsConfig
 
+    made = []
+
     def factory(rank):
-        return Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
-                      device=SERVE_DEVICE, obs=ObsConfig(dir=os.path.join(out, f"rep{rank}")))
+        made.append(Server(model, params, max_batch=SERVE_BATCH, segment=SERVE_SEGMENT,
+                           device=SERVE_DEVICE,
+                           obs=ObsConfig(dir=os.path.join(out, f"rep{rank}"))))
+        return made[-1]
 
     work = fleet_work(work_seed)
     torch.cuda.synchronize()
@@ -3905,7 +4065,11 @@ def fleet_thread_run(model, params, out: str, seed: int, work_seed: int, **kw) -
     stats = dict(tokens_per_s=round(gen / rep.wall_s, 1), wall_s=round(rep.wall_s, 3),
                  e2e_p50_ms=e2e["p50_ms"], e2e_p99_ms=e2e["p99_ms"],
                  ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
-                 redispatched=rep.redispatched, peak_mib=round(peak / 2**20, 1))
+                 redispatched=rep.redispatched, peak_mib=round(peak / 2**20, 1),
+                 replays=[srv.replays for srv in made])
+    if SERVE_DEVICE == "cuda" and not all(srv.capture for srv in made):
+        raise AssertionError(f"fleet: replicas' eager reasons {[s.eager_reasons for s in made]}")
+    FLEET_REPLAYS.extend(stats["replays"])
     return work, rep, audit, stats
 
 
@@ -4085,7 +4249,8 @@ def fleet_procs(tmp: str) -> None:
     pids = {s["pid"] for s in summaries}
     cuda = SERVE_DEVICE == "cuda"
     if (not all(s["device"] == SERVE_DEVICE and s["cuda_initialized"] == cuda
-                for s in summaries)
+                and s["capture"] == cuda for s in summaries)
+            or (sum(s["replays"] for s in summaries) > 0) != cuda
             or len(pids) != FLEET_REPLICAS or os.getpid() in pids):
         raise AssertionError(f"fleet (c): replica summaries {summaries}")
     kill = runs["procs-kill"][1]
@@ -4109,7 +4274,8 @@ def fleet_procs(tmp: str) -> None:
               f"{json.dumps(report['fleet'])}, client {json.dumps(report['client'])}; "
               f"command {wall:.3f} s")
     phase("fleet", f"(c) replica processes {[s['pid'] for s in summaries]} each on "
-          f"{summaries[0]['device']} with its own CUDA context (this process "
+          f"{summaries[0]['device']} with its own CUDA context, segments replayed "
+          f"{[s['replays'] for s in summaries]} (this process "
           f"{os.getpid()}); the kill run's SIGKILL of rank {FLEET_KILL_RANK} detected "
           f"(dead ranks {kill['client']['dead_ranks']}, no exit summary), audit ok; "
           f"generated tokens/s at {FLEET_RATE:g}/s: processes {rates['procs']:.1f}, threads "
@@ -4166,8 +4332,13 @@ def fleet_path(card_line: str, served: dict) -> None:
         for r in fleet_work(FLEET_KILL_SEED):
             warm.submit(list(r.prompt), r.max_new)
         warm.drain()
+        FLEET_REPLAYS.clear()
         fleet_kill_leg(served["model"], served["params"], tmp)
         fleet_soak_pair(served["model"], served["params"], tmp)
+        if SERVE_DEVICE == "cuda" and not sum(FLEET_REPLAYS):
+            raise AssertionError(f"fleet: the replicas in threads replayed {FLEET_REPLAYS}")
+        phase("fleet", f"(a), (b) replicas in threads captured their segments; segments "
+              f"replayed by replica {FLEET_REPLAYS}")
         fleet_procs(tmp)
 
 
@@ -4621,6 +4792,24 @@ def examples_phase() -> None:
           f"{res['accuracy']:.4f}, {res['wall_s']:.3f} s of training")
 
 
+def share_synthetic_images() -> None:
+    """Make each synthetic image set once in this process: the phases ask
+    for the same ones again (AlexNet's 2,048 images at 224², 17 s to make
+    on the CPU, in its phase's longer leg and in the graph phase;
+    ResNet-50's in three phases). Each caller gets copies of the arrays."""
+    from mpit_tpu_torch.data import datasets
+
+    make, made = datasets.synthetic_image_classification, {}
+
+    def shared(*args, **kw):
+        key = repr((args, sorted(kw.items())))
+        if key not in made:
+            made[key] = make(*args, **kw)
+        return tuple(a.copy() for a in made[key])
+
+    datasets.synthetic_image_classification = shared
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4640,6 +4829,7 @@ def main() -> int:
     import mpit_tpu_torch  # noqa: F401  (fails alone, without the repository)
 
     card_line = card()
+    share_synthetic_images()
     timed("build", build)
     timed("wire", wire_phase)
     timed("native", native_phase)

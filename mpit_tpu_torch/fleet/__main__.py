@@ -128,6 +128,7 @@ def _main_replica(argv) -> int:
     summary.update(
         pid=os.getpid(), device=str(server.device),
         cuda_initialized=torch.cuda.is_initialized(),
+        capture=server.capture, replays=server.replays,
     )
     print(json.dumps(summary))
     return 0

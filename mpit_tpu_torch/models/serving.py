@@ -14,13 +14,25 @@ can attend (their writes clamp at the cache's end, as XLA clamps them).
 Every request's result equals its solo ``generate_fast(prompt, max_new,
 rng=request_rng)`` (``generate_rnn`` for the RNN server): the request's
 keys are split once at submit (``split(rng, max_new)``) and generated
-token ``j`` is drawn with key ``j`` whatever the scheduling. A segment is
-a Python loop of ticks whose tokens stay on the device until the
-boundary: one host fetch per boundary, none per tick. The reference
-donates the resident buffers to a compiled segment; here the segment
-writes them in place, so a segment or admission that fails part way
-leaves them half updated, and the server is poisoned as the reference's
-is: finished results stay readable through :meth:`Server.results`.
+token ``j`` is drawn with key ``j`` whatever the scheduling. A segment's
+tokens stay on the device until the boundary: one host fetch per
+boundary, none per tick.
+
+The reference compiles each segment once per segment length and donates
+the resident buffers to it. Here a segment reads and writes only resident
+tensors: the cache tree (whose clocks, or an LSTM's carries, each tick
+rebuilds, so the segment copies the last ones back into the tree), the
+previous tokens, the server's own copy of the weights, and static input
+and output buffers (the key columns, the per-row temperatures and top-p,
+the tokens). On the card (``capture=None``) the first segment of a length
+runs eagerly as a warm-up, the second is captured as a CUDA graph, and
+that graph is replayed from then on (``parallel/capture.py``
+``GraphSet``); the speculative server captures one round and replays it
+as many times as the boundary's round count. Admission (the prefill and
+the row insertion) stays on the host between segments. A segment or
+admission that fails part way leaves the resident buffers half updated,
+and the server is poisoned as the reference's is: finished results stay
+readable through :meth:`Server.results`.
 
 Observability (``Server(obs=ObsConfig(dir=...))``): the reference's
 request lifecycle (``req_enqueue`` → ``req_admit`` → ``req_first_token``
@@ -57,7 +69,8 @@ from mpit_tpu_torch.obs.live import (
     M_TTFT,
     M_WAITING,
 )
-from mpit_tpu_torch.utils.params import tree_leaves, tree_map
+from mpit_tpu_torch.comm.topology import resolve_device
+from mpit_tpu_torch.utils.params import tree_leaves, tree_leaves_with_path, tree_map
 
 
 class _ServeObs:
@@ -209,26 +222,35 @@ def _tile_rows(kb, tpl):
     return tree_map(lambda x: x.repeat_interleave(kb, 0), tpl)
 
 
-def _serve_spec_segment(tgt, dft, k, r_cap, t_params, d_params, t_cache,
-                        d_cache, prev, pos0, rounds):
-    """``rounds`` speculative rounds over the whole resident batch
-    (``speculative._spec_round``). ``pos0``: each row's cached-token count
-    (free slots pass 0, which keeps their clocks from drifting to the
-    end). Returns the caches, ``prev``, and per row its emitted tokens (the
-    first ``n[r]`` of ``out[r]``)."""
+def _serve_spec_round(tgt, dft, k, t_params, d_params, t_cache, d_cache,
+                      prev, pos, active, out, n):
+    """One round of the reference's ``_serve_spec_segment`` loop
+    (``speculative._spec_round``) over the whole resident batch, in place:
+    both caches' clocks, ``prev`` and ``pos`` (each row's cached-token
+    count; free slots start from 0, which keeps their clocks from drifting
+    to the end) move on, and the round's tokens land in ``out`` at each
+    row's count ``n``, which grows by what the row emitted."""
     from mpit_tpu_torch.models.speculative import _spec_round, _write_rows
 
-    nb = prev.shape[0]
-    dev = prev.device
-    out = torch.zeros(nb, r_cap * (k + 1), dtype=torch.long, device=dev)
-    active = torch.ones(nb, dtype=torch.bool, device=dev)
-    pos, n = pos0, torch.zeros(nb, dtype=torch.long, device=dev)
-    for _ in range(rounds):
-        t_cache, d_cache, prev, pos, t, _a, m = _spec_round(
-            tgt, dft, k, t_params, d_params, t_cache, d_cache, prev, pos, active)
-        out = _write_rows(out, t, n)
-        n = n + m
-    return t_cache, d_cache, prev, out, n
+    t_new, d_new, new_prev, new_pos, t, _a, m = _spec_round(
+        tgt, dft, k, t_params, d_params, t_cache, d_cache, prev, pos, active)
+    _write_rows(out, t, n)
+    n.add_(m)
+    pos.copy_(new_pos)
+    prev.copy_(new_prev)
+    _write_back(t_cache, t_new)
+    _write_back(d_cache, d_new)
+
+
+def _write_back(resident, new) -> None:
+    """Copy into ``resident``'s tensors every tensor of ``new`` (a tree of
+    the same shape) that is not one of them: the clocks a decode step
+    rebuilt (``pos_index``, each block's ``cache_index``) or an LSTM's
+    carries. The resident tree then holds the new state in the tensors a
+    graph was captured over."""
+    for r, x in zip(tree_leaves(resident), tree_leaves(new), strict=True):
+        if x is not r:
+            r.copy_(x)
 
 
 def _insert_rows(big, rows, slots):
@@ -242,25 +264,24 @@ def _insert_rows(big, rows, slots):
 
 
 def _serve_segment(model, seg, greedy, top_k, use_top_p, params, cache, prev,
-                   keys, temp, top_p):
+                   keys, temp, top_p, toks):
     """``seg`` decode ticks over the whole resident batch: each tick feeds
     every slot its previous token and draws the next with the slot's key
-    column (the segment's Gumbel noise is drawn once, up front). The cache
-    and ``prev`` are updated in place. Returns ``(cache, prev, toks)``,
-    ``toks`` (NB, seg) on the device."""
+    column (the segment's Gumbel noise is drawn once, up front). Tick
+    ``t``'s tokens go to ``toks[:, t]``; the cache and ``prev`` are
+    updated in place."""
     noise = None
     if not greedy:
         noise = jrandom.gumbel(keys, (model.vocab_size,))  # (NB, seg, V)
-    toks = torch.empty(prev.shape[0], seg, dtype=torch.long, device=prev.device)
-    cur = prev
+    cur, state = prev, cache
     for t in range(seg):
-        logits, cache = model.apply(params, cur[:, None], cache)
+        logits, state = model.apply(params, cur[:, None], state)
         cur = sampling._sample_rows(
             logits[:, 0], None, greedy, top_k, use_top_p, temp, top_p,
             noise=None if noise is None else noise[:, t])
         toks[:, t] = cur
     prev.copy_(cur)
-    return cache, prev, toks
+    _write_back(cache, state)
 
 
 def _own_modules(model):
@@ -290,10 +311,15 @@ class Server:
     proposals, ``spec_rounds`` rounds per boundary); ``obs`` an
     :class:`~mpit_tpu_torch.obs.core.ObsConfig` with ``dir`` set;
     ``weights_dtype="bf16"`` casts the weights once. The server runs on
-    the card unless ``device="cpu"``."""
+    the card unless ``device="cpu"``.
 
-    # the reference's segment is one compiled program; this one is eager
-    eager_reasons = ("the slot admission runs on the host between its segments",)
+    ``capture`` as a trainer's: None replays each segment length's graph
+    where nothing stands in the way (:attr:`eager_reasons` says what
+    does: on the CPU, the device), False never captures, True must (and
+    raises, with the reasons, where it cannot). A capturing server serves
+    from weights in storage of its own (a copy where the caller's tensors
+    are already on its device in its dtype: ``owned_weight_bytes``), into
+    which :meth:`install_weights` copies a push."""
 
     def __init__(
         self,
@@ -314,7 +340,10 @@ class Server:
         spec_rounds: int = 4,
         obs=None,
         device=None,
+        capture: Optional[bool] = None,
     ):
+        from mpit_tpu_torch.parallel import capture as graphs
+
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if segment < 1:
@@ -355,9 +384,12 @@ class Server:
                 raise ValueError("spec_k and spec_rounds must be >= 1")
         self.model = model
         self._weights_dtype = weights_dtype
-        params, self.device = sampling._on(params, device)
-        self.params = (sampling.cast_weights(params, torch.bfloat16)
-                       if _bf16_weights(weights_dtype) else params)
+        self.device = resolve_device(device)
+        self.eager_reasons = graphs.device_reasons(self.device)
+        self.capture = graphs.resolve(capture, self.eager_reasons)
+        self._graphs = graphs.GraphSet(self.device) if self.capture else None
+        self.owned_weight_bytes = 0
+        self.params = self._weights(params, own=self.capture)
         self._weights_version = 0
         self.max_batch = int(max_batch)
         self.segment = int(segment)
@@ -387,10 +419,14 @@ class Server:
                      if draft_model is not None else None)
         self._d_params = None
         if draft_params is not None:
-            d_params, _ = sampling._on(draft_params, self.device)
-            self._d_params = (sampling.cast_weights(d_params, torch.bfloat16)
-                              if _bf16_weights(weights_dtype) else d_params)
+            self._d_params = self._weights(draft_params, own=self.capture)
         self._d_cache = None
+        # static buffers of the segments (built at first admission): the
+        # tokens, the rows' temperatures and top-p, the key columns by
+        # segment length; the speculative rounds' out, n, pos and active
+        self._toks = self._temps = self._tops = None
+        self._keys: dict = {}
+        self._spec = None
         self._obs = _ServeObs(obs) if obs is not None else None
 
     # ---- model-family hooks (the RNN server overrides these two) ----
@@ -423,10 +459,32 @@ class Server:
         construction-time weights)."""
         return self._weights_version
 
+    def _weights(self, params, own: bool):
+        """``params`` as this server serves them: on its device, cast once
+        by ``weights_dtype``; with ``own``, a leaf that the move and the
+        cast left in the caller's storage is copied (its bytes counted in
+        ``owned_weight_bytes``)."""
+        moved, _ = sampling._on(params, self.device)
+        if _bf16_weights(self._weights_dtype):
+            moved = sampling.cast_weights(moved, torch.bfloat16)
+        if not own:
+            return moved
+
+        def owned(src, x):
+            if x.device != src.device or x.data_ptr() != src.data_ptr():
+                return x
+            self.owned_weight_bytes += x.numel() * x.element_size()
+            return x.clone()
+
+        return tree_map(owned, params, moved)
+
     def install_weights(self, params, version: Optional[int] = None) -> int:
         """Swap in new weights between scheduling steps, with the
         construction's ``weights_dtype`` cast; in-flight requests finish
         under the new weights. ``version`` must move forward (None: +1).
+        A push must match the served weights leaf for leaf in shape and
+        dtype. A capturing server copies it into its own weights' storage,
+        which its graphs read; the caller's tensors are never written.
         Returns the installed version."""
         if version is None:
             version = self._weights_version + 1
@@ -438,9 +496,20 @@ class Server:
                 "monotonic — the audit trail depends on it)"
             )
         self._check_poisoned()
-        params, _ = sampling._on(params, self.device)
-        self.params = (sampling.cast_weights(params, torch.bfloat16)
-                       if _bf16_weights(self._weights_dtype) else params)
+        new = self._weights(params, own=False)
+        have = tree_leaves_with_path(self.params)
+        got = tree_leaves_with_path(new)
+        for (path, a), (pushed, b) in itertools.zip_longest(have, got, fillvalue=(None, None)):
+            if path != pushed or a.shape != b.shape or a.dtype != b.dtype:
+                raise ValueError(
+                    f"weight push does not match the served weights at {path or pushed}: "
+                    f"{None if a is None else (tuple(a.shape), a.dtype)} served, "
+                    f"{None if b is None else (tuple(b.shape), b.dtype)} pushed")
+        if self._graphs is None:
+            self.params = new
+        else:
+            for (_, a), (_, b) in zip(have, got):
+                a.copy_(b)
         self._weights_version = version
         if self._obs is not None:
             self._obs.event("weights_install", version=version)
@@ -581,6 +650,9 @@ class Server:
         if self._cache is None:
             self._cache = self._dec.init_cache(self._nb, dev)
             self._prev = torch.zeros(self._nb, dtype=torch.long, device=dev)
+            self._toks = torch.zeros(self._nb, self.segment, dtype=torch.long, device=dev)
+            self._temps = torch.ones(self._nb, dtype=torch.float32, device=dev)
+            self._tops = torch.ones(self._nb, dtype=torch.float32, device=dev)
         pfx = len(self.prefix) if self.prefix else 0
         if self.prefix and self._template is None:
             pb = sampling._bucket(pfx, self._len_cap())
@@ -696,24 +768,43 @@ class Server:
         cap = min(self.segment, 1 << (frontier.bit_length() - 1),
                   1 << max(need - 1, 0).bit_length())
         seg = 1 << (cap.bit_length() - 1)
-        dummy = self._stream_slice(occ[0], seg)
-        keys = torch.stack([self._stream_slice(r, seg) if r is not None else dummy
-                            for r in self._slots])
-        temps = np.array([1.0 if r is None else r["temp"] for r in self._slots],
-                         np.float32)
-        tops = np.array([1.0 if r is None else r["tp"] for r in self._slots],
-                        np.float32)
         t_seg = time.perf_counter() if self._obs is not None else 0.0
-        self._cache, self._prev, toks = _serve_segment(
+        # the segment's inputs into its static buffers, one copy each
+        dummy = self._stream_slice(occ[0], seg)
+        keys = self._keys.get(seg)
+        if keys is None:
+            keys = self._keys[seg] = torch.empty(self._nb, seg, 2, dtype=torch.int64,
+                                                 device=self.device)
+        torch.stack([self._stream_slice(r, seg) if r is not None else dummy
+                     for r in self._slots], out=keys)
+        self._temps.copy_(torch.tensor([1.0 if r is None else r["temp"] for r in self._slots],
+                                       dtype=torch.float32))
+        self._tops.copy_(torch.tensor([1.0 if r is None else r["tp"] for r in self._slots],
+                                      dtype=torch.float32))
+        self._run(("segment", seg), [keys], lambda: _serve_segment(
             self._dec, seg, self._greedy, self.top_k, self.top_p is not None,
-            self.params, self._cache, self._prev, keys,
-            torch.from_numpy(temps).to(self.device),
-            torch.from_numpy(tops).to(self.device),
-        )
+            self.params, self._cache, self._prev, keys, self._temps, self._tops,
+            self._toks))
         self.segments_run += 1
-        self._harvest(toks.cpu().tolist(), [seg] * self._nb)
+        self._harvest(self._toks[:, :seg].cpu().tolist(), [seg] * self._nb)
         if self._obs is not None:
             self._segment_event(t_seg, seg, len(occ))
+
+    def _run(self, name, inputs: list, body) -> None:
+        """``body()`` eagerly, or through its graph (``name``) on a
+        capturing server; ``inputs`` are the static buffers it reads
+        beside the resident state."""
+        if self._graphs is None:
+            body()
+            return
+        self._graphs.run(name, tree_leaves(
+            (self.params, self._d_params, self._cache, self._d_cache, self._prev,
+             self._toks, self._temps, self._tops, inputs)), body)
+
+    @property
+    def replays(self) -> int:
+        """Segments (speculative rounds) run as graph replays."""
+        return self._graphs.replays if self._graphs is not None else 0
 
     def _harvest(self, host, avail) -> None:
         """Append up to ``avail[slot]`` tokens per occupied row (capped by
@@ -737,26 +828,36 @@ class Server:
                     self._obs.event("req_finish", rid=r["id"], gen=r["gen"],
                                     reason="eos" if done else "budget")
 
+    def _spec_rounds(self, occ) -> int:
+        """The boundary's round count: capped by the configured count, the
+        max_len frontier (a round advances a clock by at most k+1) and the
+        largest budget."""
+        frontier = min((self._max_len - (len(r["known"]) - 1)) // (self.spec_k + 1)
+                       for r in occ)
+        need = max(r["max_new"] - r["gen"] for r in occ)
+        return max(1, min(self.spec_rounds, frontier, need))
+
     def _spec_step(self, occ) -> None:
         """One speculative scheduling round: ``rounds`` draft-verify
         rounds over the batch, then retirement on the per-row harvest."""
-        k = self.spec_k
-        # capped by the configured count, the max_len frontier (a round
-        # advances a clock by at most k+1) and the largest budget
-        frontier = min((self._max_len - (len(r["known"]) - 1)) // (k + 1)
-                       for r in occ)
-        need = max(r["max_new"] - r["gen"] for r in occ)
-        rounds = max(1, min(self.spec_rounds, frontier, need))
-        pos0 = np.zeros((self._nb,), np.int64)
-        for slot, r in enumerate(self._slots):
-            if r is not None:
-                pos0[slot] = len(r["known"]) - 1
+        k, nb, dev = self.spec_k, self._nb, self.device
+        rounds = self._spec_rounds(occ)
+        if self._spec is None:
+            self._spec = (torch.zeros(nb, self.spec_rounds * (k + 1), dtype=torch.long,
+                                      device=dev),
+                          torch.zeros(nb, dtype=torch.long, device=dev),
+                          torch.zeros(nb, dtype=torch.long, device=dev),
+                          torch.ones(nb, dtype=torch.bool, device=dev))
+        out, n, pos, active = self._spec
         t_seg = time.perf_counter() if self._obs is not None else 0.0
-        self._cache, self._d_cache, prev, out, n = _serve_spec_segment(
-            self._dec, self._dft, k, self.spec_rounds, self.params,
-            self._d_params, self._cache, self._d_cache, self._prev,
-            torch.from_numpy(pos0).to(self.device), rounds)
-        self._prev.copy_(prev)
+        pos.copy_(torch.tensor([0 if r is None else len(r["known"]) - 1
+                                for r in self._slots], dtype=torch.long))
+        out.zero_()
+        n.zero_()
+        for _ in range(rounds):
+            self._run("spec-round", list(self._spec), lambda: _serve_spec_round(
+                self._dec, self._dft, k, self.params, self._d_params, self._cache,
+                self._d_cache, self._prev, pos, active, out, n))
         self.segments_run += 1
         self._harvest(out.cpu().tolist(), n.cpu().tolist())
         if self._obs is not None:

@@ -45,19 +45,46 @@ after and before the caller's stream. There is no fallback: a unit that
 cannot be captured raises. :func:`eager_reasons` says which trainers stay
 eager, and why; every device trainer carries its reasons
 (:class:`Captured`).
+
+A server's decode segments (``models/serving.py``, the counterpart of the
+reference's ``_serve_segment`` and ``_serve_spec_segment``, each compiled
+once per static shape over the donated resident cache) run through a
+:class:`GraphSet`: one graph per segment length (the speculative server:
+one round), all on one side stream and in one memory pool.
+
+Captures may come from several threads of one process (a fleet runs its
+replicas as threads, each with its own server). :func:`capture_graph`
+holds a module lock for the whole of each capture, so no two overlap;
+switches the collector off and on under that lock (it acts on the whole
+process); and captures in ``"thread_local"`` error mode, under which
+another thread's allocations and launches do not end the capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import threading
+import time
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-# graph replays, over every trainer; a run resets it to 0 and reads it back
+# graph replays, over every trainer and server; a run resets it to 0 and
+# reads it back
 replays = 0
+
+# held for the whole of each capture in the process (capture_graph)
+_CAPTURING = threading.Lock()
+
+
+def device_reasons(device) -> list:
+    """Why work on ``device`` cannot be captured: the device, where it is
+    not a CUDA one."""
+    if torch.device(device).type != "cuda":
+        return [f"its device is {device}, and a CUDA graph needs a CUDA device"]
+    return []
 
 
 def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False,
@@ -67,9 +94,7 @@ def eager_reasons(device, donate_state: bool, optimizer, bucketed: bool = False,
     Downpour's (None: model averaging)."""
     from mpit_tpu_torch.comm.topology import in_process_group
 
-    why = []
-    if torch.device(device).type != "cuda":
-        why.append(f"its device is {device}, and a CUDA graph needs a CUDA device")
+    why = device_reasons(device)
     if not donate_state:
         why.append("donate_state=False: a graph updates the storage it was "
                    "captured with, in place")
@@ -91,8 +116,7 @@ def resolve(capture: Optional[bool], reasons: Sequence[str]) -> bool:
     if capture is None:
         return not reasons
     if capture and reasons:
-        raise ValueError("capture=True, but this trainer runs its units eagerly: "
-                         + "; ".join(reasons))
+        raise ValueError("capture=True, but this runs eagerly: " + "; ".join(reasons))
     return bool(capture)
 
 
@@ -269,28 +293,104 @@ class UnitGraph:
         return result, metrics
 
     def _capture(self, body) -> None:
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        # a graph destroyed while another is being captured (an old
-        # trainer's, in a reference cycle, freed by the collector)
-        # invalidates the capture: hold the collector off during it (a
-        # collection before it would cost a whole heap's walk a capture)
+        self._graph, (_, self._metrics), self._launches = capture_graph(
+            self._stream, lambda: body(self._inputs, self._views()))
+
+    def _count_replay(self) -> None:
+        self.replays += 1
+        _count_replay(self._launches)
+
+
+def _count_replay(launches: dict) -> None:
+    global replays
+    replays += 1
+    _add_launches(launches)
+
+
+def capture_graph(stream, body: Callable, pool=None) -> tuple:
+    """``body()`` captured on ``stream`` as a CUDA graph (in the memory
+    pool ``pool``, None: a private one), nothing run. Returns ``(graph,
+    body's result, launches)``, ``launches`` the kernel launches that the
+    body's Python counted, which the counters take back: a replay adds
+    them (:func:`_count_replay`).
+
+    One capture at a time in the process (a module lock), the collector
+    off meanwhile: a graph destroyed during a capture (an old trainer's,
+    in a reference cycle, freed by the collector) ends the capture, and
+    the collector's switch is the process's, so a second thread's capture
+    must not turn it back on under the first. ``"thread_local"``: another
+    thread's ``cudaMalloc`` or launch does not end this capture."""
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURING:
+        before = _launch_counts()
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self._stream):
-                _, self._metrics = body(self._inputs, self._views())
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                result = body()
         finally:
             if collecting:
                 gc.enable()
         after = _launch_counts()
-        self._launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
-        _add_launches(self._launches, -1)  # nothing ran: the replays count
-        self._graph = graph
+    launches = {k: after[k] - before[k] for k in before if after[k] != before[k]}
+    _add_launches(launches, -1)  # nothing ran: the replays count
+    return graph, result, launches
 
-    def _count_replay(self) -> None:
-        global replays
-        replays += 1
+
+class GraphSet:
+    """Named graphs, sharing one side stream and one memory pool: a
+    server's decode segments, one graph per segment length (the
+    speculative server's round: one).
+
+    :meth:`run` takes a name, the resident tensors the work reads and
+    writes, and ``body()``, which does that work (its inputs copied into
+    resident tensors beforehand, its results written into them). The
+    first call of a name runs ``body`` eagerly on the side stream (the
+    warm-up), the second captures it and replays the graph, later ones
+    replay. Each graph is keyed on its name and on the address, shape,
+    strides and dtype of every tensor given with it: other storage warms
+    that name up again. Nothing a graph allocates outlives its replay, so
+    the graphs may share their pool whatever order they replay in.
+    ``costs[name]`` holds the host seconds of the warm-up and of the
+    capture."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.replays = 0
+        self.costs: dict = {}
+        self._stream: Optional[torch.cuda.Stream] = None
+        self._pool = None
+        self._graphs: dict = {}  # name -> (key, graph, launches); graph None once warm
+
+    def run(self, name, state: Sequence[torch.Tensor], body: Callable) -> None:
+        key = tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype) for t in state)
+        held = self._graphs.get(name)
+        if held is None or held[0] != key:
+            self._warm_up(name, key, body)
+            return
+        _, graph, launches = held
+        if graph is None:
+            t0 = time.perf_counter()
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+            graph, _, launches = capture_graph(self._stream, body, self._pool)
+            self._graphs[name] = key, graph, launches
+            self.costs[name]["capture_s"] = time.perf_counter() - t0
+        graph.replay()
         self.replays += 1
-        _add_launches(self._launches)
+        _count_replay(launches)
+
+    def _warm_up(self, name, key, body) -> None:
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        self._graphs.pop(name, None)
+        with torch.cuda.stream(self._stream):
+            body()
+        caller.wait_stream(self._stream)
+        self._graphs[name] = key, None, {}
+        self.costs[name] = {"warm_up_s": time.perf_counter() - t0}

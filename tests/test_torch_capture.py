@@ -20,12 +20,19 @@ On the CPU:
 
 On a CUDA card (skipped without one): replayed units are bit-equal to
 eager ones and keep the state's storage, a restored checkpoint is warmed
-up and captured anew, and the launch counters count every replay.
+up and captured anew, and the launch counters count every replay. A
+server's captured segments (greedy, sampled, ``prefix=``, ``RNNServer``,
+speculative) give the tokens and resident cache bytes of ``capture=False``;
+a weight push between segments gives an eager server's tokens without a
+new capture; two servers in two threads capture at once, and a trainer
+captures while a server thread replays.
 
 The file imports nothing of JAX, so it also runs on a machine without it
 (``pytest --noconftest``). Small shapes (W = 4, or 8 for the composed
 mesh; MLPs of width 16, 1-layer LMs of width 16), f32 on the CPU.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -320,7 +327,8 @@ def test_eager_reasons_name_each_obstacle(monkeypatch):
     with pytest.raises(ValueError, match="world of several"):
         cap.resolve(True, why)
     monkeypatch.setattr(topology, "_distributed_initialized", False)
-    # the pipeline and the server stay eager on any device, and say why
+    # the pipeline stays eager on any device, and says why; a server on
+    # the CPU names the device
     pp = PipelineParallelTrainer(V, 2, 16, 4, T, topo=_world(CPU, ("dp", "pp"), (2, 2)),
                                  n_micro=2, optimizer=opt)
     assert pp.capture is False and any("timetable" in w for w in pp.eager_reasons)
@@ -328,7 +336,7 @@ def test_eager_reasons_name_each_obstacle(monkeypatch):
                        compute_dtype=torch.float32, device="cpu")
     server = Server(lm, lm.init(torch.Generator().manual_seed(0)), max_batch=2, segment=2,
                     device="cpu")
-    assert any("slot admission" in w for w in server.eager_reasons)
+    assert server.capture is False and any("CUDA device" in w for w in server.eager_reasons)
 
 
 def test_the_key_holds_across_in_place_updates_and_not_across_storage():
@@ -486,3 +494,164 @@ def test_launch_counters_count_every_replay():
         assert tr.replays == STEPS - 1
         assert fa.launches["flash_forward_sm90"] == fa.launches["flash_dq_sm90"] == STEPS
         assert fa.launches["flash_dkv_sm90"] == STEPS and fa.launches["flash_forward"] == 0
+
+
+# ------------------------------------------------------- servers on the card
+
+
+def _card_serve_lm(layers=2, d=64):
+    from mpit_tpu_torch.models import TransformerLM as LM
+
+    m = LM(V, num_layers=layers, d_model=d, num_heads=4, max_len=64,
+           compute_dtype=torch.bfloat16, device="cuda")
+    return m, m.init(torch.Generator().manual_seed(layers))
+
+
+def _card_servers():
+    from mpit_tpu_torch.models import RNNServer, Server
+    from mpit_tpu_torch.models.lstm import LSTMLM
+
+    lm, p = _card_serve_lm()
+    draft, dp = _card_serve_lm(1, 32)
+    lstm = LSTMLM(V, embed_dim=32, hidden=64, num_layers=2, device="cuda")
+    lp = lstm.init(torch.Generator().manual_seed(5))
+    sampled = dict(temperature=0.9, top_p=0.8)
+    return {
+        "greedy": lambda **kw: Server(lm, p, max_batch=4, segment=8, **kw),
+        "sampled": lambda **kw: Server(lm, p, max_batch=4, segment=8, top_k=12, **sampled,
+                                       **kw),
+        "prefix": lambda **kw: Server(lm, p, max_batch=4, segment=8, prefix=[6, 2, 8], **kw),
+        "rnn": lambda **kw: RNNServer(lstm, lp, max_batch=4, segment=8, **sampled, **kw),
+        "spec": lambda **kw: Server(lm, p, max_batch=4, draft_model=draft, draft_params=dp,
+                                    spec_k=3, spec_rounds=3, **kw),
+    }
+
+
+SERVE_REQS = [([3, 1, 4, 1, 5], 21), ([2, 7], 9), ([9, 2, 6, 5, 3, 5, 8], 30), ([1], 5),
+              ([4, 4, 4], 17), ([8, 1, 8], 26)]
+
+
+def _serve(srv, reqs=SERVE_REQS, wave=3):
+    from mpit_tpu_torch import random as jrandom
+
+    rids = []
+    for i, (prompt, new) in enumerate(reqs):
+        if i == wave:
+            srv.step()
+        rids.append(srv.submit(prompt, new, rng=jrandom.key(100 + i)))
+    got = srv.drain()
+    return [got[r] for r in rids]
+
+
+def _same_cache(a, b) -> bool:
+    from mpit_tpu_torch.utils.params import tree_leaves
+
+    return all(torch.equal(_bits(x), _bits(y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+@pytest.mark.parametrize("kind", ["greedy", "sampled", "prefix", "rnn", "spec"])
+def test_captured_servers_are_bit_equal_to_eager_ones(kind):
+    _need_card()
+    make = _card_servers()[kind]
+    eager, srv = make(capture=False), make()
+    assert eager.capture is False and srv.capture is True and srv.eager_reasons == []
+    want, got = _serve(eager), _serve(srv)
+    assert got == want and srv.replays > 0 and eager.replays == 0
+    assert _same_cache(srv._cache, eager._cache) and torch.equal(srv._prev, eager._prev)
+    if kind == "spec":
+        assert _same_cache(srv._d_cache, eager._d_cache)
+
+
+def test_a_push_between_segments_needs_no_new_capture():
+    _need_card()
+    from mpit_tpu_torch import random as jrandom
+    from mpit_tpu_torch.utils.params import tree_leaves, tree_map
+
+    make = _card_servers()["sampled"]
+    lm, p = _card_serve_lm()
+    g = torch.Generator().manual_seed(3)
+    push = tree_map(lambda t: (t.float().cpu() + 0.05 * torch.randn(t.shape, generator=g)).to(
+        t.device, t.dtype), p)
+    sent = tree_map(torch.clone, push)
+    reqs = [(prompt, 40) for prompt, _ in SERVE_REQS[:4]]
+    runs = {}
+    for capture in (False, True):
+        srv = make(capture=capture)
+        rids = [srv.submit(q, n, rng=jrandom.key(7 + i)) for i, (q, n) in enumerate(reqs)]
+        for _ in range(3):
+            srv.step()
+        graphs = dict(srv._graphs._graphs) if capture else {}
+        ptrs = [t.data_ptr() for t in tree_leaves(srv.params)]
+        srv.install_weights(push)
+        got = srv.drain()
+        runs[capture] = [got[r] for r in rids]
+        if capture:
+            name = ("segment", 8)
+            assert graphs[name][1] is not None and srv._graphs._graphs[name][1] is graphs[name][1]
+            assert [t.data_ptr() for t in tree_leaves(srv.params)] == ptrs
+    assert runs[True] == runs[False]
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(tree_leaves(push),
+                                                               tree_leaves(sent)))
+
+
+def test_two_servers_in_two_threads_capture_at_once():
+    _need_card()
+    import threading
+
+    servers = _card_servers()
+    want = {k: _serve(servers[k](capture=False)) for k in ("greedy", "rnn")}
+    got, errors = {}, []
+    start = threading.Barrier(2)
+
+    def serve(kind):
+        try:
+            srv = servers[kind]()
+            start.wait()
+            got[kind] = (_serve(srv), srv.replays)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in want]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert all(got[k][0] == want[k] and got[k][1] > 0 for k in want)
+
+
+def test_a_trainer_captures_while_a_server_thread_replays():
+    _need_card()
+    import threading
+
+    make = _card_servers()["greedy"]
+    reqs = [(prompt, 40) for prompt, _ in SERVE_REQS]
+    want = _serve(make(capture=False), reqs, wave=0)
+    srv = make()
+    out, errors, stop = [], [], threading.Event()
+
+    def serve():
+        try:
+            while not stop.is_set():
+                out.append(_serve(srv, reqs, wave=0))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    thread = threading.Thread(target=serve)
+    thread.start()
+    while srv.replays == 0 and thread.is_alive():
+        time.sleep(0.001)
+    runs = {}
+    for capture in (False, True):
+        tr = _card_lm(capture)
+        state = tr.init_state(torch.Generator().manual_seed(0))
+        for i in range(4):
+            state, _ = tr.step(state, *_card_tokens(i))
+        runs[capture] = (tr, state)
+    replaying = thread.is_alive()
+    stop.set()
+    thread.join()
+    assert not errors, errors
+    assert replaying and out and all(o == want for o in out)
+    assert runs[True][0].replays == 3 and _same(runs[True][1], runs[False][1])

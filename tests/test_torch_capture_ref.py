@@ -9,7 +9,7 @@ the optimizer's host values reach the unit as 0-dim tensors and the host
 moves the counts afterwards. ``ReplayOnTheHost`` (``test_torch_capture``)
 runs the unit's body there, where a graph would replay it, so every unit
 below goes through that branch. Each case starts both packages from the
-reference's init (the weight converter carries it across), feeds both the
+port's init (the weight converter carries it across), feeds both the
 same numpy-seeded batches for 2 units, with a cosine schedule on the
 learning rate, and holds the losses (and moe-sync's statistics) and the
 state to the tolerance of that trainer's own parity test.
@@ -34,7 +34,7 @@ from mpit_tpu.parallel import TensorParallelTrainer as JaxTP
 from mpit_tpu.parallel import ZeroDataParallelTrainer as JaxZero
 from mpit_tpu_torch import optim
 from mpit_tpu_torch.comm.topology import Topology
-from mpit_tpu_torch.convert import from_flax, to_flax
+from mpit_tpu_torch.convert import to_flax
 from mpit_tpu_torch.models import MLP, TransformerLM
 from mpit_tpu_torch.parallel import (
     ComposedParallelTrainer,
@@ -203,18 +203,29 @@ def _state_trees(state):
     return [state.center, state.worker_params, state.center_history]
 
 
+def _reference_state(jt, init, sample):
+    """The reference's ``init_state`` from the port's init ``init`` (flax
+    layout): Downpour takes it as ``params=``; the others' model answers
+    its ``init`` with it (compiling the reference's own init took most of
+    this file's time)."""
+    params = jax.tree.map(jnp.asarray, init)
+    if isinstance(jt, JaxDownpour):
+        return jt.init_state(jax.random.key(0), params=params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(jt.model), "init", lambda self, *a, **k: {"params": params})
+        return jt.init_state(jax.random.key(0), jnp.asarray(sample))
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_the_replay_branch_trains_as_the_reference(name):
     tol, make = CASES[name]
     loss_tol, state_tol = TOLS[tol]
     jt, pt, batch, sample = make()
     pt._graph = ReplayOnTheHost()
-    # the reference's init as one program (its op-by-op init is most of
-    # this file's time otherwise); the port starts from its values
-    js = jax.jit(jt.init_state)(jax.random.key(0), jnp.asarray(sample))
-    init = jax.tree.map(np.asarray, jax.device_get(
-        js.params if hasattr(js, "params") else js.center))
-    ps = pt.init_state(params=from_flax(init, device="cpu"))
+    # both start from the port's seeded init
+    ps = pt.init_state(torch.Generator().manual_seed(0))
+    js = _reference_state(jt, to_flax(ps.params if hasattr(ps, "params") else ps.center),
+                          sample)
     for u in range(UNITS):
         js, jm = jt.step(js, *batch(u))
         ps, pm = pt.step(ps, *batch(u))
