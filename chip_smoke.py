@@ -38,6 +38,22 @@ non-zero before the result lines:
              events and device time, beside the bound, the plain version and
              ``scaled_dot_product_attention`` (forward, and its autograd
              backward) as the library yardstick.
+6b. products — the bf16-operand, float32-result products
+             (``ops/products.py``: the reference's
+             ``preferred_element_type=float32`` contractions) at each site's
+             full-width shape: the LM's tied head (4,096 × 768 → 10,000),
+             ``ptb-lstm-easgd``'s head (512 × 512 → 10,000), QKᵀ of the LM's
+             dense attention (8, 512, 12, 64) and of seq-sync's ring block
+             at (2, 4), and a decode tick's 8 rows (head and scores); the
+             card route (cuBLAS, bf16 inputs, f32 result) against the plain
+             one (both operands widened, TF32 off) within the summation
+             bound ``K · 2⁻²⁴ · (|a|·|b|) + 1e-30``, each route's device ms
+             (profiler) and kernels, the card route faster at the LM head;
+             the LSTM head under ``vmap(grad_and_value)`` over W = 8 (no
+             per-worker fallback; logits within the bound, gradients within
+             one bf16 ulp plus their own bound); the LM head's forward and
+             backward captured, the replay equal to eager bit for bit. One
+             JSON line, ``{"products": [...]}``.
 7. round   — one EASGD round of an f32 LeNet, W = 8, on the card (kernel)
              against the same round on the CPU (plain version).
 8. step    — one sync-DP step of an f32 2-layer flash transformer on the card
@@ -429,6 +445,11 @@ def device_ms(fn, reps: int = 20) -> float:
     """Device time per call: the card's kernel time under ``torch.profiler``
     summed over ``reps`` calls, divided by ``reps``. Unlike :func:`time_ms`
     it leaves out the host's launch overhead between small kernels."""
+    return device_kernels(fn, reps)[0]
+
+
+def device_kernels(fn, reps: int = 20) -> tuple[float, list]:
+    """:func:`device_ms` and the names of the kernels the calls ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -441,11 +462,11 @@ def device_ms(fn, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in events)
         if total > 0:
-            return total / 1e3 / reps
-    return float("nan")  # not measured
+            return total / 1e3 / reps, sorted({e.key[:72] for e in events})
+    return float("nan"), []  # not measured
 
 
 def elastic_bytes(w: int, n: int) -> int:
@@ -804,6 +825,175 @@ def flash_vs_plain() -> dict:
               f"CUDA-core kernel's {rows[name]['device_ms']:.6f} ms "
               f"({rows[name]['device_ms'] / new['device_ms']:.2f}x), SDPA "
               f"{new['device_library_ms']:.6f} ms, bound {new['bound_ms']:.6f} ms")
+    return rows
+
+
+PRODUCT_LSTM_HIDDEN = 512  # LSTMLM's default, which run() builds
+
+
+def product_cases(gen) -> dict:
+    """Each product site's bf16 operands on the card at the main paths'
+    sizes, laid out as the model hands them to ``matmul_f32``, and whether
+    the site multiplies through ``matmul_rows`` (the decode rows): the sync
+    flash LM's tied head (8 × 512 rows, 768 → 10,000), ``ptb-lstm-easgd``'s
+    head (one worker's 16 × 32 rows, hidden 512 → 10,000), QKᵀ of the LM's
+    dense attention and of seq-sync's ring block at (dp, sp) = (2, 4), and
+    a decode tick's 8 rows (the head, and the scores over a 512-slot
+    cache)."""
+    from mpit_tpu_torch.models.layers import ROW_BLOCK
+    from mpit_tpu_torch.utils.config import TrainConfig
+
+    b, t, h, d = LM_SHAPE
+    vocab, width, sp = 10_000, h * d, 4
+    lstm = TrainConfig().apply_preset("ptb-lstm-easgd")
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).bfloat16()
+
+    q, k = bf16(b, t, h, d), bf16(b, t, h, d)
+    qr, kr = bf16(sp, b, t // sp, h, d), bf16(sp, b, t // sp, h, d)
+    return {
+        "lm-head": (bf16(b, t, width), bf16(vocab, width).t(), False),
+        "lstm-head": (bf16(lstm.global_batch // WORKERS, lstm.seq_len, PRODUCT_LSTM_HIDDEN),
+                      bf16(PRODUCT_LSTM_HIDDEN, vocab), False),
+        "dense-qk": (q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1), False),
+        "ring-qk": (qr.permute(0, 1, 3, 2, 4), kr.permute(0, 1, 3, 4, 2), False),
+        "decode-head": (bf16(ROW_BLOCK, 1, width), bf16(vocab, width).t(), True),
+        "decode-qk": (bf16(ROW_BLOCK, h, 1, d), bf16(ROW_BLOCK, h, d, t), True),
+    }
+
+
+def plain_product(a, b):
+    """The products' plain route: both operands widened to float32."""
+    return a.float() @ b.float()
+
+
+def summation_bound(a, b):
+    """Elementwise ``K · 2⁻²⁴ · (|a| · |b|) + 1e-30``: two float32 sums of
+    the same exact products (bf16 × bf16 is exact in float32) taken in two
+    orders differ by no more."""
+    return a.shape[-1] * 2.0 ** -24 * plain_product(a.abs(), b.abs()) + 1e-30
+
+
+def within_bf16_ulp(got, want, slack):
+    """Two bf16 roundings of float32 values at most ``slack`` apart: one
+    bf16 ulp of the larger apart, plus the slack."""
+    gap = (got.float() - want.float()).abs()
+    ulp = 2.0 ** -7 * torch.maximum(got.float().abs(), want.float().abs())
+    return bool((gap <= ulp + slack).all())
+
+
+def products_path() -> list:
+    """The bf16-operand, float32-result products (``ops/products.py``) on
+    the card against their plain route at each site's full-width shape:
+    within the summation bound, routed through ``Bf16Product``, timed by
+    the profiler with their kernels' names; the LSTM head under
+    ``vmap(grad_and_value)`` over the W = 8 stacked workers; the LM head's
+    forward and backward replayed from a CUDA graph bit-equal to eager."""
+    import warnings
+
+    from mpit_tpu_torch.models.layers import matmul_rows
+    from mpit_tpu_torch.ops.products import matmul_f32
+    from mpit_tpu_torch.parallel.capture import capture_graph
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the plain route")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for site, (a, b, decode) in product_cases(gen).items():
+        def route(mm, a=a, b=b, decode=decode):
+            return (lambda: matmul_rows(a, b, mm)) if decode else (lambda: mm(a, b))
+
+        card, plain = route(matmul_f32)(), route(plain_product)()
+        a_grad = a.detach().requires_grad_(True)
+        fn = type(matmul_f32(a_grad, b).grad_fn).__name__
+        bound = summation_bound(a, b)
+        err = (card - plain).abs()
+        if card.dtype != torch.float32 or fn != "Bf16ProductBackward":
+            raise AssertionError(f"{site}: {card.dtype} through {fn}, not the card route")
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"{site}: |card - plain| {float(err.max()):.3g} over the "
+                                 f"summation bound at {float((err / bound).max()):.3g}x")
+        card_ms, card_k = device_kernels(route(matmul_f32))
+        plain_ms, plain_k = device_kernels(route(plain_product))
+        m, n, k = card.numel() // card.shape[-1], card.shape[-1], a.shape[-1]
+        flops = 2 * m * n * k
+        moved = 2 * (a.numel() + b.numel()) + 4 * card.numel()
+        rows.append(dict(
+            site=site, a=list(a.shape), b=list(b.shape), k=k,
+            max_abs_err=float(err.max()), max_err_over_bound=float((err / bound).max()),
+            card_ms=card_ms, plain_ms=plain_ms,
+            bound_ms=1e3 * max(flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S),
+            card_kernels=card_k, plain_kernels=plain_k))
+        phase("products", f"{site}: a {tuple(a.shape)} b {tuple(b.shape)}, K {k}: "
+              f"max |card - plain| {float(err.max()):.3g} "
+              f"({float((err / bound).max()):.3g} of the bound); device ms card "
+              f"{card_ms:.6f}, plain {plain_ms:.6f} ({plain_ms / card_ms:.2f}x)")
+    head = rows[0]
+    if not head["card_ms"] < head["plain_ms"]:
+        raise AssertionError(f"lm-head: the card route {head['card_ms']} ms is not "
+                             f"faster than the plain {head['plain_ms']} ms")
+
+    # the LSTM head as the EASGD round runs it: vmap(grad_and_value) over
+    # the stacked workers' f32 kernels, cast to bf16 inside; a loss linear
+    # in the logits makes the gradient the VJP of one cotangent
+    a, b, _ = product_cases(gen)["lstm-head"]
+    xs = torch.randn((WORKERS, *a.shape), generator=gen, device="cuda").bfloat16()
+    ks = torch.randn((WORKERS, *b.shape), generator=gen, device="cuda")
+    cts = torch.randn((WORKERS, *a.shape[:-1], b.shape[-1]), generator=gen, device="cuda")
+
+    def head_loss(mm):
+        def loss(k, x, ct):
+            logits = mm(x, k.bfloat16())
+            return (logits * ct).sum(), logits
+        return torch.func.grad_and_value(loss, has_aux=True)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        grads, (_, logits) = torch.func.vmap(head_loss(matmul_f32))(ks, xs, cts)
+    fallback = [str(w.message)[:120] for w in caught if "performance drop" in str(w.message)]
+    if fallback:
+        raise AssertionError(f"vmap fell back to a per-worker loop: {fallback}")
+    worst = 0.0
+    for i in range(WORKERS):
+        g, (_, want) = head_loss(plain_product)(ks[i], xs[i], cts[i])
+        bound = summation_bound(xs[i], ks[i].bfloat16())
+        slack = summation_bound(xs[i].reshape(-1, a.shape[-1]).t(),
+                                cts[i].reshape(-1, b.shape[-1]))
+        if not (bool(((logits[i] - want).abs() <= bound).all())
+                and within_bf16_ulp(grads[i], g, slack)):
+            raise AssertionError(f"worker {i}: vmap(grad) of the card route off the plain "
+                                 "route's logits or gradient")
+        worst = max(worst, float((grads[i] - g).abs().max()))
+    phase("products", f"lstm-head under vmap(grad_and_value), W = {WORKERS}: no per-worker "
+          f"fallback; logits within the summation bound, gradients within one bf16 ulp "
+          f"and the bound (max |gradient difference| {worst:.3g})")
+
+    # the LM head's forward and backward captured, replayed against eager
+    a, b, _ = product_cases(gen)["lm-head"]
+    ct = torch.randn((*a.shape[:-1], b.shape[-1]), generator=gen, device="cuda")
+
+    def body():
+        # the gradient as the trainers take it (torch.func), so that no
+        # autograd node of an earlier call ties the capture to the default
+        # stream
+        out, vjp = torch.func.vjp(matmul_f32, a, b)
+        return (out, *vjp(ct))
+
+    eager = body()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()  # the warm-up, on the capturing stream, as the trainers warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph, static, _ = capture_graph(side, body)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(same_bits(s, e) for s, e in zip(static, eager)):
+        raise AssertionError("lm-head: the captured replay differs from eager")
+    phase("products", "lm-head forward and backward: a captured replay equals eager "
+          "bit for bit")
+    phase("products", json.dumps({"products": rows}))
     return rows
 
 
@@ -4835,6 +5025,7 @@ def main() -> int:
     timed("native", native_phase)
     kernel = timed("kernels", kernels_vs_plain)
     flash = timed("flash", flash_vs_plain)
+    timed("products", products_path)
     timed("round", round_vs_cpu)
     step_launches = timed("step", step_vs_cpu)
     kernel.update(timed("main", main_path, kernel["ms"]))

@@ -309,22 +309,24 @@ def pad_rows(x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], dim)
 
 
-def matmul_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with the row count padded by zero rows to a multiple of
-    :data:`ROW_BLOCK` and the pad rows dropped from the result. A caller
-    that hands it a row count which does not depend on the batch (a block
-    of :data:`ROW_BLOCK` decode rows, one row's prompt chunk) gets each
-    row's result from a product of one shape, whoever calls. ``b`` 2-D:
-    ``a`` (..., K), every leading dim one row; ``b`` batched: ``a`` (...,
-    M, K)."""
+def matmul_rows(a: torch.Tensor, b: torch.Tensor, matmul=torch.matmul) -> torch.Tensor:
+    """``matmul(a, b)`` with the row count padded by zero rows to a
+    multiple of :data:`ROW_BLOCK` and the pad rows dropped from the result.
+    A caller that hands it a row count which does not depend on the batch
+    (a block of :data:`ROW_BLOCK` decode rows, one row's prompt chunk) gets
+    each row's result from a product of one shape, whoever calls. ``b``
+    2-D: ``a`` (..., K), every leading dim one row; ``b`` batched: ``a``
+    (..., M, K). ``matmul`` is ``torch.matmul`` or
+    :func:`~mpit_tpu_torch.ops.products.matmul_f32`."""
     if b.dim() == 2:
         rows = a.reshape(-1, a.shape[-1])
-        return matmul_rows(rows[None], b[None])[0].reshape(*a.shape[:-1], b.shape[-1])
+        out = matmul_rows(rows[None], b[None], matmul)[0]
+        return out.reshape(*a.shape[:-1], b.shape[-1])
     m = a.shape[-2]
     padded = -(-m // ROW_BLOCK) * ROW_BLOCK
     if padded == m:
-        return a @ b
-    return (pad_rows(a, padded, -2) @ b)[..., :m, :]
+        return matmul(a, b)
+    return matmul(pad_rows(a, padded, -2), b)[..., :m, :]
 
 
 def reset_children(module: nn.Module, generator: torch.Generator) -> None:

@@ -4,11 +4,11 @@
 Embedding → ``num_layers`` :class:`~mpit_tpu_torch.models.layers.OptimizedLSTMCell`
 layers (float32 carries and outputs, gate products in ``compute_dtype``)
 → the vocab head. Takes (B, T) integer tokens, returns (B, T, V) float32
-logits. The head multiplies ``compute_dtype`` operands with float32
-accumulation and then adds the bias rounded to ``compute_dtype``, as the
-reference's ``preferred_element_type=float32`` Dense does; here the
-operands are upcast to float32 first, which gives the same numbers
-(products of bf16 values are exact in float32; keep TF32 off on the card).
+logits. The head multiplies ``compute_dtype`` operands into a float32
+result (:func:`~mpit_tpu_torch.ops.products.matmul_f32`: on the card's
+tensor cores for bf16) and then adds the bias rounded to
+``compute_dtype``, as the reference's ``preferred_element_type=float32``
+Dense does.
 Not cuDNN's ``nn.LSTM``: it keeps bf16 carries and has no batching rule
 for ``torch.func.vmap`` over per-worker weights.
 
@@ -34,6 +34,7 @@ from mpit_tpu_torch.comm.topology import resolve_device
 from mpit_tpu_torch.models.layers import (
     Dense, Embed, Model, OptimizedLSTMCell, matmul_rows,
 )
+from mpit_tpu_torch.ops.products import matmul_f32
 
 
 class LSTMLM(Model):
@@ -79,9 +80,9 @@ class LSTMLM(Model):
         the bias rounded to the head's operand dtype before the add, as
         the forward's head adds it."""
         dt = self._head_operand_dtype
-        kernel = params["Dense_0"]["kernel"].to(dt).float()
+        kernel = params["Dense_0"]["kernel"].to(dt)
         bias = params["Dense_0"]["bias"].to(dt).float()
-        return matmul_rows(h.to(dt).float(), kernel) + bias
+        return matmul_rows(h.to(dt), kernel, matmul_f32) + bias
 
     def forward(self, tokens: torch.Tensor, cache=None, seq_lengths=None):
         if seq_lengths is not None and not self.decode:
@@ -99,8 +100,9 @@ class LSTMLM(Model):
                                              matmul=matmul_rows)
         if self.head:
             dt = self._head_operand_dtype
-            kernel = self.Dense_0.kernel.to(dt).float()
-            bias = self.Dense_0.bias.to(dt).float()
-            mm = matmul_rows if self.decode else torch.matmul
-            x = mm(x.to(dt).float(), kernel) + bias
+            kernel, bias = self.Dense_0.kernel.to(dt), self.Dense_0.bias.to(dt).float()
+            if self.decode:
+                x = matmul_rows(x.to(dt), kernel, matmul_f32) + bias
+            else:
+                x = matmul_f32(x.to(dt), kernel) + bias
         return (x, new) if self.decode else x

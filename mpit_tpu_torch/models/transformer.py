@@ -6,10 +6,10 @@ A pre-LN decoder: each block is LayerNorm → bias-free qkv Dense split as
 Dense → residual, then LayerNorm → Dense → ``gelu`` (tanh form, flax's
 default) → Dense → residual. Token embedding plus a float32
 ``pos_embedding`` table cast to the compute dtype; a final LayerNorm; the
-tied head returns float32 logits computed from float32 operands holding the
-compute-dtype values (products of bf16 values are exact in f32, so this is
-the reference's bf16 einsum with f32 accumulation, never bf16 logits; keep
-TF32 off on the card).
+tied head returns float32 logits of the compute-dtype operands, the
+reference's einsum with ``preferred_element_type=float32``, never bf16
+logits (:func:`~mpit_tpu_torch.ops.products.matmul_f32`: bf16 operands on
+the card's tensor cores; so are the attention scores QKᵀ).
 
 ``attn_impl``: ``"xla"`` is :func:`dense_attention`; ``"flash"`` is
 :func:`flash_attention` (the CUDA kernels for CUDA tensors, their plain
@@ -114,6 +114,7 @@ from mpit_tpu_torch.models.layers import (
 from mpit_tpu_torch.models.layers import lecun_normal_
 from mpit_tpu_torch.ops.flash_attention import flash_attention
 from mpit_tpu_torch.ops.moe import moe_ffn, moe_ffn_dense_reference
+from mpit_tpu_torch.ops.products import matmul_f32
 from mpit_tpu_torch.ops.ring_attention import dense_attention, ring_attention
 from mpit_tpu_torch.ops.ulysses import ulysses_attention
 
@@ -301,8 +302,8 @@ def _cached_attention(q, k, v, cache):
     rows = torch.arange(n, device=q.device)[:, None]
     ck[rows, slots] = k[:n].to(ck.dtype)
     cv[rows, slots] = v[:n].to(cv.dtype)
-    keys, values = pad_rows(ck.float(), w), pad_rows(cv.float(), w)
-    s = matmul_rows(q.float().permute(0, 2, 1, 3), keys.permute(0, 2, 3, 1)) / (d ** 0.5)
+    keys, values = pad_rows(ck, w), pad_rows(cv.float(), w)
+    s = matmul_rows(q.permute(0, 2, 1, 3), keys.permute(0, 2, 3, 1), matmul_f32) / (d ** 0.5)
     mask = (torch.arange(length, device=q.device)[None, None, :]
             <= pad_rows(i.long(), w)[:, None, None] + steps[None, :, None])  # (w, t, L)
     s = torch.where(mask[:, None], s, float("-inf"))
@@ -438,14 +439,14 @@ class TransformerLM(Model):
 
     def head_logits(self, params: dict, h: torch.Tensor) -> torch.Tensor:
         """The tied head on (B, d_model) hidden rows of a ``head=False``
-        run: the projection the forward ends with (float32 operands
-        holding head-dtype values), so prefill and tick logits agree; the
+        run: the projection the forward ends with (head-dtype operands,
+        float32 result), so prefill and tick logits agree; the
         rows are projected ``ROW_BLOCK`` at a time, as a tick projects
         them."""
         hdt = self._head_operand_dtype
-        table = params["Embed_0"]["embedding"].to(hdt).float().t()
-        out = [matmul_rows(pad_rows(blk, ROW_BLOCK), table)[: blk.shape[0]]
-               for blk in h.to(hdt).float().split(ROW_BLOCK)]
+        table = params["Embed_0"]["embedding"].to(hdt).t()
+        out = [matmul_rows(pad_rows(blk, ROW_BLOCK), table, matmul_f32)[: blk.shape[0]]
+               for blk in h.to(hdt).split(ROW_BLOCK)]
         return out[0] if len(out) == 1 else torch.cat(out)
 
     def forward(self, tokens: torch.Tensor, cache=None, with_aux: bool = False):
@@ -484,8 +485,7 @@ class TransformerLM(Model):
         x = self.LayerNorm_0(x)
         if self.head:
             hdt = self._head_operand_dtype
-            table = self.Embed_0.embedding.to(hdt).float()
-            x = torch.matmul(x.to(hdt).float(), table.t())
+            x = matmul_f32(x.to(hdt), self.Embed_0.embedding.to(hdt).t())
         return (x, aux) if with_aux else x
 
     def _decode(self, tokens, cache):
@@ -523,8 +523,7 @@ class TransformerLM(Model):
         x = self.LayerNorm_0(x)
         if self.head:
             hdt = self._head_operand_dtype
-            table = self.Embed_0.embedding.to(hdt).float()
-            x = matmul_rows(x.to(hdt).float(), table.t())
+            x = matmul_rows(x.to(hdt), self.Embed_0.embedding.to(hdt).t(), matmul_f32)
         return x[:n]
 
 

@@ -26,16 +26,17 @@ from __future__ import annotations
 import torch
 
 from mpit_tpu_torch.comm.collectives import ring_hop
+from mpit_tpu_torch.ops.products import matmul_f32
 
 
 def dense_attention(q, k, v, causal: bool = False):
     """``(B, T, H, D) -> (B, T, H, D)``: f32 scores from the compute-dtype
-    inputs, the causal mask, softmax in f32, and P·V with P in f32, cast
-    back to ``q.dtype`` (the reference's ``preferred_element_type=f32``
-    einsums: products of bf16 values are exact in f32, so the operands are
-    widened and the sums taken in f32)."""
+    inputs (:func:`matmul_f32`, the reference's ``preferred_element_type=f32``
+    einsum), the causal mask, softmax in f32, and P·V with P in f32 (the
+    reference's einsum promotes the values to f32), cast back to
+    ``q.dtype``."""
     d = q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (d ** 0.5)
+    s = matmul_f32(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1)) / (d ** 0.5)
     if causal:
         t_q, t_k = s.shape[-2], s.shape[-1]
         mask = (torch.arange(t_k, device=s.device)[None, :]
@@ -51,7 +52,7 @@ def _online_block(m, l, acc, q, k, v, mask, scale):
     Tq)`` and ``acc`` ``(sp, B, H, Tq, D)``, all f32. A masked position
     never contributes (exp(-inf) = 0), and a row with nothing unmasked so
     far keeps l = 0."""
-    s = torch.einsum("sbqhd,sbkhd->sbhqk", q.float(), k.float()) * scale
+    s = matmul_f32(q.permute(0, 1, 3, 2, 4), k.permute(0, 1, 3, 4, 2)) * scale
     if mask is not None:
         s = torch.where(mask, s, float("-inf"))
     m_new = torch.maximum(m, s.amax(-1))
